@@ -1,0 +1,200 @@
+"""The port's kernel modules on the CPU against the JAX package.
+
+On the CPU, ``mha_flash_packed`` and ``fused_dpt_tail`` take their plain
+versions; these are held against the JAX Pallas kernels run in interpret
+mode and against the JAX plain references, in fp32, on the same numpy
+inputs. Tolerances (stated per test) cover fp32 summation order only.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from distill_any_depth_tpu.ops import resize as jresize
+from distill_any_depth_tpu.ops.attention import mha_reference
+from distill_any_depth_tpu.ops.dpt_tail import fused_dpt_tail_v2
+from distill_any_depth_tpu.ops.dpt_tail import tail_reference as jax_tail_reference
+from distill_any_depth_tpu.ops.flash_attention import mha_flash_packed as jax_mha_flash_packed
+from distill_any_depth_tpu_torch.ops import resize
+from distill_any_depth_tpu_torch.ops.attention import multi_head_attention_packed
+from distill_any_depth_tpu_torch.ops.dpt_tail import (
+    fused_dpt_tail,
+    pack_b_fragments,
+    tail_reference,
+)
+from distill_any_depth_tpu_torch.ops.flash_attention import (
+    mha_flash_packed,
+    mha_packed_reference,
+)
+
+ATTN_TOL = 2e-6  # fp32, |err| <= ATTN_TOL * (1 + |ref|)
+# fp32, |err| <= TAIL_TOL * (1 + |ref|): two 3x3 convs summed in another
+# order (K up to 9*256) and fp32 resize coordinates (see the resize tests)
+TAIL_TOL = 1e-5
+
+
+def _jax_unpacked_reference(qkv: np.ndarray, h: int) -> np.ndarray:
+    b, n, c3 = qkv.shape
+    q5 = jnp.asarray(qkv).reshape(b, n, 3, h, c3 // 3 // h)
+    return np.asarray(mha_reference(q5[:, :, 0], q5[:, :, 1], q5[:, :, 2])).reshape(b, n, -1)
+
+
+def _close(got, ref, tol):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert np.all(np.abs(got - ref) <= tol * (1 + np.abs(ref))), np.abs(got - ref).max()
+
+
+@pytest.mark.parametrize("n", [64, 197])
+def test_attention_matches_jax(n):
+    h = 2
+    qkv = np.random.RandomState(n).randn(2, n, 3 * h * 64).astype(np.float32)
+    got = mha_flash_packed(torch.from_numpy(qkv), h).numpy()
+    _close(got, np.asarray(jax_mha_flash_packed(jnp.asarray(qkv), h, interpret=True)), ATTN_TOL)
+    _close(got, _jax_unpacked_reference(qkv, h), ATTN_TOL)
+    np.testing.assert_array_equal(
+        multi_head_attention_packed(torch.from_numpy(qkv), h).numpy(), got)
+
+
+def test_attention_strongly_negative_logits():
+    """Every real logit below -60: the plain version stays exact. Held
+    against ``mha_reference`` only; the JAX packed kernel's closed-form pad
+    correction is the one at fault in this regime."""
+    h, n = 2, 197
+    rng = np.random.RandomState(7)
+    qkv = 0.01 * rng.randn(1, n, 3 * h * 64).astype(np.float32)
+    u = np.full(64, 0.125, np.float32)  # unit norm
+    qkv[:, :, : h * 64] += np.tile(80 * u, h)
+    qkv[:, :, h * 64 : 2 * h * 64] -= np.tile(10 * u, h)
+    qkv[:, :, 2 * h * 64 :] = rng.randn(1, n, h * 64)
+    s = qkv[0, :, :64] @ qkv[0, :, h * 64 : h * 64 + 64].T * 0.125
+    assert s.max() < -60
+    got = mha_flash_packed(torch.from_numpy(qkv), h).numpy()
+    assert np.isfinite(got).all()
+    # logits near -100 carry ~100 * 2**-24 * a few of fp32 rounding, and the
+    # two packages scale at different points ((q*scale).k against
+    # (q.k)*scale): each probability moves by ~1e-5 relative
+    _close(got, _jax_unpacked_reference(qkv, h), 5e-5)
+
+
+def test_attention_rounds_probabilities_to_input_dtype():
+    """bf16 input: exp(s - m) is rounded to bf16 before PV and the sum is
+    taken over the rounded values, as in the TPU kernel."""
+    h, n = 1, 33
+    qkv = torch.from_numpy(np.random.RandomState(3).randn(1, n, 3 * 64).astype(np.float32))
+    qkv = qkv.to(torch.bfloat16)
+    got = mha_packed_reference(qkv, h)
+    assert got.dtype == torch.bfloat16
+    q, k, v = (x.float() for x in qkv[0].view(n, 3, 64).unbind(1))
+    s = q @ k.T * 0.125
+    e = torch.exp(s - s.amax(-1, keepdim=True)).to(torch.bfloat16).float()
+    want = ((e @ v) / e.sum(-1, keepdim=True)).to(torch.bfloat16)
+    torch.testing.assert_close(got[0], want, rtol=0, atol=0)
+
+
+def _tail_params(rng, ci, cm):
+    return dict(
+        k1=rng.randn(3, 3, ci, cm) * 0.05, b1=rng.randn(cm) * 0.1,
+        k2=rng.randn(3, 3, cm, 32) * 0.05, b2=rng.randn(32) * 0.1,
+        kd=rng.randn(32, 1) * 0.2, bd=rng.randn(1) * 0.1,
+    )
+
+
+@pytest.mark.parametrize(
+    "ht,wt,ci,cm,oh,ow,trailing",
+    [
+        (8, 8, 128, 64, 28, 28, True),
+        (16, 12, 128, 64, 56, 42, False),  # non-square, teacher-style tail
+        (14, 14, 256, 128, 98, 98, True),  # ViT-L channel widths
+    ],
+)
+def test_tail_matches_jax(ht, wt, ci, cm, oh, ow, trailing):
+    rng = np.random.RandomState(0)
+    p = {k: v.astype(np.float32) for k, v in _tail_params(rng, ci, cm).items()}
+    t = (rng.randn(2, ht, wt, ci) * 0.5).astype(np.float32)
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    want_kernel = fused_dpt_tail_v2(jnp.asarray(t), (oh, ow), trailing_relu=trailing,
+                                    interpret=True, **jp)
+    want_plain = jax_tail_reference(jnp.asarray(t), (oh, ow), trailing_relu=trailing,
+                                    dtype=jnp.float32, **jp)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    got = tail_reference(torch.from_numpy(t), (oh, ow), trailing_relu=trailing, **tp)
+    assert got.shape == (2, oh, ow)
+    _close(got.numpy(), want_kernel, TAIL_TOL)
+    _close(got.numpy(), want_plain, TAIL_TOL)
+    # on a CPU tensor the wrapper is the plain version, and counts no launch
+    before = fused_dpt_tail.launches
+    np.testing.assert_array_equal(
+        fused_dpt_tail(torch.from_numpy(t), (oh, ow), trailing_relu=trailing, **tp).numpy(),
+        got.numpy())
+    assert fused_dpt_tail.launches == before
+
+
+def test_cpu_wrappers_count_no_launch():
+    qkv = torch.randn(1, 10, 3 * 64)
+    before = mha_flash_packed.launches
+    mha_flash_packed(qkv, 1)
+    assert mha_flash_packed.launches == before
+
+
+def test_pack_b_fragments_follows_mma_layout():
+    """Lane 4g+t of k-step ks, n-tile pair np holds (b0, b1) of n-tiles
+    2np and 2np+1: b0 = B[16ks+2t+{0,1}, n], b1 = B[16ks+8+2t+{0,1}, n],
+    n = 8*tile + g (mma.sync m16n8k16 B-fragment layout)."""
+    k, n = 48, 32
+    bmat = torch.arange(k * n, dtype=torch.float32).reshape(k, n)
+    packed = pack_b_fragments(bmat)
+    assert packed.shape == (k // 16, n // 16, 32, 2, 2, 2)
+    for ks in range(k // 16):
+        for np_ in range(n // 16):
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                for jj in range(2):
+                    col = 8 * (2 * np_ + jj) + g
+                    for half in range(2):
+                        rows = [16 * ks + 8 * half + 2 * t + p for p in range(2)]
+                        assert packed[ks, np_, lane, jj, half].tolist() == \
+                            bmat[rows, col].tolist()
+
+
+@pytest.mark.parametrize("in_size,out_size", [(8, 16), (112, 224), (224, 392), (5, 9)])
+def test_bilinear_align_corners_matches_matrix(in_size, out_size):
+    x = torch.from_numpy(np.random.RandomState(0).randn(1, 2, in_size, 3).astype(np.float32))
+    got = F.interpolate(x, size=(out_size, 3), mode="bilinear", align_corners=True)
+    m = resize.resize_matrix(in_size, out_size, "bilinear", True)
+    np.testing.assert_array_equal(m, jresize.resize_matrix(in_size, out_size, "bilinear", True))
+    # torch computes the source coordinate in fp32 (the matrix in fp64): the
+    # interpolation weight moves by up to ~in_size * 2**-24
+    np.testing.assert_allclose(got.numpy(), np.einsum("Oi,bcix->bcOx", m, x.numpy()),
+                               rtol=0, atol=in_size * 2.0**-20)
+
+
+@pytest.mark.parametrize("g", [7, 16, 28, 37, 50])
+def test_bicubic_scale_factor_matches_matrix(g):
+    """The pos-embed resampling: bicubic with the +0.1 scale factor."""
+    base = 37
+    x = torch.from_numpy(np.random.RandomState(1).randn(1, 3, base, 4).astype(np.float32))
+    scale = (g + 0.1) / base
+    got = F.interpolate(x, scale_factor=(scale, 1.0), mode="bicubic", align_corners=False)
+    assert got.shape[2] == g
+    m = resize.resize_matrix(base, g, "bicubic", False, scale)
+    # fp32 source coordinates in torch against fp64 in the matrix
+    np.testing.assert_array_equal(m, jresize.resize_matrix(base, g, "bicubic", False, scale))
+    np.testing.assert_allclose(got.numpy(), np.einsum("Oi,bcix->bcOx", m, x.numpy()),
+                               rtol=0, atol=1e-5)
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from distill_any_depth_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "CUDA_NVCC", str(tmp_path / "no-nvcc"))
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "_loaded", {})
+    target = _build._target("dpt_tail")
+    assert target.parent == tmp_path and target.name.startswith("libdpt_tail_")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("dpt_tail")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+    assert not any(tmp_path.iterdir())
