@@ -46,6 +46,12 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 
 ARCH, RES, BATCH = "depthanything-base", 392, 8
 
+BF16_ATTN_TOL = 6e-3  # max |err| / (1 + |ref|), bf16 kernel 1 against its plain version
+# card bf16 against CPU fp32, min-max-normalized depth of one image, over the
+# pixels where either depth is positive (the rest are ReLU zeros in both):
+# about 3x the readings on an H100 (max 0.0352, mean 0.0062, 1 - corr 0.0012)
+E2E_MAX, E2E_MEAN, E2E_CORR = 0.1, 0.02, 0.996
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -116,9 +122,11 @@ def attention_case(name, b, n, h, dtype, tol, gen, negative=False):
         log(f"[attention] {name}: max real logit {s.max().item():.1f}")
         check(s.max().item() < -60, f"attention {name}: logits not below -60")
     abs_err, rel_err = errors(got, ref)
-    ok = bool(((got.float() - ref.float()).abs() <= tol * (1 + ref.float().abs())).all())
+    reading = ((got.float() - ref.float()).abs() / (1 + ref.float().abs())).max().item()
+    ok = reading <= tol
     log(f"[attention] {name}: B={b} N={n} H={h} {str(dtype)[6:]} max_abs_err={abs_err:.3e} "
-        f"max_rel_err={rel_err:.3e} tol=|err|<={tol:g}*(1+|ref|) {'ok' if ok else 'FAIL'}")
+        f"max_rel_err={rel_err:.3e} max|err|/(1+|ref|)={reading:.3e} tol={tol:g} "
+        f"{'ok' if ok else 'FAIL'}")
     check(ok, f"attention {name} outside tolerance")
     return abs_err
 
@@ -126,13 +134,15 @@ def attention_case(name, b, n, h, dtype, tol, gen, negative=False):
 def phase_attention(gen) -> float:
     # bf16: P is rounded against the running max (online softmax) where the
     # plain version rounds against the row max, and the output is rounded
-    # to bf16: a few bf16 ulps (2^-8 relative each).
-    err = attention_case("slice shape", 8, 785, 12, torch.bfloat16, 2e-2, gen)
-    attention_case("ragged N", 2, 197, 12, torch.bfloat16, 2e-2, gen)
+    # to bf16 (half an ulp is 2^-9 relative). The limit is 2.3x the largest
+    # reading over the bf16 cases on an H100 (0.0026, ragged N).
+    err = attention_case("slice shape", 8, 785, 12, torch.bfloat16, BF16_ATTN_TOL, gen)
+    attention_case("ragged N", 2, 197, 12, torch.bfloat16, BF16_ATTN_TOL, gen)
     # fp32: only the summation order differs
     attention_case("fp32", 2, 197, 12, torch.float32, 1e-5, gen)
     attention_case("logits < -60 fp32", 2, 197, 4, torch.float32, 1e-5, gen, negative=True)
-    attention_case("logits < -60 bf16", 2, 197, 4, torch.bfloat16, 2e-2, gen, negative=True)
+    attention_case("logits < -60 bf16", 2, 197, 4, torch.bfloat16, BF16_ATTN_TOL, gen,
+                   negative=True)
     return err
 
 
@@ -225,14 +235,16 @@ def phase_main_path(model, images) -> dict:
     def norm(d):
         return (d - d.min()) / (d.max() - d.min() + 1e-8)
 
-    a, r = norm(depth[0]), norm(ref)
+    live = (depth[0] > 0) | (ref > 0)
+    check(live.mean() > 0.05, f"main: only {live.mean():.3f} of the pixels have depth > 0")
+    a, r = norm(depth[0])[live], norm(ref)[live]
     diff = np.abs(a - r)
-    corr = float(np.corrcoef(a.ravel(), r.ravel())[0, 1])
-    # bf16 through 12 blocks and the head against fp32: ~1% of the range
-    ok = diff.max() <= 0.1 and diff.mean() <= 0.02 and corr >= 0.99
-    log(f"[main] card bf16 vs CPU fp32, min-max-normalized depth of image 0: max_abs "
-        f"{diff.max():.4f} mean_abs {diff.mean():.5f} corr {corr:.5f} "
-        f"(tol max<=0.1, mean<=0.02, corr>=0.99) {'ok' if ok else 'FAIL'}")
+    corr = float(np.corrcoef(a, r)[0, 1])
+    ok = diff.max() <= E2E_MAX and diff.mean() <= E2E_MEAN and corr >= E2E_CORR
+    log(f"[main] card bf16 vs CPU fp32, min-max-normalized depth of image 0 over the "
+        f"{live.mean():.3f} of pixels where either is positive: max_abs {diff.max():.4f} "
+        f"mean_abs {diff.mean():.5f} corr {corr:.5f} (tol max<={E2E_MAX}, mean<={E2E_MEAN}, "
+        f"corr>={E2E_CORR}) {'ok' if ok else 'FAIL'}")
     check(ok, "main: card output disagrees with the CPU fp32 forward")
     return counts
 

@@ -7,11 +7,12 @@ in NCHW with the reference's state-dict names
 is the reference's ``ConvTranspose2d(k, stride=k)`` it stands for.
 
 The tail after refinenet1 (2x upsample, output_conv1, upsample to the
-patch-grid resolution, output_conv2 + ReLU + 1x1) runs as the CUDA kernel
-``ops/dpt_tail.fused_dpt_tail`` when the forward runs under
-``torch.no_grad()`` on a CUDA tensor, and as the plain chain otherwise.
-refinenet1's 1x1 ``out_conv`` runs before its 2x upsample on both paths: a
-1x1 conv commutes with bilinear resampling (its rows sum to one).
+patch-grid resolution, output_conv2 + ReLU + 1x1) of a 1-channel head goes
+through ``ops/dpt_tail.fused_dpt_tail``: the CUDA kernel on the card (which
+is forward-only and raises on tensors that require a gradient), its plain
+version on the CPU. A multi-channel head runs the plain chain. refinenet1's
+1x1 ``out_conv`` runs before its 2x upsample on both paths: a 1x1 conv
+commutes with bilinear resampling (its rows sum to one).
 """
 from __future__ import annotations
 
@@ -28,11 +29,6 @@ from distill_any_depth_tpu_torch.ops.resize import resize_nchw
 
 __all__ = ["ConvTranspose2d", "ResidualConvUnit", "FeatureFusionBlock", "DPTHead",
            "DepthModel"]
-
-
-def _use_tail_kernel(t: torch.Tensor) -> bool:
-    """The tail kernel is forward-only and CUDA-only."""
-    return t.is_cuda and not torch.is_grad_enabled()
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -142,7 +138,7 @@ class DPTHead(nn.Module):
 
         oh, ow = gh * self.patch_size, gw * self.patch_size
         conv2, head = s.output_conv2[0], s.output_conv2[2]
-        if self.head_out_channels == 1 and _use_tail_kernel(t):
+        if self.head_out_channels == 1:
             d = fused_dpt_tail(
                 t.permute(0, 2, 3, 1).contiguous(), (oh, ow),
                 s.output_conv1.weight.permute(2, 3, 1, 0), s.output_conv1.bias,

@@ -45,51 +45,41 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
-    out = _target(name)
-    if out.exists():
-        return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(tmp), str(_CSRC / SOURCES[name]),
-    ]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
-
-
-def _finish(job) -> tuple[bool, str]:
-    proc, tmp, out = job
-    log, _ = proc.communicate()
-    if proc.returncode == 0:
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
-    return proc.returncode == 0, log
-
-
-def build_all() -> dict[str, str]:
-    """Compile every kernel library that is not built yet, one ``nvcc``
+def build_all(names=tuple(SOURCES)) -> dict[str, str]:
+    """Compile each library in ``names`` that is not built yet, one ``nvcc``
     process per source, all started together. Returns each new build's
     compiler log (register and shared-memory use from ``-Xptxas -v``);
     raises with the log of every failed build."""
-    jobs = {name: _start(name) for name in SOURCES}
-    done = {name: _finish(job) for name, job in jobs.items() if job is not None}
-    failed = [f"nvcc failed for {SOURCES[n]}:\n{log}" for n, (ok, log) in done.items() if not ok]
+    jobs = {}
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [
+            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-o", str(tmp), str(_CSRC / SOURCES[name]),
+        ]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = proc, tmp, out
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in jobs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode:
+            failed.append(f"nvcc failed for {SOURCES[name]}:\n{logs[name]}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {name: log for name, (_, log) in done.items()}
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        job = _start(name)
-        if job is not None:
-            ok, log = _finish(job)
-            if not ok:
-                raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
-        lib = ctypes.CDLL(str(_target(name)))
-        _loaded[name] = lib
+        build_all([name])
+        lib = _loaded[name] = ctypes.CDLL(str(_target(name)))
     return lib

@@ -4,11 +4,16 @@ Marked ``cuda``: they skip without a CUDA device (decided inside each test
 through the ``cuda_device`` fixture). On a machine with a card:
 ``python -m pytest tests/test_torch_cuda.py -m cuda``. Tolerances as in
 ``chip_smoke.py``: fp32 differs by summation order only; bf16 by a few
-bf16 roundings placed differently.
+bf16 roundings placed differently (attention: max |err| / (1 + |ref|);
+tail: max |err| / max |ref|).
 """
+import dataclasses
+
 import pytest
 import torch
 
+from distill_any_depth_tpu_torch.configs import model_config
+from distill_any_depth_tpu_torch.models.factory import create_model
 from distill_any_depth_tpu_torch.ops.dpt_tail import fused_dpt_tail, tail_reference
 from distill_any_depth_tpu_torch.ops.flash_attention import (
     mha_flash_packed,
@@ -27,7 +32,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 6e-3)])
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 197])
 def test_attention_kernel_matches_plain(cuda_device, n, dtype, tol):
     gen = torch.Generator(device=cuda_device).manual_seed(n)
@@ -70,3 +75,22 @@ def test_tail_kernel_matches_plain(cuda_device, c, ht, wt, oh, ow, relu, dtype, 
     assert got.dtype == dtype and got.shape == (2, oh, ow)
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= tol * ref.float().abs().max().item()
+
+
+def test_model_runs_kernels_in_grad_mode_or_raises(cuda_device):
+    """With grad mode on, a frozen model (a distillation teacher) still runs
+    both kernels; a model whose weights require a gradient raises instead of
+    falling back to the plain versions."""
+    cfg = model_config("depthanything-base")
+    enc = dataclasses.replace(cfg.encoder, embed_dim=128, depth=2, num_heads=2,
+                              out_indices=(0, 1, 1, 1))
+    cfg = dataclasses.replace(cfg, encoder=enc, features=64, out_channels=(32, 64, 96, 128))
+    model = create_model(cfg, dtype=torch.bfloat16, device=cuda_device).requires_grad_(False)
+    x = torch.rand(1, 3, 98, 98, device=cuda_device)
+    attn, tail = mha_flash_packed.launches, fused_dpt_tail.launches
+    depth, _ = model(x)
+    assert (mha_flash_packed.launches - attn, fused_dpt_tail.launches - tail) == (2, 1)
+    assert depth.shape == (1, 98, 98) and torch.isfinite(depth).all()
+    model.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        model(x)

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from distill_any_depth_tpu.configs import MODELS as JAX_MODELS
 from distill_any_depth_tpu.models.factory import create_model as jax_create_model
@@ -22,6 +23,7 @@ from distill_any_depth_tpu.models.vit import DinoViT as JaxDinoViT
 from distill_any_depth_tpu_torch.configs import MODELS
 from distill_any_depth_tpu_torch.models import dpt
 from distill_any_depth_tpu_torch.models.factory import create_model
+from distill_any_depth_tpu_torch.ops.resize import resize_nchw
 from distill_any_depth_tpu_torch.utils.convert import params_from_jax
 
 TOL = 2e-5
@@ -101,16 +103,29 @@ def test_depth_model_matches_jax(head):
 
 
 def test_tail_kernel_branch_marshals_weights(monkeypatch):
-    """Force the DPT head's kernel branch on the CPU, where the wrapper runs
-    the plain version: the NHWC/HWIO hand-over must give the plain chain's
-    depth."""
+    """A 1-channel head hands its tail to ``fused_dpt_tail`` (NHWC ``t``, HWIO
+    weights), which runs its plain version on the CPU: the depth must be the
+    plain NCHW chain's over the head's own modules."""
     _, _, tmodel = _pair("teacher")
     _, xt = _inputs(98, 98, seed=2)
+    s = tmodel.depth_head.scratch
+    calls, taps = [], []
+    wrapper = dpt.fused_dpt_tail
+    monkeypatch.setattr(dpt, "fused_dpt_tail",
+                        lambda *a, **k: calls.append(1) or wrapper(*a, **k))
+    hook = s.refinenet1.register_forward_hook(lambda m, i, o: taps.append(o))
+    try:
+        with torch.no_grad():
+            depth, _ = tmodel(xt)
+    finally:
+        hook.remove()
+    t = taps[0]
     with torch.no_grad():
-        plain, _ = tmodel(xt)
-        monkeypatch.setattr(dpt, "_use_tail_kernel", lambda t: True)
-        via_wrapper, _ = tmodel(xt)
-    _close(via_wrapper.numpy(), plain.numpy(), 1e-5)
+        x = s.output_conv1(resize_nchw(t, (2 * t.shape[2], 2 * t.shape[3])))
+        # teacher head: no trailing ReLU in the head, the model's ReLU after it
+        plain = F.relu(s.output_conv2(resize_nchw(x, (98, 98))))[:, 0]
+    assert calls == [1]
+    _close(depth.numpy(), plain.numpy(), 1e-5)
 
 
 def test_patch_multiple_enforced():
