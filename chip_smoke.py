@@ -6,14 +6,24 @@ card and ``nvcc``, and fails (non-zero exit, no result line) without them.
 Phases, each of which fails the run if it fails:
 
 1. build every CUDA kernel from ``distill_any_depth_tpu_torch/csrc``;
-2. hold the packed attention kernel against its plain version;
-3. hold the DPT-head tail kernel against its plain version;
-4. run the main path, ``cli.infer.predict`` with ``depthanything-base`` at
-   392^2, bs8, bf16 and seeded random weights, check its output and the
-   kernels' launch counts, and hold one image against the port's CPU fp32
-   forward of the same weights;
-5. time each kernel, its plain version and its PyTorch library yardstick
-   with CUDA events, and the end-to-end forward.
+2. hold the packed attention kernel (kernel 1) and its backward (kernel 3)
+   against their plain versions (autograd of the plain attention for the
+   backward);
+3. hold the DPT-head tail kernel (kernel 2) against its plain version;
+4. hold the order-statistic select (kernel 4) against its plain version,
+   bit for bit;
+5. main path 1: ``cli.infer.predict`` with ``depthanything-base`` at 392^2,
+   bs8, bf16 and seeded random weights; check its output and the kernels'
+   launch counts, and hold one image against the port's CPU fp32 forward of
+   the same weights;
+6. main path 2: ``train.loop.Trainer`` with the ViT-L teacher and the ViT-B
+   student at bs16 392^2 in bf16 (the default loss stack, NYU shared views,
+   teacher in two bs8 chunks) on seeded synthetic images; per step, the
+   launch counts of the four kernels, finite losses and gradient norm, and
+   moved parameters; then two steps of ``cli.train`` over ``data/smoke``;
+7. one fp32 step of the same pair at bs2 on the card against the CPU;
+8. time each kernel, its plain version and its PyTorch library yardstick
+   with CUDA events, the end-to-end forward and the bs16 train step.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -33,20 +43,48 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from distill_any_depth_tpu_torch.cli.infer import predict  # noqa: E402
+from distill_any_depth_tpu_torch.cli.profile_infer import cuda_ms  # noqa: E402
+from distill_any_depth_tpu_torch.configs import TrainConfig, model_config  # noqa: E402
 from distill_any_depth_tpu_torch.models.factory import create_model  # noqa: E402
 from distill_any_depth_tpu_torch.ops import _build  # noqa: E402
 from distill_any_depth_tpu_torch.ops.dpt_tail import fused_dpt_tail, tail_reference  # noqa: E402
 from distill_any_depth_tpu_torch.ops.flash_attention import (  # noqa: E402
     mha_flash_packed,
     mha_packed_reference,
+    packed_attention_backward,
 )
+from distill_any_depth_tpu_torch.ops.stats import (  # noqa: E402
+    _order_bits,
+    kth_select,
+    kth_select_reference,
+)
+from distill_any_depth_tpu_torch.train.loop import Trainer  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 
 ARCH, RES, BATCH = "depthanything-base", 392, 8
+TEACHER, TRAIN_BATCH, TRAIN_STEPS = "depthanything-large", 16, 3
+HDN_ROWS = 7 * TRAIN_BATCH  # the dr/3 HDN contexts folded with the batch
 
 BF16_ATTN_TOL = 6e-3  # max |err| / (1 + |ref|), bf16 kernel 1 against its plain version
+# max |err| / (1 + |ref|), bf16 kernels 1 + 3 against autograd of the plain
+# version: about 3x the readings on an H100 (7.7e-3 slice shape, 6.3e-3 N = 197)
+BF16_GRAD_TOL = 2.5e-2
+# relative L2 of the whole d(qkv), bf16 kernels 1 + 3 with every logit
+# below -60: about 3x the reading on an H100 (9.95e-3)
+BF16_NEG_GRAD_L2_TOL = 3e-2
+# fp32 step of the ViT-L -> ViT-B pair at bs2, card against CPU: relative
+# errors of the loss components and the gradient norm, the relative L2 error
+# of the whole (clipped) gradient, and the parameters after the first Adam
+# update in units of lr. About 3x the readings on an H100 (components
+# <= 1.4e-7, grad norm 6.7e-5, gradient 3.4e-4, mean param 2.5e-4 lr), except
+# the max param difference: Adam's first update is about +-lr per element,
+# so an element whose gradient is near zero may flip it, a difference of 2 lr.
+FP32_STEP_TOL = {"sc rel": 5e-7, "lg rel": 5e-7, "feat rel": 5e-7, "grad rel": 5e-7,
+                 "hdn rel": 5e-7, "total rel": 5e-7, "grad_norm rel": 2e-4,
+                 "grad rel L2": 1e-3, "param mean |diff|/lr": 1e-3, "param max |diff|/lr": 2.01}
+OUT = Path(__file__).resolve().parent / "build" / "chip_smoke"  # run outputs (gitignored)
 # card bf16 against CPU fp32, min-max-normalized depth of one image, over the
 # pixels where either depth is positive (the rest are ReLU zeros in both):
 # about 3x the readings on an H100 (max 0.0352, mean 0.0062, 1 - corr 0.0012)
@@ -73,19 +111,6 @@ def errors(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return d, d / max(ref.float().abs().max().item(), 1e-30)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     """Least time (ms) for bf16 work of ``flops`` moving ``nbytes``, and which bounds it."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
@@ -104,7 +129,7 @@ def phase_build() -> None:
 
 
 # ---------------------------------------------------------------- phase 2
-def attention_case(name, b, n, h, dtype, tol, gen, negative=False):
+def attention_inputs(b, n, h, dtype, gen, negative=False):
     c = h * 64
     qkv = torch.randn(b, n, 3 * c, generator=gen, device="cuda", dtype=torch.float32)
     if negative:
@@ -112,22 +137,59 @@ def attention_case(name, b, n, h, dtype, tol, gen, negative=False):
         u = torch.full((64,), 0.125, device="cuda")
         qkv[:, :, :c] = 0.01 * qkv[:, :, :c] + (80 * u).repeat(h)
         qkv[:, :, c:2 * c] = 0.01 * qkv[:, :, c:2 * c] - (10 * u).repeat(h)
-    qkv = qkv.to(dtype)
+        s = (qkv[:, :, :64] @ qkv[:, :, c:c + 64].transpose(1, 2)) * 0.125
+        check(s.max().item() < -60, f"attention inputs: max real logit {s.max().item():.1f}")
+    return qkv.to(dtype)
+
+
+def reading_of(got, ref) -> float:
+    """max |err| / (1 + |ref|)"""
+    return ((got.float() - ref.float()).abs() / (1 + ref.float().abs())).max().item()
+
+
+def attention_case(name, b, n, h, dtype, tol, gen, negative=False):
+    qkv = attention_inputs(b, n, h, dtype, gen, negative)
     got = mha_flash_packed(qkv, h)
     ref = mha_packed_reference(qkv, h)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), f"attention {name}: non-finite output")
-    if negative:
-        s = (qkv[:, :, :64].float() @ qkv[:, :, c:c + 64].float().transpose(1, 2)) * 0.125
-        log(f"[attention] {name}: max real logit {s.max().item():.1f}")
-        check(s.max().item() < -60, f"attention {name}: logits not below -60")
     abs_err, rel_err = errors(got, ref)
-    reading = ((got.float() - ref.float()).abs() / (1 + ref.float().abs())).max().item()
+    reading = reading_of(got, ref)
     ok = reading <= tol
     log(f"[attention] {name}: B={b} N={n} H={h} {str(dtype)[6:]} max_abs_err={abs_err:.3e} "
         f"max_rel_err={rel_err:.3e} max|err|/(1+|ref|)={reading:.3e} tol={tol:g} "
         f"{'ok' if ok else 'FAIL'}")
     check(ok, f"attention {name} outside tolerance")
+    return abs_err
+
+
+def attention_grad_case(name, b, n, h, dtype, tol, gen, negative=False, l2_tol=None):
+    """d(qkv) through ``mha_flash_packed`` (kernels 1 + 3) against autograd
+    of the plain version, on the same inputs and output cotangent: max
+    |err| / (1 + |ref|) within ``tol``, or, with ``l2_tol``, the relative
+    L2 error of the whole d(qkv) within it."""
+    qkv = attention_inputs(b, n, h, dtype, gen, negative)
+    g = torch.randn(b, n, h * 64, generator=gen, device="cuda").to(dtype)
+    x = qkv.clone().requires_grad_()
+    before = packed_attention_backward.launches
+    mha_flash_packed(x, h).backward(g)
+    check(packed_attention_backward.launches == before + 1,
+          f"attention grad {name}: the backward kernel did not run")
+    xr = qkv.clone().requires_grad_()
+    mha_packed_reference(xr, h).backward(g)
+    torch.cuda.synchronize()
+    got, ref = x.grad, xr.grad
+    check(got.dtype == dtype and got.shape == qkv.shape, f"attention grad {name}: bad output")
+    check(bool(torch.isfinite(got).all()), f"attention grad {name}: non-finite d(qkv)")
+    abs_err, rel_err = errors(got, ref)
+    reading = reading_of(got, ref)
+    l2 = ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+    ok = l2 <= l2_tol if l2_tol is not None else reading <= tol
+    limit = f"rel L2 tol={l2_tol:g}" if l2_tol is not None else f"tol={tol:g}"
+    log(f"[attention grad] {name}: B={b} N={n} H={h} {str(dtype)[6:]} "
+        f"max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} max|err|/(1+|ref|)={reading:.3e} "
+        f"rel L2={l2:.3e} {limit} {'ok' if ok else 'FAIL'}")
+    check(ok, f"attention grad {name} outside tolerance")
     return abs_err
 
 
@@ -137,12 +199,36 @@ def phase_attention(gen) -> float:
     # to bf16 (half an ulp is 2^-9 relative). The limit is 2.3x the largest
     # reading over the bf16 cases on an H100 (0.0026, ragged N).
     err = attention_case("slice shape", 8, 785, 12, torch.bfloat16, BF16_ATTN_TOL, gen)
+    attention_case("teacher shape", 8, 785, 16, torch.bfloat16, BF16_ATTN_TOL, gen)
     attention_case("ragged N", 2, 197, 12, torch.bfloat16, BF16_ATTN_TOL, gen)
     # fp32: only the summation order differs
     attention_case("fp32", 2, 197, 12, torch.float32, 1e-5, gen)
     attention_case("logits < -60 fp32", 2, 197, 4, torch.float32, 1e-5, gen, negative=True)
     attention_case("logits < -60 bf16", 2, 197, 4, torch.bfloat16, BF16_ATTN_TOL, gen,
                    negative=True)
+    return err
+
+
+def phase_attention_grad(gen) -> float:
+    # bf16: P and T = P (dP - delta) are rounded to bf16 before their
+    # products in the kernel; autograd of the plain version rounds at other
+    # places (the forward's exp, the cast of its output), and the kernel's
+    # delta comes from the bf16 output.
+    err = attention_grad_case("slice shape", TRAIN_BATCH, 785, 12, torch.bfloat16,
+                              BF16_GRAD_TOL, gen)
+    attention_grad_case("ragged N", 2, 197, 12, torch.bfloat16, BF16_GRAD_TOL, gen)
+    # fp32: summation order only (readings 5.7e-7, and 7.0e-6 below -60)
+    attention_grad_case("fp32", 2, 197, 12, torch.float32, 1e-5, gen)
+    attention_grad_case("logits < -60 fp32", 2, 197, 4, torch.float32, 2e-5, gen,
+                        negative=True)
+    # bf16 below -60: d(qkv) must be finite and agree in relative L2. dQ
+    # there is a sum over near-equal keys of T = P (dP - delta), which nearly
+    # cancels, so the bf16 rounding of T (kernel) and of the forward (plain)
+    # dominate its elementwise error (max |err| / (1 + |ref|) read 8.5e-2);
+    # over the whole of d(qkv), which dV dominates, a zero or wrong output
+    # reads about 1.
+    attention_grad_case("logits < -60 bf16", 2, 197, 4, torch.bfloat16, None, gen,
+                        negative=True, l2_tol=BF16_NEG_GRAD_L2_TOL)
     return err
 
 
@@ -188,6 +274,8 @@ def phase_tail(gen) -> float:
     for c in (64, 256):
         tail_case(f"fp32 C={c}", 1, 112, 112, c, torch.float32, (RES, RES), True, 1e-5, gen)
         tail_case(f"bf16 C={c}", 1, 112, 112, c, torch.bfloat16, (RES, RES), True, 2e-2, gen)
+    # the ViT-L teacher's tail in the train step: bs8 chunks, no trailing ReLU
+    tail_case("teacher tail", 8, 112, 112, 256, torch.bfloat16, (RES, RES), False, 2e-2, gen)
     tail_case("teacher tail, ragged", 2, 13, 9, 128, torch.bfloat16, (98, 70), False, 2e-2, gen)
     tail_case("teacher tail, ragged fp32", 2, 13, 9, 128, torch.float32, (98, 70), False,
               1e-5, gen)
@@ -195,6 +283,44 @@ def phase_tail(gen) -> float:
 
 
 # ---------------------------------------------------------------- phase 4
+def select_inputs(gen):
+    """Order bits ``[112, 392^2]`` as the HDN loss's SSI medians see them,
+    with ties, +-0, ReLU zeros, a 25%-valid mask, an all-masked and an
+    all-valid row, and k at the median and at both ends of the valid
+    entries."""
+    r, n = HDN_ROWS, RES * RES
+    x = torch.randn(r, n, generator=gen, device="cuda")
+    x[0::4] = torch.round(x[0::4] * 4) / 4  # heavy ties
+    x[1::4] = torch.relu(x[1::4])  # ReLU zeros
+    x[2, : n // 2] = -0.0
+    x[2, n // 2:] = 0.0
+    mask = torch.rand(r, n, generator=gen, device="cuda") < 0.25
+    mask[3] = False
+    mask[4:8] = True
+    u = _order_bits(x, mask)
+    count = mask.sum(dim=-1)
+    k = (count - 1).clamp(min=0) // 2
+    k[5], k[6], k[7] = 0, count[6] - 1, n - 1
+    return u, k
+
+
+def phase_select(gen) -> int:
+    """Returns the largest difference of a selected index from the plain
+    version's."""
+    u, k = select_inputs(gen)
+    got = kth_select(u, k)
+    ref = kth_select_reference(u, k)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, ref))
+    err = int((got.long() - ref.long()).abs().max())
+    log(f"[select] u={list(u.shape)} int32 order bits: {int((got != ref).sum())} of "
+        f"{u.shape[0]} rows differ from the plain version, by up to {err} positions "
+        f"(exact equality required) {'ok' if same else 'FAIL'}")
+    check(same, "select kernel disagrees with its plain version")
+    return err
+
+
+# ---------------------------------------------------------------- phase 5
 def synthetic_images(n: int) -> list[np.ndarray]:
     rng = np.random.RandomState(0)
     yy, xx = np.mgrid[0:480, 0:640].astype(np.float32)
@@ -249,49 +375,226 @@ def phase_main_path(model, images) -> dict:
     return counts
 
 
-# ---------------------------------------------------------------- phase 5
-def phase_timing(model, images, counts, errs, gen) -> None:
-    # kernel 1 at the main path's shape
-    b, n, h, d = BATCH, (RES // 14) ** 2 + 1, 12, 64
-    c = h * d
-    qkv = torch.randn(b, n, 3 * c, generator=gen, device="cuda").to(torch.bfloat16)
-    q, k, v = (x.contiguous() for x in qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4))
-    attn_ms = cuda_ms(lambda: mha_flash_packed(qkv, h), iters=50)
-    attn_plain = cuda_ms(lambda: mha_packed_reference(qkv, h))
-    attn_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50)
-    attn_bound, attn_by = bound(4.0 * b * h * n * n * d, 4 * b * n * c * 2)
+# ---------------------------------------------------------------- phase 6
+def train_images(n: int, seed: int) -> np.ndarray:
+    """Seeded smooth synthetic images, ImageNet-normalized, NHWC fp32."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:RES, 0:RES].astype(np.float32) / RES
+    out = np.empty((n, RES, RES, 3), np.float32)
+    for i in range(n):
+        f = rng.uniform(2, 12, size=(3, 2))
+        ph = rng.uniform(0, 6.3, size=3)
+        rgb = np.stack([0.5 + 0.4 * np.sin(f[c, 0] * xx + f[c, 1] * yy + ph[c])
+                        for c in range(3)], -1)
+        rgb += rng.normal(0, 0.05, size=rgb.shape)
+        out[i] = (rgb - [0.485, 0.456, 0.406]) / [0.229, 0.224, 0.225]
+    return out
 
-    # kernel 2 at the main path's shape
+
+COUNTERS = {"attention": mha_flash_packed, "tail": fused_dpt_tail,
+            "attention_bwd": packed_attention_backward, "select": kth_select}
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in COUNTERS.items()}
+
+
+def reset_counts() -> None:
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def expected_step_counts(batch: int, chunk: int = 8) -> dict:
+    s, t = model_config(ARCH).encoder.depth, model_config(TEACHER).encoder.depth
+    chunks = batch // chunk if batch > chunk and batch % chunk == 0 else 1
+    return {"attention": s + chunks * t, "tail": chunks, "attention_bwd": s, "select": 2}
+
+
+def phase_train() -> tuple[Trainer, dict]:
+    """Main path 2 at the tentpole's configuration, then the CLI over
+    data/smoke. Returns the trainer and the per-step launch counts."""
+    cfg = TrainConfig(student=model_config(ARCH), teachers=(TEACHER,), batch_size=TRAIN_BATCH,
+                      image_size=RES, log_interval=10 ** 6, output_dir=str(OUT / "train"))
+    t0 = time.time()
+    trainer = Trainer(cfg, "cuda")
+    log(f"[train] Trainer({ARCH} <- {TEACHER}, bs{TRAIN_BATCH} {RES}^2 bf16) built in "
+        f"{time.time() - t0:.1f} s")
+    images = train_images(TRAIN_BATCH * TRAIN_STEPS, seed=1)
+    watched = trainer.student.pretrained.blocks[0].attn.qkv.weight
+    before = watched.detach().clone()
+    want = expected_step_counts(TRAIN_BATCH, cfg.teacher_chunk)
+    seen: list[dict] = []
+    last = {}
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now = read_counts()
+        per = {k: now[k] - last.get(k, 0) for k in now}
+        last.update(now)
+        vals = {k: float(v) for k, v in metrics.items() if k != "teacher_idx"}
+        seen.append(per)
+        log(f"[train] step {step}: {json.dumps({k: round(v, 5) for k, v in vals.items()})} "
+            f"launches {per}")
+        check(per == want, f"train step {step}: launches {per}, expected {want}")
+        check(all(np.isfinite(v) for v in vals.values()), f"train step {step}: non-finite")
+
+    def batches(epoch):
+        for i in range(TRAIN_STEPS):
+            yield {"image": images[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]}
+
+    reset_counts()
+    t0 = time.time()
+    trainer.run(batches, max_steps=TRAIN_STEPS, on_step=on_step)
+    torch.cuda.synchronize()
+    log(f"[train] {TRAIN_STEPS} steps in {time.time() - t0:.1f} s (first includes set-up)")
+    check(len(seen) == TRAIN_STEPS, f"train: {len(seen)} steps ran")
+    moved = (watched.detach() - before).abs().max().item()
+    log(f"[train] block 0 qkv weight moved by up to {moved:.3e}")
+    check(moved > 0, "train: the student's parameters did not move")
+
+    # the CLI over the repository's smoke data, at a batch it holds
+    from distill_any_depth_tpu_torch.cli import train as train_cli
+
+    out = OUT / "train_cli"
+    reset_counts()
+    history = train_cli.main([
+        "--device", "cuda", "--dataset_dir", "data/smoke", "--output_dir", str(out),
+        "--batch_size", "2", "--num_iterations", "2", "--image_size", str(RES),
+        "--use_hdn_loss", "--log_interval", "1",
+    ])
+    torch.cuda.synchronize()
+    counts, want = read_counts(), expected_step_counts(2)
+    log(f"[train] cli.train over data/smoke, bs2, 2 steps: history {history}, launches {counts}")
+    check(counts == {k: 2 * v for k, v in want.items()}, f"cli.train: launches {counts}")
+    check((out / "history.json").exists(), "cli.train: no history.json")
+    check(all(np.isfinite(history["train_loss"])), "cli.train: non-finite loss")
+    return trainer, seen[-1]
+
+
+# ---------------------------------------------------------------- phase 7
+def phase_train_vs_cpu() -> dict:
+    """One fp32 step of the ViT-L -> ViT-B pair at bs2 on the card (kernels
+    on their fp32 paths, no TF32) and on the CPU, from the same weights."""
+    cfg = TrainConfig(student=model_config(ARCH), teachers=(TEACHER,), batch_size=2,
+                      image_size=RES, student_compute_dtype="float32", teacher_dtype="float32",
+                      log_interval=10 ** 6, output_dir=str(OUT / "train_fp32"))
+    x = train_images(2, seed=2)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.time()
+        trainer = Trainer(cfg, dev)
+        metrics = {}
+        trainer.run(lambda epoch: iter([{"image": x}]), max_steps=1,
+                    on_step=lambda step, m: metrics.update(m))
+        params = trainer.state.params
+        runs[dev] = ({k: float(v) for k, v in metrics.items() if k != "teacher_idx"},
+                     torch.cat([p.detach().reshape(-1).cpu() for p in params]),
+                     torch.cat([p.grad.reshape(-1).cpu() for p in params]))
+        log(f"[fp32 step] {dev}: {json.dumps({k: round(v, 6) for k, v in runs[dev][0].items()})}"
+            f" in {time.time() - t0:.1f} s")
+        del trainer
+    (mc, pc, gc), (mr, pr, gr) = runs["cuda"], runs["cpu"]
+    readings = {f"{k} rel": abs(mc[k] - mr[k]) / max(abs(mr[k]), 1e-12) for k in mr}
+    readings["grad rel L2"] = ((gc - gr).norm() / gr.norm()).item()
+    lr = cfg.optimizer.lr
+    readings["param mean |diff|/lr"] = (pc - pr).abs().mean().item() / lr
+    readings["param max |diff|/lr"] = (pc - pr).abs().max().item() / lr
+    bad = {k: (v, FP32_STEP_TOL[k]) for k, v in readings.items() if not v <= FP32_STEP_TOL[k]}
+    log(f"[fp32 step] card vs CPU: {json.dumps(readings)} tol {json.dumps(FP32_STEP_TOL)} "
+        f"{'ok' if not bad else 'FAIL'}")
+    check(not bad, f"fp32 step: card disagrees with the CPU: {bad}")
+    return readings
+
+
+# ---------------------------------------------------------------- phase 8
+def phase_timing(model, images, counts, errs, trainer, train_counts, gen) -> None:
+    kernels = []
+
+    def entry(name, source, replaces, launches, err, ms, plain, lib, flops, nbytes, **extra):
+        b_ms, b_by = bound(flops, nbytes)
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"distill_any_depth_tpu_torch/csrc/{source}",
+                        "replaces": f"distill_any_depth_tpu/{replaces}", "launches": launches,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib, **extra})
+
+    # kernel 1 at the inference shape (ViT-B bs8) and at the teacher's (ViT-L bs8 chunk)
+    n, d = (RES // 14) ** 2 + 1, 64
+    attn = {}
+    for tag, b, h in (("student", BATCH, 12), ("teacher", 8, 16)):
+        c = h * d
+        qkv = torch.randn(b, n, 3 * c, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = (x.contiguous() for x in qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4))
+        attn[tag] = dict(
+            ms=cuda_ms(lambda: mha_flash_packed(qkv, h), iters=50),
+            plain=cuda_ms(lambda: mha_packed_reference(qkv, h)),
+            lib=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50),
+            bound=bound(4.0 * b * h * n * n * d, 4 * b * n * c * 2))
+    a = attn["student"]
+    entry("packed_attention_fwd", "flash_attention.cu", "ops/flash_attention.py:537",
+          counts["attention"], errs["attention"], a["ms"], a["plain"], a["lib"],
+          4.0 * BATCH * 12 * n * n * d, 4 * BATCH * n * 12 * d * 2,
+          launches_by_path={"infer_forward": counts["attention"],
+                            "train_step": train_counts["attention"]},
+          teacher_shape={"B": 8, "N": n, "H": 16, "ms": attn["teacher"]["ms"],
+                         "plain_ms": attn["teacher"]["plain"],
+                         "library_ms": attn["teacher"]["lib"],
+                         "bound_ms": attn["teacher"]["bound"][0]})
+
+    # kernel 2 at the inference shape
     t, w = tail_inputs(BATCH, RES // 14 * 4, RES // 14 * 4, 128, torch.bfloat16, gen)
     hu, wu = 2 * t.shape[1], 2 * t.shape[2]
-    out_bytes = BATCH * RES * RES * 2
-    w_bytes = sum(x.numel() for x in w.values()) * 4
     flops = (2.0 * BATCH * hu * wu * 9 * 128 * 64 + 2.0 * BATCH * RES * RES * 9 * 64 * 32
              + 2.0 * BATCH * RES * RES * 32)
-    tail_ms = cuda_ms(lambda: fused_dpt_tail(t, (RES, RES), trailing_relu=True, **w))
-    tail_plain = cuda_ms(lambda: tail_reference(t, (RES, RES), trailing_relu=True, **w))
-    tail_bound, tail_by = bound(flops, t.numel() * 2 + w_bytes + out_bytes)
+    w_bytes = sum(x.numel() for x in w.values()) * 4
+    entry("dpt_tail", "dpt_tail.cu", "ops/dpt_tail.py:362", counts["tail"], errs["tail"],
+          cuda_ms(lambda: fused_dpt_tail(t, (RES, RES), trailing_relu=True, **w)),
+          cuda_ms(lambda: tail_reference(t, (RES, RES), trailing_relu=True, **w)), None,
+          flops, t.numel() * 2 + w_bytes + BATCH * RES * RES * 2,
+          launches_by_path={"infer_forward": counts["tail"], "train_step": train_counts["tail"]})
 
-    kernels = [
-        {"name": "packed_attention_fwd", "route": "cuda",
-         "source": "distill_any_depth_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "distill_any_depth_tpu/ops/flash_attention.py:537",
-         "launches": counts["attention"], "max_abs_err": errs["attention"],
-         "ms": attn_ms, "plain_ms": attn_plain, "bound_ms": attn_bound, "bound_by": attn_by,
-         "library_ms": attn_lib},
-        {"name": "dpt_tail", "route": "cuda",
-         "source": "distill_any_depth_tpu_torch/csrc/dpt_tail.cu",
-         "replaces": "distill_any_depth_tpu/ops/dpt_tail.py:362",
-         "launches": counts["tail"], "max_abs_err": errs["tail"],
-         "ms": tail_ms, "plain_ms": tail_plain, "bound_ms": tail_bound, "bound_by": tail_by,
-         "library_ms": None},
-    ]
+    # kernel 3 at the student's training shape
+    b, h = TRAIN_BATCH, 12
+    c = h * d
+    qkv = torch.randn(b, n, 3 * c, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(b, n, c, generator=gen, device="cuda").to(torch.bfloat16)
+    from distill_any_depth_tpu_torch.ops.flash_attention import _forward
+
+    out, lse = _forward(qkv, h, with_lse=True)
+    xr = qkv.clone().requires_grad_()
+    out_ref = mha_packed_reference(xr, h)
+    plain = cuda_ms(lambda: torch.autograd.grad(out_ref, xr, g, retain_graph=True), iters=5)
+    q, k, v = (x.detach().contiguous().requires_grad_()
+               for x in qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4))
+    go = g.view(b, n, h, d).transpose(1, 2).contiguous()
+    sdpa_fb = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(q, k, v),
+                                                  (q, k, v), go), iters=50)
+    with torch.no_grad():
+        sdpa_f = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50)
+    entry("packed_attention_bwd", "flash_attention_bwd.cu", "ops/flash_attention.py:731",
+          train_counts["attention_bwd"], errs["attention_bwd"],
+          cuda_ms(lambda: packed_attention_backward(qkv, out, lse, g, h), iters=50), plain,
+          sdpa_fb - sdpa_f, 10.0 * b * h * n * n * d, (3 * c + c + c + 3 * c) * b * n * 2,
+          launches_by_path={"infer_forward": 0, "train_step": train_counts["attention_bwd"]})
+
+    # kernel 4 at the HDN loss's shape
+    u, kk = select_inputs(gen)
+    wide = u.to(torch.int64) & 0xFFFFFFFF
+    entry("kth_select", "kth_select.cu", "ops/stats.py:131", train_counts["select"],
+          errs["select"],
+          cuda_ms(lambda: kth_select(u, kk), iters=50),
+          cuda_ms(lambda: kth_select_reference(u, kk), iters=5),
+          cuda_ms(lambda: torch.kthvalue(wide, RES * RES // 2, dim=-1), iters=10),
+          0.0, u.numel() * 4 + kk.numel() * 4 + u.shape[0] * 4,
+          launches_by_path={"infer_forward": 0, "train_step": train_counts["select"]},
+          library_note="torch.kthvalue over int64 order bits, one k for every row: the "
+                       "value, not the first index")
     for kd in kernels:
         log(f"[timing] {kd['name']}: kernel {kd['ms']:.4f} ms, plain {kd['plain_ms']:.4f} ms, "
             f"library {kd['library_ms']}, bound {kd['bound_ms']:.4f} ms ({kd['bound_by']}), "
-            f"{kd['launches']} launch(es) per forward")
+            f"launches {kd['launches_by_path']}")
 
-    # end to end: the bs8 forward alone, and predict() with preprocessing
+    # end to end, path 1: the bs8 forward alone, and predict() with preprocessing
     from distill_any_depth_tpu_torch.ops.preprocess import preprocess_on_device
 
     raw = torch.from_numpy(np.stack(images[:BATCH])).cuda()
@@ -310,8 +613,19 @@ def phase_timing(model, images, counts, errs, gen) -> None:
            "forward_images_per_s": BATCH / fwd_ms * 1e3,
            "predict_images_per_s": BATCH / predict_s,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    # end to end, path 2: the bs16 train step on a device-resident batch
+    xs = torch.from_numpy(train_images(TRAIN_BATCH, seed=3)).cuda().permute(0, 3, 1, 2)
+    torch.cuda.reset_peak_memory_stats()
+    step_windows = [cuda_ms(lambda: trainer.train_step(trainer.state, 0, xs, xs), iters=3,
+                            warmup=1) for _ in range(3)]
+    step_ms = statistics.median(step_windows)
+    train = {"student": ARCH, "teacher": TEACHER, "res": RES, "batch": TRAIN_BATCH,
+             "dtype": "bfloat16", "step_ms": step_ms, "step_ms_windows": step_windows,
+             "steps_per_s": 1e3 / step_ms, "images_per_s": TRAIN_BATCH * 1e3 / step_ms,
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"end_to_end": e2e}), flush=True)
+    print(json.dumps({"end_to_end": e2e, "train_step": train}), flush=True)
 
 
 def main() -> None:
@@ -322,12 +636,17 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.time()
     phase_build()
-    errs = {"attention": phase_attention(gen), "tail": phase_tail(gen)}
+    errs = {"attention": phase_attention(gen), "attention_bwd": phase_attention_grad(gen),
+            "tail": phase_tail(gen), "select": phase_select(gen)}
     model = create_model(ARCH, dtype=torch.bfloat16, device="cuda", seed=0)
     images = synthetic_images(BATCH)
     counts = phase_main_path(model, images)
-    phase_timing(model, images, counts, errs, gen)
+    trainer, train_counts = phase_train()
+    phase_train_vs_cpu()
+    phase_timing(model, images, counts, errs, trainer, train_counts, gen)
+    log(f"[smoke] all phases passed in {time.time() - t0:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

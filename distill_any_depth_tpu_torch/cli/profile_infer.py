@@ -19,6 +19,7 @@ import argparse
 import json
 import os
 import re
+import statistics
 import time
 from collections import defaultdict
 
@@ -33,7 +34,10 @@ ITERS, TOP = 10, 25  # forwards traced, kernels listed
 # GEMMs are ``nvjet_*`` or ``*_cublas``.
 CLASSES = (
     ("attention kernel", r"packed_attn_kernel"),
+    ("attention backward kernel", r"dkdv_kernel|dq_kernel|delta_kernel"),
+    ("select kernel", r"kth_select_kernel"),
     ("tail kernel", r"tail_conv1_kernel|tail_head_kernel"),
+    ("optimizer (fused Adam, norms)", r"fused_adam|FusedAdam|multi_tensor|foreach"),
     ("interpolate", r"upsample_|interp"),
     ("cast to bf16", r"bfloat16_copy_kernel"),
     ("copy / cat", r"direct_copy_kernel|CatArrayBatchedCopy"),
@@ -48,6 +52,24 @@ def classify(name: str) -> str:
         if re.search(pattern, name):
             return label
     return "other elementwise"
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, windows: int = 1) -> float:
+    """Median over ``windows`` of the mean time of ``iters`` calls of
+    ``fn``, by CUDA events, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / iters)
+    return statistics.median(out)
 
 
 def busy_share(intervals: list[tuple[float, float]]) -> tuple[float, float]:

@@ -1,0 +1,155 @@
+"""Where the time of a distillation train step goes on the card.
+
+Run on a machine with a CUDA card:
+
+    python -m distill_any_depth_tpu_torch.cli.profile_train [--out DIR]
+
+It builds ``train.loop.Trainer`` at the configuration of the JAX package's
+``bench.py`` train step (student ``depthanything-base``, teacher
+``depthanything-large``, bs16 at 392^2, bf16 compute, the default loss
+stack, shared views, the teacher in bs8 chunks) and reports:
+
+- the pieces of the step timed alone with CUDA events on the same batch:
+  the teacher forward, the student forward, the loss stack forward and
+  backward (on leaf tensors of the student's output shapes), the student's
+  forward + loss + backward, the optimizer (clip, guard, Adam) and the whole
+  step; the student backward is the difference;
+- from a ``torch.profiler`` trace of whole steps (CUDA activity only):
+  device time per step by kernel class (``profile_infer.CLASSES``) and for
+  the top kernels, launches per step, and the device's busy share;
+- the host time to enqueue a step and what the device still needs after.
+
+The step's wall time and steps/s are ``chip_smoke.py``'s to measure.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from collections import defaultdict
+
+import torch
+
+from distill_any_depth_tpu_torch.cli.profile_infer import busy_share, classify, cuda_ms
+
+ITERS, TOP = 5, 30  # steps traced, kernels listed
+STUDENT, TEACHER, RES, BATCH = "depthanything-base", "depthanything-large", 392, 16
+
+
+def main(argv=None) -> dict:
+    from distill_any_depth_tpu_torch.configs import TrainConfig, model_config
+    from distill_any_depth_tpu_torch.losses.distill import combined_distillation_loss
+    from distill_any_depth_tpu_torch.losses.feature import feature_distillation_loss
+    from distill_any_depth_tpu_torch.train.loop import Trainer
+    from distill_any_depth_tpu_torch.train.state import apply_gradients
+    from distill_any_depth_tpu_torch.train.step import chunked_apply
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--out", default="chiprun_out/profile")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train needs a CUDA card")
+
+    cfg = TrainConfig(student=model_config(STUDENT), teachers=(TEACHER,),
+                      batch_size=BATCH, image_size=RES, log_interval=10 ** 6,
+                      output_dir=os.path.join(args.out, "train"))
+    trainer = Trainer(cfg, "cuda")
+    trainer._build_steps(views_shared=True)
+    student, teacher, state = trainer.student, trainer.teachers[0], trainer.state
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(BATCH, 3, RES, RES, generator=gen, device="cuda")
+
+    def step():
+        trainer.train_step(state, 0, x, x)
+
+    def teacher_fwd():
+        with torch.no_grad():
+            return chunked_apply(teacher, x, cfg.teacher_chunk)
+
+    with torch.no_grad():
+        s_depth, s_feat = student(x)
+        t_depth, t_feat = (t.float() for t in teacher_fwd())
+
+    def student_fwd():
+        student(x)
+
+    def loss_fwd_bwd():
+        d = s_depth.detach().float().requires_grad_()
+        f = s_feat.detach().float().requires_grad_()
+        feat = feature_distillation_loss(f, t_feat)
+        total, _ = combined_distillation_loss(cfg.loss, d, d, f, t_depth, feat_loss=feat)
+        total.backward()
+
+    def student_fwd_bwd():
+        d, f = student(x)
+        d, f = d.float(), f.float()
+        feat = feature_distillation_loss(f, t_feat)
+        total, _ = combined_distillation_loss(cfg.loss, d, d, f, t_depth, feat_loss=feat)
+        total.backward()
+
+    def optimizer():
+        apply_gradients(state)
+
+    pieces = {"teacher forward (2 x bs8)": teacher_fwd, "student forward": student_fwd,
+              "loss stack forward + backward": loss_fwd_bwd,
+              "student forward + loss + backward": student_fwd_bwd,
+              "optimizer (clip, guard, Adam)": optimizer, "whole step": step}
+    times = {name: cuda_ms(fn, iters=5, warmup=2, windows=3) for name, fn in pieces.items()}
+    times["student backward (difference)"] = (times["student forward + loss + backward"]
+                                              - times["student forward"]
+                                              - times["loss stack forward + backward"])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        step()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    enqueue_ms, drain_ms = (t1 - t0) / ITERS * 1e3, (time.perf_counter() - t1) * 1e3
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(ITERS):
+            step()
+        torch.cuda.synchronize()
+    os.makedirs(args.out, exist_ok=True)
+    trace_path = os.path.join(args.out, f"train_{STUDENT}_{RES}_bs{BATCH}.json")
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    if not kernels:
+        raise SystemExit("the trace holds no kernel events: device tracing did not work")
+    by_class: dict[str, float] = defaultdict(float)
+    by_name: dict[str, float] = defaultdict(float)
+    count: dict[str, int] = defaultdict(int)
+    for e in kernels:
+        by_class[classify(e["name"])] += e["dur"]
+        by_name[e["name"]] += e["dur"]
+        count[e["name"]] += 1
+    busy, span = busy_share([(e["ts"], e["ts"] + e["dur"]) for e in kernels])
+    per_step = ITERS * 1e3  # us -> ms per step
+    report = {
+        "device": torch.cuda.get_device_name(0),
+        "student": STUDENT, "teacher": TEACHER, "res": RES, "batch": BATCH,
+        "pieces_ms": times,
+        "host_enqueue_ms_per_step": enqueue_ms, "device_drain_ms_after_enqueue": drain_ms,
+        "traced_kernel_ms_per_step": sum(by_class.values()) / per_step,
+        "traced_span_ms_per_step": span / per_step,
+        "device_busy_share": busy / span,
+        "by_class_ms_per_step": {k: v / per_step for k, v in
+                                 sorted(by_class.items(), key=lambda kv: -kv[1])},
+        "kernels_per_step": len(kernels) / ITERS,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "trace": trace_path,
+    }
+    print(json.dumps(report, indent=1))
+    print(f"top {TOP} kernels by device time (ms per step, launches per step):")
+    for name, dur in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]:
+        print(f"  {dur / per_step:8.4f} ms  {count[name] / ITERS:6.1f}  "
+              f"[{classify(name)}] {name[:110]}")
+    return report
+
+
+if __name__ == "__main__":
+    main()

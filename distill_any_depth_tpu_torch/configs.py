@@ -1,9 +1,12 @@
-"""Model presets: the port's own copy of the JAX package's encoder and
-model configurations (distill_any_depth_tpu/configs.py:14-176).
+"""Model presets and training configuration: the port's own copy of the
+JAX package's configs (distill_any_depth_tpu/configs.py:14-281).
 
-Only the fields the ported inference path reads are kept; the presets'
-values are identical, so a preset name means the same network in both
-packages.
+Only the fields the ported paths read are kept; the presets' values and
+the defaults are identical, so a preset name or a default config means the
+same network and the same training in both packages. The TPU-only training
+fields (native loader, int8 teacher, adapters, the dp/tp mesh, remat,
+attention implementation, device preprocessing) are not fields here: the
+training CLI refuses their flags.
 """
 from __future__ import annotations
 
@@ -76,6 +79,60 @@ MODELS: dict[str, ModelConfig] = {
         interp_to_input=True,
     ),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Distillation loss stack weights and options."""
+
+    normalization: str = "hybrid"  # global | hybrid | local | none
+    num_segments: int = 4
+    lambda_sc: float = 0.5
+    lambda_lg: float = 0.5
+    lambda_feat: float = 1.0
+    lambda_grad: float = 0.2
+    use_hdn: bool = True
+    hdn_variant: str = "dr"  # dr | dp | ds
+    hdn_level: int = 3
+    lambda_hdn: float = 0.8
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """Adam with L2 decay, global-norm clipping, warmup then cosine/step decay."""
+
+    lr: float = 1e-4
+    weight_decay: float = 1e-5
+    warmup_steps: int = 0
+    schedule: str = "cosine"  # cosine | step | none
+    total_steps: int = 10_000
+    step_size: int = 10_000
+    gamma: float = 0.1
+    eta_min_ratio: float = 0.01
+    max_grad_norm: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    student: ModelConfig = MODELS["depthanything-base"]
+    teachers: tuple[str, ...] = ("depthanything-large",)
+    loss: LossConfig = LossConfig()
+    optimizer: OptimizerConfig = OptimizerConfig()
+    batch_size: int = 16
+    image_size: int = 392
+    num_epochs: int = 50
+    num_iterations: int = 0
+    seed: int = 42
+    val_split: float = 0.1
+    log_interval: int = 100
+    early_stopping: int = 0
+    output_dir: str = "output"
+    dataset_dir: str = "data/nyu"
+    teacher_dtype: str = "bfloat16"
+    # run the teacher forward as sequential chunks of this batch size (0 = off)
+    teacher_chunk: int = 8
+    # bf16 student compute; parameters and optimizer state stay fp32
+    student_compute_dtype: str = "bfloat16"
 
 
 def model_config(arch_name: str) -> ModelConfig:

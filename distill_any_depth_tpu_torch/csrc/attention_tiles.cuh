@@ -1,0 +1,233 @@
+// Tile helpers shared by the packed attention forward (flash_attention.cu)
+// and backward (flash_attention_bwd.cu), for sm_90a.
+//
+// Tiles are 64 rows of one head's 64 columns, staged in shared memory with a
+// 16-byte row pad. A block has 4 warps; warp w owns rows [16w, 16w + 16) of
+// the tile its products write. Accumulators use the mma.sync m16n8k16 layout:
+// acc[j][e] holds row g (+8 for e >= 2) and column 8j + 2t + (e & 1), with
+// g = lane / 4 and t = lane % 4.
+//
+// Two products cover every attention matmul, in bf16 on the tensor cores and
+// in fp32 as scalar FMAs over the same accumulator ownership:
+//   nt: acc[16 x 64] += A[16 x 64] . B[64 x 64]^T  (A: this warp's 16 rows)
+//   nn: acc[16 x 64] += P[16 x 64] . B[64 x 64]    (P: an accumulator)
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace dad_attn {
+
+constexpr int kD = 64;       // head dim (every model of the zoo)
+constexpr int kTile = 64;    // rows of a q or key tile
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kProw = kTile + 4;  // fp32 staging row of a P operand (fp32 path only)
+
+template <typename T>
+__host__ __device__ constexpr int row_elems() { return kD + 16 / (int)sizeof(T); }  // 16-byte pad
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c[16x8] += a[16x16] * b[16x8], bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+// Copy rows [r0, r0+64) of one head's 64 columns (starting at column col of
+// rows `stride` elements apart) into a padded smem tile; rows at or past n
+// are zero-filled. Commits one cp.async group.
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* base, int r0, int n, long stride,
+                                          int col) {
+  constexpr int kChunks = kD * (int)sizeof(T) / 16;  // 16-byte chunks per row
+  constexpr int kRow = row_elems<T>();
+  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
+    int r = i / kChunks, c = i % kChunks;
+    int gr = r0 + r;
+    bool ok = gr < n;
+    const T* src = base + (long)(ok ? gr : 0) * stride + col + c * (16 / (int)sizeof(T));
+    cp_async16(dst + r * kRow + c * (16 / (int)sizeof(T)), src, ok ? 16 : 0);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// bf16 A fragments of this warp's 16 rows of a tile: 4 k-steps of 16 columns.
+__device__ __forceinline__ void load_a_frags(uint32_t (&af)[4][4], const __nv_bfloat16* tile) {
+  constexpr int kRow = row_elems<__nv_bfloat16>();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    int r = warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+    int col = kk * 16 + 8 * (lane >> 4);
+    ldsm_x4(af[kk], tile + r * kRow + col);
+  }
+}
+
+// nt, bf16: acc += A . B^T with A as fragments, B a 64-row smem tile.
+__device__ __forceinline__ void mma_nt(float (&acc)[8][4], const uint32_t (&af)[4][4],
+                                       const __nv_bfloat16* b) {
+  constexpr int kRow = row_elems<__nv_bfloat16>();
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bfr[4];
+      int row = np * 16 + (lane & 7) + 8 * (lane >> 4);
+      int col = kk * 16 + 8 * ((lane >> 3) & 1);
+      ldsm_x4(bfr, b + row * kRow + col);
+      mma_bf16(acc[2 * np], af[kk], bfr[0], bfr[1]);
+      mma_bf16(acc[2 * np + 1], af[kk], bfr[2], bfr[3]);
+    }
+  }
+}
+
+// nn, bf16: acc += P . B with P given as bf16 pairs in accumulator order
+// (pf[j][0] = row g columns 8j+2t, 8j+2t+1; pf[j][1] = the same of row g+8).
+__device__ __forceinline__ void mma_nn(float (&acc)[8][4], const uint32_t (&pf)[8][2],
+                                       const __nv_bfloat16* b) {
+  constexpr int kRow = row_elems<__nv_bfloat16>();
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0], pf[2 * kk + 1][1]};
+#pragma unroll
+    for (int dp = 0; dp < 4; ++dp) {
+      uint32_t bfr[4];
+      int row = kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+      int col = dp * 16 + 8 * (lane >> 4);
+      ldsm_x4_trans(bfr, b + row * kRow + col);
+      mma_bf16(acc[2 * dp], a, bfr[0], bfr[1]);
+      mma_bf16(acc[2 * dp + 1], a, bfr[2], bfr[3]);
+    }
+  }
+}
+
+// Round an fp32 accumulator to bf16 pairs (the A operand of mma_nn).
+__device__ __forceinline__ void to_bf16(uint32_t (&pf)[8][2], const float (&p)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    pf[j][0] = pack_bf16(p[j][0], p[j][1]);
+    pf[j][1] = pack_bf16(p[j][2], p[j][3]);
+  }
+}
+
+// nt, fp32: acc += A . B^T, A = this warp's 16 rows of an smem tile.
+__device__ __forceinline__ void fma_nt(float (&acc)[8][4], const float* a_tile, const float* b) {
+  constexpr int kRow = row_elems<float>();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float* a_lo = a_tile + (warp * 16 + g) * kRow;
+  const float* a_hi = a_lo + 8 * kRow;
+  for (int d = 0; d < kD; ++d) {
+    float a0 = a_lo[d], a1 = a_hi[d];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float b0 = b[(8 * j + 2 * t) * kRow + d];
+      float b1 = b[(8 * j + 2 * t + 1) * kRow + d];
+      acc[j][0] = fmaf(a0, b0, acc[j][0]);
+      acc[j][1] = fmaf(a0, b1, acc[j][1]);
+      acc[j][2] = fmaf(a1, b0, acc[j][2]);
+      acc[j][3] = fmaf(a1, b1, acc[j][3]);
+    }
+  }
+}
+
+// nn, fp32: acc += P . B, P an accumulator staged through this warp's
+// 16 x kProw slice `pw` of shared memory.
+__device__ __forceinline__ void fma_nn(float (&acc)[8][4], const float (&p)[8][4], float* pw,
+                                       const float* b) {
+  constexpr int kRow = row_elems<float>();
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    pw[g * kProw + 8 * j + 2 * t] = p[j][0];
+    pw[g * kProw + 8 * j + 2 * t + 1] = p[j][1];
+    pw[(g + 8) * kProw + 8 * j + 2 * t] = p[j][2];
+    pw[(g + 8) * kProw + 8 * j + 2 * t + 1] = p[j][3];
+  }
+  __syncwarp();
+  for (int k = 0; k < kTile; ++k) {
+    float a0 = pw[g * kProw + k], a1 = pw[(g + 8) * kProw + k];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float b0 = b[k * kRow + 8 * j + 2 * t];
+      float b1 = b[k * kRow + 8 * j + 2 * t + 1];
+      acc[j][0] = fmaf(a0, b0, acc[j][0]);
+      acc[j][1] = fmaf(a0, b1, acc[j][1]);
+      acc[j][2] = fmaf(a1, b0, acc[j][2]);
+      acc[j][3] = fmaf(a1, b1, acc[j][3]);
+    }
+  }
+  __syncwarp();
+}
+
+// Store rows g and g+8 of this warp's 16 rows of an accumulator, times
+// `scale`, into columns [col, col+64) of rows `stride` elements apart;
+// rows at or past n are skipped.
+template <typename T>
+__device__ __forceinline__ void store_rows(T* base, const float (&acc)[8][4], int r0, int n,
+                                           long stride, int col, float scale) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    int row = r0 + warp * 16 + g + 8 * r;
+    if (row >= n) continue;
+    T* dst = base + (long)row * stride + col;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float v0 = acc[j][2 * r] * scale, v1 = acc[j][2 * r + 1] * scale;
+      if constexpr (sizeof(T) == 2) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * t) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        *reinterpret_cast<float2*>(dst + 8 * j + 2 * t) = make_float2(v0, v1);
+      }
+    }
+  }
+}
+
+}  // namespace dad_attn

@@ -5,13 +5,15 @@
 // from the fused-QKV GEMM output.
 //
 //   qkv [B, N, 3*H*D] (column order q|k|v, head, dim)  ->  out [B, N, H*D]
+//   and, when asked (training), the row log-sum-exp lse [B, H, N] fp32
 //
 // Numerics follow _packed_kernel: fp32 scores (q.k)*D^-1/2 and row max,
 // exp(s - m) rounded to the input type before the PV product, an fp32 sum of
 // the rounded values, fp32 PV accumulation, division by the sum after PV.
 // Keys at or past N are masked with a true -inf in both the max and the sum
 // (no closed-form pad correction, which cancels when every real logit of a
-// row is strongly negative).
+// row is strongly negative). lse = m + log(sum) is what the backward
+// (flash_attention_bwd.cu) recomputes the probabilities from.
 //
 // Bound at the ViT-B 392^2 bs8 shape (B=8, N=785, H=12, D=64, bf16):
 // 4*B*H*N^2*D = 15.1 GFLOP (15.3 us at 989 TFLOP/s) against 38.6 MB moved
@@ -23,99 +25,33 @@
 // head (~200 KB in bf16) do not fit beside the q tile. bf16 runs the two
 // products on the tensor cores with mma.sync m16n8k16 (fp32 accumulate);
 // fp32 runs the same tiles, masks and softmax with scalar FMAs over the same
-// accumulator ownership, so both types share everything but the products.
-// wgmma, TMA and warp specialisation are left for later work.
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// accumulator ownership, so both types share everything but the products
+// (attention_tiles.cuh). wgmma, TMA and warp specialisation are left for
+// later work.
 
 #include <type_traits>
 
+#include "attention_tiles.cuh"
+
 namespace {
 
-constexpr int kD = 64;       // head dim (every model of the zoo)
-constexpr int kBM = 64;      // q rows per block
-constexpr int kBN = 64;      // keys per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-
-template <typename T>
-__host__ __device__ constexpr int row_elems() { return kD + 16 / (int)sizeof(T); }  // 16-byte pad
-constexpr int kProw = kBN + 4;  // fp32 P staging row (fp32 path only)
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c[16x8] += a[16x16] * b[16x8], bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy rows [r0, r0+64) of one head's 64 columns into a padded smem tile;
-// rows at or past n are zero-filled.
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* base, int r0, int n, long stride,
-                                          int col) {
-  constexpr int kChunks = kD * (int)sizeof(T) / 16;  // 16-byte chunks per row
-  constexpr int kRow = row_elems<T>();
-  for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
-    int r = i / kChunks, c = i % kChunks;
-    int gr = r0 + r;
-    bool ok = gr < n;
-    const T* src = base + (long)(ok ? gr : 0) * stride + col + c * (16 / (int)sizeof(T));
-    cp_async16(dst + r * kRow + c * (16 / (int)sizeof(T)), src, ok ? 16 : 0);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+using namespace dad_attn;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    packed_attn_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n, int heads,
-                       float scale) {
+    packed_attn_kernel(const T* __restrict__ qkv, T* __restrict__ out, float* __restrict__ lse,
+                       int n, int heads, float scale) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int kRow = row_elems<T>();
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
-  T* ks = qs + kBM * kRow;
-  T* vs = ks + kBN * kRow;
-  float* ps = reinterpret_cast<float*>(vs + kBN * kRow);  // fp32 path only
+  T* ks = qs + kTile * kRow;
+  T* vs = ks + kTile * kRow;
+  float* ps = reinterpret_cast<float*>(vs + kTile * kRow);  // fp32 path only
 
   const int c = heads * kD;
   const long stride = 3L * c;
-  const int q0 = blockIdx.x * kBM;
+  const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const T* base = qkv + (long)b * n * stride;
@@ -127,68 +63,27 @@ __global__ void __launch_bounds__(kThreads)
 
   uint32_t qf[4][4];  // bf16 q fragments: 4 k-steps of 16 dims
   float o[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  zero(o);
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
 
-  const int n_tiles = (n + kBN - 1) / kBN;
+  const int n_tiles = (n + kTile - 1) / kTile;
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBN;
+    const int k0 = kt * kTile;
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile<T>(ks, base, k0, n, stride, c + h * kD);
     load_tile<T>(vs, base, k0, n, stride, 2 * c + h * kD);
     cp_async_wait_all();
     __syncthreads();
 
-    if constexpr (kBf16) {
-      if (kt == 0) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          int r = warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-          int col = kk * 16 + 8 * (lane >> 4);
-          ldsm_x4(qf[kk], qs + r * kRow + col);
-        }
-      }
-    }
-
     // ---- S = Q K^T for this warp's 16 rows x 64 keys
     float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    zero(s);
     if constexpr (kBf16) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t bfr[4];
-          int key = np * 16 + (lane & 7) + 8 * (lane >> 4);
-          int col = kk * 16 + 8 * ((lane >> 3) & 1);
-          ldsm_x4(bfr, ks + key * kRow + col);
-          mma_bf16(s[2 * np], qf[kk], bfr[0], bfr[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], bfr[2], bfr[3]);
-        }
-      }
+      if (kt == 0) load_a_frags(qf, qs);
+      mma_nt(s, qf, ks);
     } else {
-      const float* q_lo = reinterpret_cast<const float*>(qs) + (warp * 16 + g) * kRow;
-      const float* q_hi = q_lo + 8 * kRow;
-      const float* kf = reinterpret_cast<const float*>(ks);
-      for (int d = 0; d < kD; ++d) {
-        float a0 = q_lo[d], a1 = q_hi[d];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float k0v = kf[(8 * j + 2 * t) * kRow + d];
-          float k1v = kf[(8 * j + 2 * t + 1) * kRow + d];
-          s[j][0] = fmaf(a0, k0v, s[j][0]);
-          s[j][1] = fmaf(a0, k1v, s[j][1]);
-          s[j][2] = fmaf(a1, k0v, s[j][2]);
-          s[j][3] = fmaf(a1, k1v, s[j][3]);
-        }
-      }
+      fma_nt(s, reinterpret_cast<const float*>(qs), reinterpret_cast<const float*>(ks));
     }
 
     // ---- scale, mask keys >= n, online softmax (rows g and g+8)
@@ -244,95 +139,57 @@ __global__ void __launch_bounds__(kThreads)
 
     // ---- O += P V
     if constexpr (kBf16) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0], pf[2 * kk + 1][1]};
-#pragma unroll
-        for (int dp = 0; dp < 4; ++dp) {
-          uint32_t bfr[4];
-          int key = kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-          int col = dp * 16 + 8 * (lane >> 4);
-          ldsm_x4_trans(bfr, vs + key * kRow + col);
-          mma_bf16(o[2 * dp], a, bfr[0], bfr[1]);
-          mma_bf16(o[2 * dp + 1], a, bfr[2], bfr[3]);
-        }
-      }
+      mma_nn(o, pf, vs);
     } else {
-      float* pw = ps + warp * 16 * kProw;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        pw[g * kProw + 8 * j + 2 * t] = s[j][0];
-        pw[g * kProw + 8 * j + 2 * t + 1] = s[j][1];
-        pw[(g + 8) * kProw + 8 * j + 2 * t] = s[j][2];
-        pw[(g + 8) * kProw + 8 * j + 2 * t + 1] = s[j][3];
-      }
-      __syncwarp();
-      const float* vf = reinterpret_cast<const float*>(vs);
-      for (int key = 0; key < kBN; ++key) {
-        float a0 = pw[g * kProw + key], a1 = pw[(g + 8) * kProw + key];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float v0 = vf[key * kRow + 8 * j + 2 * t];
-          float v1 = vf[key * kRow + 8 * j + 2 * t + 1];
-          o[j][0] = fmaf(a0, v0, o[j][0]);
-          o[j][1] = fmaf(a0, v1, o[j][1]);
-          o[j][2] = fmaf(a1, v0, o[j][2]);
-          o[j][3] = fmaf(a1, v1, o[j][3]);
-        }
-      }
-      __syncwarp();
+      fma_nn(o, s, ps + warp * 16 * kProw, reinterpret_cast<const float*>(vs));
     }
   }
 
-  // ---- normalise and store rows g, g+8 of this warp
+  // ---- normalise and store rows g, g+8 of this warp (and their lse)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= n) continue;
-    T* dst = out + ((long)b * n + row) * c + h * kD;
     float inv = 1.f / l_run[r];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      float v0 = o[j][2 * r] * inv, v1 = o[j][2 * r + 1] * inv;
-      if constexpr (kBf16) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * t) = __floats2bfloat162_rn(v0, v1);
-      } else {
-        *reinterpret_cast<float2*>(dst + 8 * j + 2 * t) = make_float2(v0, v1);
-      }
+      o[j][2 * r] *= inv;
+      o[j][2 * r + 1] *= inv;
     }
+    int row = q0 + warp * 16 + g + 8 * r;
+    if (lse != nullptr && t == 0 && row < n)
+      lse[((long)b * heads + h) * n + row] = m_run[r] + logf(l_run[r]);
   }
+  store_rows<T>(out + (long)b * n * c, o, q0, n, c, h * kD, 1.f);
 }
 
 template <typename T>
-int launch(const void* qkv, void* out, int batch, int n, int heads, float scale,
+int launch(const void* qkv, void* out, float* lse, int batch, int n, int heads, float scale,
            cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  size_t smem = (size_t)(kBM + 2 * kBN) * row_elems<T>() * sizeof(T);
+  size_t smem = (size_t)3 * kTile * row_elems<T>() * sizeof(T);
   if (!kBf16) smem += (size_t)kWarps * 16 * kProw * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(packed_attn_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + kBM - 1) / kBM, heads, batch);
+  dim3 grid((n + kTile - 1) / kTile, heads, batch);
   packed_attn_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), n, heads, scale);
+      static_cast<const T*>(qkv), static_cast<T*>(out), lse, n, heads, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32. Returns a cudaError_t (0 = success);
-// -1 for an argument the kernel does not take.
-extern "C" int dad_packed_attention(const void* qkv, void* out, int batch, int n, int heads,
-                                    int head_dim, int dtype, float scale, void* stream) {
+// dtype: 0 = bfloat16, 1 = float32. lse may be null (inference). Returns a
+// cudaError_t (0 = success); -1 for an argument the kernel does not take.
+extern "C" int dad_packed_attention(const void* qkv, void* out, void* lse, int batch, int n,
+                                    int heads, int head_dim, int dtype, float scale,
+                                    void* stream) {
   if (head_dim != kD || n <= 0 || batch <= 0 || heads <= 0 || heads > 65535 || batch > 65535)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<__nv_bfloat16>(qkv, out, batch, n, heads, scale, st);
-  if (dtype == 1) return launch<float>(qkv, out, batch, n, heads, scale, st);
+  float* l = static_cast<float*>(lse);
+  if (dtype == 0) return launch<__nv_bfloat16>(qkv, out, l, batch, n, heads, scale, st);
+  if (dtype == 1) return launch<float>(qkv, out, l, batch, n, heads, scale, st);
   return -1;
 }

@@ -7,12 +7,15 @@ in NCHW with the reference's state-dict names
 is the reference's ``ConvTranspose2d(k, stride=k)`` it stands for.
 
 The tail after refinenet1 (2x upsample, output_conv1, upsample to the
-patch-grid resolution, output_conv2 + ReLU + 1x1) of a 1-channel head goes
-through ``ops/dpt_tail.fused_dpt_tail``: the CUDA kernel on the card (which
-is forward-only and raises on tensors that require a gradient), its plain
-version on the CPU. A multi-channel head runs the plain chain. refinenet1's
-1x1 ``out_conv`` runs before its 2x upsample on both paths: a 1x1 conv
-commutes with bilinear resampling (its rows sum to one).
+patch-grid resolution, output_conv2 + ReLU + 1x1) of a 1-channel head built
+with ``fused_tail=True`` (inference, and the teacher of a distillation)
+goes through ``ops/dpt_tail.fused_dpt_tail``: the CUDA kernel on the card
+(which is forward-only and raises on tensors that require a gradient), its
+plain version on the CPU. With ``fused_tail=False``, the JAX package's
+student configuration, and for a multi-channel head, the tail is the plain
+chain of convs and bilinear resizes. refinenet1's 1x1 ``out_conv`` runs
+before its 2x upsample on every path: a 1x1 conv commutes with bilinear
+resampling (its rows sum to one).
 """
 from __future__ import annotations
 
@@ -103,8 +106,10 @@ class DPTHead(nn.Module):
 
     def __init__(self, embed_dim: int, features: int, out_channels: Sequence[int],
                  head_out_channels: int = 1, use_clstoken: bool = False,
-                 trailing_relu: bool = True, patch_size: int = 14):
+                 trailing_relu: bool = True, patch_size: int = 14,
+                 fused_tail: bool = True):
         super().__init__()
+        self.fused_tail = fused_tail
         self.use_clstoken = use_clstoken
         self.trailing_relu = trailing_relu
         self.patch_size = patch_size
@@ -138,7 +143,7 @@ class DPTHead(nn.Module):
 
         oh, ow = gh * self.patch_size, gw * self.patch_size
         conv2, head = s.output_conv2[0], s.output_conv2[2]
-        if self.head_out_channels == 1:
+        if self.fused_tail and self.head_out_channels == 1:
             d = fused_dpt_tail(
                 t.permute(0, 2, 3, 1).contiguous(), (oh, ow),
                 s.output_conv1.weight.permute(2, 3, 1, 0), s.output_conv1.bias,
@@ -158,10 +163,12 @@ class DepthModel(nn.Module):
     ``forward(x [B, 3, H, W])`` runs in ``self.dtype`` and returns
     ``(depth, features)``: depth ``[B, H', W']`` (``[B, C, H', W']`` for a
     multi-channel head) ReLU'd as the reference does, and the last tap's
-    tokens ``[B, N, C]``.
+    tokens ``[B, N, C]``. ``fused_tail`` selects the DPT tail kernel for a
+    1-channel head (see the module docstring).
     """
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
+                 fused_tail: bool = True):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -169,7 +176,7 @@ class DepthModel(nn.Module):
         self.pretrained = DinoViT(enc)
         self.depth_head = DPTHead(enc.embed_dim, cfg.features, cfg.out_channels,
                                   cfg.head_out_channels, cfg.use_clstoken,
-                                  cfg.trailing_head_relu, enc.patch_size)
+                                  cfg.trailing_head_relu, enc.patch_size, fused_tail)
 
     def forward(self, x: torch.Tensor):
         x = x.to(self.dtype)

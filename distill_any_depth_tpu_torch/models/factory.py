@@ -35,15 +35,18 @@ def create_model(
     dtype: torch.dtype | None = None,
     device: str | torch.device = "cuda",
     seed: int = 0,
+    fused_tail: bool = True,
 ) -> DepthModel:
     """An eval-mode ``DepthModel`` with seeded random weights on ``device``.
     ``dtype`` is the compute dtype (parameters stay fp32): bf16 by default
-    on a card, fp32 on the CPU."""
+    on a card, fp32 on the CPU. ``fused_tail=True`` (inference, teachers)
+    runs a 1-channel DPT tail through its kernel; a model that trains (the
+    distillation student) passes ``False``, as the JAX package's student."""
     cfg = arch_name if isinstance(arch_name, ModelConfig) else model_config(arch_name)
     device = resolve_device(device)
     if dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    model = DepthModel(cfg, dtype)
+    model = DepthModel(cfg, dtype, fused_tail)
     init_params(model, seed)
     return model.to(device).eval()
 

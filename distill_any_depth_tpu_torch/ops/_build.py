@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file is compiled on its own by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, loaded with ``ctypes``.
 Nothing includes PyTorch's headers, so a build takes seconds. Libraries are
-named by a hash of their source and go to ``build/`` at the repository
-root, so an edited source rebuilds and an unchanged one is reused.
+named by a hash of their source and of the shared headers in ``csrc/``
+(``*.cuh``), and go to ``build/`` at the repository root, so an edited
+source or header rebuilds and an unchanged one is reused.
 """
 from __future__ import annotations
 
@@ -24,7 +25,9 @@ BUILD_DIR = _PKG.parent / "build"
 # library name -> source file in csrc/
 SOURCES = {
     "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
     "dpt_tail": "dpt_tail.cu",
+    "kth_select": "kth_select.cu",
 }
 
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # used when nvcc is not on PATH
@@ -40,9 +43,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (_CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    sha = hashlib.sha256((_CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        sha.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{sha.hexdigest()[:12]}.so"
 
 
 def build_all(names=tuple(SOURCES)) -> dict[str, str]:

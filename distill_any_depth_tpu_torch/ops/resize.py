@@ -5,7 +5,9 @@ port's own copy of the JAX package's dense interpolation matrix
 (distill_any_depth_tpu/ops/resize.py:64-127, numpy): the tests use it to
 pin that ``F.interpolate`` and the matrices agree for the modes the model
 uses (bilinear with ``align_corners=True``; bicubic with
-``align_corners=False`` and an explicit scale factor).
+``align_corners=False`` and an explicit scale factor). ``resize_1d`` is the
+counterpart of the JAX ``resize_1d`` (one axis, torch 1-D interpolate), used
+by the feature loss.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["resize_matrix", "resize_nchw"]
+__all__ = ["resize_matrix", "resize_nchw", "resize_1d"]
 
 
 def _cubic_weight(x: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -89,3 +91,20 @@ def resize_nchw(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     if tuple(x.shape[-2:]) == tuple(size):
         return x
     return F.interpolate(x, size=size, mode="bilinear", align_corners=True)
+
+
+def resize_1d(x: torch.Tensor, out_size: int, method: str = "nearest",
+              align_corners: bool = False, axis: int = -1) -> torch.Tensor:
+    """Resize one axis of ``x`` to ``out_size`` with ``resize_matrix``'s
+    weights. Nearest is a gather of the matrix's one source per output (the
+    same values and gradient as the JAX package's one-hot product, without
+    its dense GEMM); other methods multiply by the matrix."""
+    in_size = x.shape[axis]
+    if in_size == out_size:
+        return x
+    m = resize_matrix(in_size, out_size, method, align_corners)
+    if method == "nearest":
+        src = torch.from_numpy(m.argmax(axis=1)).to(x.device)
+        return torch.index_select(x, axis, src)
+    w = torch.from_numpy(m).to(device=x.device, dtype=x.dtype)
+    return torch.movedim(torch.movedim(x, axis, -1) @ w.t(), -1, axis)

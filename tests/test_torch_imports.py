@@ -25,8 +25,9 @@ def _imported_modules(path: Path) -> list[str]:
 
 def test_sources_found():
     assert len(SOURCES) > 10
-    assert (PORT / "csrc" / "flash_attention.cu").exists()
-    assert (PORT / "csrc" / "dpt_tail.cu").exists()
+    for source in ("flash_attention.cu", "flash_attention_bwd.cu", "dpt_tail.cu",
+                   "kth_select.cu", "attention_tiles.cuh"):
+        assert (PORT / "csrc" / source).exists(), source
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
