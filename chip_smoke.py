@@ -12,18 +12,26 @@ Phases, each of which fails the run if it fails:
 3. hold the DPT-head tail kernel (kernel 2) against its plain version;
 4. hold the order-statistic select (kernel 4) against its plain version,
    bit for bit;
-5. main path 1: ``cli.infer.predict`` with ``depthanything-base`` at 392^2,
+5. hold the biased attention kernel (kernel 5) and the banded window
+   attention kernel (kernel 7) against their plain versions, and kernel 7
+   against kernel 5 with the window bias, at the windowed model's shapes
+   and at edge grids;
+6. main path 1: ``cli.infer.predict`` with ``depthanything-base`` at 392^2,
    bs8, bf16 and seeded random weights; check its output and the kernels'
    launch counts, and hold one image against the port's CPU fp32 forward of
    the same weights;
-6. main path 2: ``train.loop.Trainer`` with the ViT-L teacher and the ViT-B
+7. main path 2: ``train.loop.Trainer`` with the ViT-L teacher and the ViT-B
    student at bs16 392^2 in bf16 (the default loss stack, NYU shared views,
    teacher in two bs8 chunks) on seeded synthetic images; per step, the
-   launch counts of the four kernels, finite losses and gradient norm, and
+   launch counts of the kernels, finite losses and gradient norm, and
    moved parameters; then two steps of ``cli.train`` over ``data/smoke``;
-7. one fp32 step of the same pair at bs2 on the card against the CPU;
-8. time each kernel, its plain version and its PyTorch library yardstick
-   with CUDA events, the end-to-end forward and the bs16 train step.
+8. one fp32 step of the same pair at bs2 on the card against the CPU;
+9. main path 3: ``cli.infer.predict`` with the windowed teacher
+   ``depthanything-base-window`` at 518^2 (kernel 5) and 1036^2 (kernel 7),
+   bs8, bf16; launch counts per forward, and one image of each against the
+   port's CPU fp32 forward;
+10. time each kernel, its plain version and its PyTorch library yardstick
+   with CUDA events, the end-to-end forwards and the bs16 train step.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -49,6 +57,10 @@ from distill_any_depth_tpu_torch.models.factory import create_model  # noqa: E40
 from distill_any_depth_tpu_torch.ops import _build  # noqa: E402
 from distill_any_depth_tpu_torch.ops.dpt_tail import fused_dpt_tail, tail_reference  # noqa: E402
 from distill_any_depth_tpu_torch.ops.flash_attention import (  # noqa: E402
+    mha_banded_reference,
+    mha_bias_reference,
+    mha_flash_banded,
+    mha_flash_bias,
     mha_flash_packed,
     mha_packed_reference,
     packed_attention_backward,
@@ -58,6 +70,7 @@ from distill_any_depth_tpu_torch.ops.stats import (  # noqa: E402
     kth_select,
     kth_select_reference,
 )
+from distill_any_depth_tpu_torch.ops.window import local_window_bias, segment_bias  # noqa: E402
 from distill_any_depth_tpu_torch.train.loop import Trainer  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -65,6 +78,7 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 
 ARCH, RES, BATCH = "depthanything-base", 392, 8
 TEACHER, TRAIN_BATCH, TRAIN_STEPS = "depthanything-large", 16, 3
+WINDOW_ARCH, WINDOW_RES = "depthanything-base-window", (518, 1036)  # kernel 5, kernel 7
 HDN_ROWS = 7 * TRAIN_BATCH  # the dr/3 HDN contexts folded with the batch
 
 BF16_ATTN_TOL = 6e-3  # max |err| / (1 + |ref|), bf16 kernel 1 against its plain version
@@ -89,6 +103,10 @@ OUT = Path(__file__).resolve().parent / "build" / "chip_smoke"  # run outputs (g
 # pixels where either depth is positive (the rest are ReLU zeros in both):
 # about 3x the readings on an H100 (max 0.0352, mean 0.0062, 1 - corr 0.0012)
 E2E_MAX, E2E_MEAN, E2E_CORR = 0.1, 0.02, 0.996
+# the same for the windowed teacher at 518^2 and 1036^2: about 3x the readings
+# on an H100 (max 0.0132 / 0.0138, mean 0.00232 / 0.00227, 1 - corr 1.0e-4 /
+# 1.2e-4)
+WINDOW_E2E_MAX, WINDOW_E2E_MEAN, WINDOW_E2E_CORR = 0.04, 0.007, 0.9996
 
 
 def log(msg: str) -> None:
@@ -279,6 +297,11 @@ def phase_tail(gen) -> float:
     tail_case("teacher tail, ragged", 2, 13, 9, 128, torch.bfloat16, (98, 70), False, 2e-2, gen)
     tail_case("teacher tail, ragged fp32", 2, 13, 9, 128, torch.float32, (98, 70), False,
               1e-5, gen)
+    # the windowed teacher's tails: odd 37-patch grid at 518^2, 74 at 1036^2
+    for res in WINDOW_RES:
+        g4 = res // 14 * 4
+        tail_case(f"window {res} tail", BATCH, g4, g4, 128, torch.bfloat16, (res, res), False,
+                  2e-2, gen)
     return err
 
 
@@ -321,6 +344,92 @@ def phase_select(gen) -> int:
 
 
 # ---------------------------------------------------------------- phase 5
+def masked_inputs(b, n, h, dtype, gen):
+    """q, k, v ``[B, N, H, 64]`` viewed in place in one packed qkv, as the
+    encoder hands them to the biased and banded kernels."""
+    qkv = torch.randn(b, n, 3 * h * 64, generator=gen, device="cuda").to(dtype)
+    return qkv.view(b, n, 3, h, 64).unbind(2)
+
+
+def held(name, got, refs: dict, tol, exact=()) -> float:
+    """Check ``got`` against each reference in max |err| / (1 + |ref|) within
+    ``tol``, and equal to those named in ``exact``; returns the max abs error
+    against the first (the plain version)."""
+    torch.cuda.synchronize()
+    first = next(iter(refs.values()))
+    check(got.shape == first.shape and got.dtype == first.dtype, f"{name}: bad output")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    readings = {label: reading_of(got, ref) for label, ref in refs.items()}
+    ok = all(r <= (0.0 if label in exact else tol) for label, r in readings.items())
+    abs_err = errors(got, first)[0]
+    log(f"[masked attention] {name}: max_abs_err={abs_err:.3e} max|err|/(1+|ref|) "
+        + " ".join(f"vs {k}={v:.3e}" for k, v in readings.items())
+        + f" tol={tol:g}" + "".join(f", {k} exactly" for k in exact)
+        + f" {'ok' if ok else 'FAIL'}")
+    check(ok, f"{name} outside tolerance")
+    return abs_err
+
+
+def bias_case(name, b, n, h, dtype, bias, tol, gen) -> float:
+    q, k, v = masked_inputs(b, n, h, dtype, gen)
+    before = mha_flash_bias.launches
+    got = mha_flash_bias(q, k, v, bias)
+    check(mha_flash_bias.launches == before + 1, f"bias {name}: the kernel did not run")
+    btype = "none" if bias is None else str(bias.dtype)[6:]
+    return held(f"bias {name}: B={b} N={n} H={h} {str(dtype)[6:]} bias {btype}", got,
+                {"plain": mha_bias_reference(q, k, v, bias)}, tol)
+
+
+def banded_case(name, b, gh, gw, window, h, dtype, tol, gen, dense_plain=False) -> float:
+    """Kernel 7 against its plain version, and kernel 5 with the window bias
+    bit for bit (the two visit the same live tiles with the same arithmetic);
+    if asked, against the dense plain version with that bias too."""
+    q, k, v = masked_inputs(b, gh * gw, h, dtype, gen)
+    before = mha_flash_banded.launches
+    got = mha_flash_banded(q, k, v, (gw, window))
+    check(mha_flash_banded.launches == before + 1, f"banded {name}: the kernel did not run")
+    wb = local_window_bias(gh, gw, window, 0, "cuda", dtype)
+    refs = {"plain": mha_banded_reference(q, k, v, (gw, window)),
+            "kernel 5": mha_flash_bias(q, k, v, wb)}
+    if dense_plain:
+        refs["dense plain"] = mha_bias_reference(q, k, v, wb)
+    return held(f"banded {name}: B={b} grid {gh}x{gw} window {window} H={h} "
+                f"{str(dtype)[6:]}", got, refs, tol, exact=("kernel 5",))
+
+
+def phase_window_attention(gen) -> tuple[float, float]:
+    """Kernels 5 and 7; returns their max abs errors at the slice shapes.
+    Limits as kernel 1's: bf16 P is rounded against the running max where the
+    plain version of kernel 5 rounds against the row max; fp32 differs by
+    summation order only."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = WINDOW_RES[0] // 14  # 37: N = 1369, not a multiple of 64
+    n = g * g
+    err5 = bias_case("slice shape, window", BATCH, n, 12, bf16,
+                     local_window_bias(g, g, 7, 0, "cuda", bf16), BF16_ATTN_TOL, gen)
+    bias_case("window", 2, n, 12, f32, local_window_bias(g, g, 7, 0, "cuda", f32), 1e-5, gen)
+    rb = torch.randn(n, n, generator=gen, device="cuda")
+    bias_case("random", 2, n, 12, bf16, rb.to(bf16), BF16_ATTN_TOL, gen)
+    bias_case("random", 2, n, 12, f32, rb, 1e-5, gen)
+    ids = torch.repeat_interleave(torch.arange(5), torch.tensor([300, 1, 500, 68, 500]))
+    sb = segment_bias(ids).cuda()  # a 1-token segment: one live key in its row
+    bias_case("segment", 2, n, 12, bf16, sb.to(bf16), BF16_ATTN_TOL, gen)
+    bias_case("segment", 2, n, 12, f32, sb, 1e-5, gen)
+    # a cls-prefixed 14x14 window (N = 197) and no bias at all
+    bias_case("window + prefix", 2, 197, 12, bf16,
+              local_window_bias(14, 14, 7, 1, "cuda", f32), BF16_ATTN_TOL, gen)
+    bias_case("no bias", 2, 197, 12, f32, None, 1e-5, gen)
+
+    g = WINDOW_RES[1] // 14  # 74: N = 5476, q tiles straddle grid rows
+    err7 = banded_case("slice grid", 2, g, g, 7, 12, bf16, BF16_ATTN_TOL, gen, dense_plain=True)
+    banded_case("slice grid", 2, g, g, 7, 12, f32, 1e-5, gen, dense_plain=True)
+    for gh, gw, window in ((50, 110, 7), (3, 1000, 7), (9, 9, 3), (3, 5, 7), (13, 29, 5)):
+        banded_case("edge grid", 2, gh, gw, window, 4, bf16, BF16_ATTN_TOL, gen)
+        banded_case("edge grid", 2, gh, gw, window, 4, f32, 1e-5, gen)
+    return err5, err7
+
+
+# ---------------------------------------------------------------- phase 6
 def synthetic_images(n: int) -> list[np.ndarray]:
     rng = np.random.RandomState(0)
     yy, xx = np.mgrid[0:480, 0:640].astype(np.float32)
@@ -334,48 +443,62 @@ def synthetic_images(n: int) -> list[np.ndarray]:
     return ims
 
 
-def phase_main_path(model, images) -> dict:
-    mha_flash_packed.launches = 0
-    fused_dpt_tail.launches = 0
+def depth_vs_cpu(tag: str, arch: str, res: int, depth0: np.ndarray, images, limits) -> dict:
+    """Hold the card's bf16 depth of image 0 against the port's CPU fp32
+    forward of the same weights: min-max normalized over the pixels where
+    either depth is positive, max abs / mean abs / correlation ``limits``."""
+    cpu = create_model(arch, dtype=torch.float32, device="cpu", seed=0)
     t0 = time.time()
-    depth = predict(model, images, RES, batch_size=BATCH)
-    torch.cuda.synchronize()
-    counts = {"attention": mha_flash_packed.launches, "tail": fused_dpt_tail.launches}
-    log(f"[main] predict({ARCH}, {len(images)} images, {RES}, bf16) in {time.time() - t0:.2f} s "
-        f"(first call); launches {counts}")
-    check(depth.shape == (len(images), RES, RES), f"main: depth shape {depth.shape}")
-    check(bool(np.isfinite(depth).all()), "main: non-finite depth")
-    check(bool((depth >= 0).all()), "main: negative depth")
-    forwards = -(-len(images) // BATCH)
-    depth_blocks = model.cfg.encoder.depth
-    check(counts["attention"] == depth_blocks * forwards,
-          f"main: {counts['attention']} attention launches, expected {depth_blocks * forwards}")
-    check(counts["tail"] == forwards, f"main: {counts['tail']} tail launches, expected {forwards}")
-    log(f"[main] depth: min {depth.min():.4g} max {depth.max():.4g} "
-        f"positive share {(depth > 0).mean():.3f}")
-
-    # the same weights in fp32 on the CPU, one image
-    cpu = create_model(ARCH, dtype=torch.float32, device="cpu", seed=0)
-    ref = predict(cpu, images[:1], RES, batch_size=1)[0]
+    ref = predict(cpu, images[:1], res, batch_size=1)[0]
+    cpu_s = time.time() - t0
 
     def norm(d):
         return (d - d.min()) / (d.max() - d.min() + 1e-8)
 
-    live = (depth[0] > 0) | (ref > 0)
-    check(live.mean() > 0.05, f"main: only {live.mean():.3f} of the pixels have depth > 0")
-    a, r = norm(depth[0])[live], norm(ref)[live]
+    live = (depth0 > 0) | (ref > 0)
+    check(live.mean() > 0.05, f"{tag}: only {live.mean():.3f} of the pixels have depth > 0")
+    a, r = norm(depth0)[live], norm(ref)[live]
     diff = np.abs(a - r)
     corr = float(np.corrcoef(a, r)[0, 1])
-    ok = diff.max() <= E2E_MAX and diff.mean() <= E2E_MEAN and corr >= E2E_CORR
-    log(f"[main] card bf16 vs CPU fp32, min-max-normalized depth of image 0 over the "
-        f"{live.mean():.3f} of pixels where either is positive: max_abs {diff.max():.4f} "
-        f"mean_abs {diff.mean():.5f} corr {corr:.5f} (tol max<={E2E_MAX}, mean<={E2E_MEAN}, "
-        f"corr>={E2E_CORR}) {'ok' if ok else 'FAIL'}")
-    check(ok, "main: card output disagrees with the CPU fp32 forward")
+    max_tol, mean_tol, corr_tol = limits
+    ok = diff.max() <= max_tol and diff.mean() <= mean_tol and corr >= corr_tol
+    log(f"[{tag}] card bf16 vs CPU fp32 ({cpu_s:.1f} s), min-max-normalized depth of image 0 "
+        f"over the {live.mean():.3f} of pixels where either is positive: max_abs "
+        f"{diff.max():.4f} mean_abs {diff.mean():.5f} corr {corr:.5f} (tol max<={max_tol}, "
+        f"mean<={mean_tol}, corr>={corr_tol}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{tag}: card output disagrees with the CPU fp32 forward")
+    return {"max_abs": float(diff.max()), "mean_abs": float(diff.mean()), "corr": corr}
+
+
+def run_predict(tag, model, images, res, expected) -> tuple[np.ndarray, dict]:
+    """``predict`` at ``res`` bs8 with every launch count set to 0 just before
+    and read just after; the counts must be ``expected`` per forward."""
+    reset_counts()
+    t0 = time.time()
+    depth = predict(model, images, res, batch_size=BATCH)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    forwards = -(-len(images) // BATCH)
+    log(f"[{tag}] predict({model.cfg.arch_name}, {len(images)} images, {res}, bf16) in "
+        f"{time.time() - t0:.2f} s (first call); launches {counts}")
+    check(depth.shape == (len(images), res, res), f"{tag}: depth shape {depth.shape}")
+    check(bool(np.isfinite(depth).all()), f"{tag}: non-finite depth")
+    check(bool((depth >= 0).all()), f"{tag}: negative depth")
+    want = {k: expected.get(k, 0) * forwards for k in COUNTERS}
+    check(counts == want, f"{tag}: launches {counts}, expected {want}")
+    log(f"[{tag}] depth: min {depth.min():.4g} max {depth.max():.4g} "
+        f"positive share {(depth > 0).mean():.3f}")
+    return depth, counts
+
+
+def phase_main_path(model, images) -> dict:
+    blocks = model.cfg.encoder.depth
+    depth, counts = run_predict("main", model, images, RES, {"attention": blocks, "tail": 1})
+    depth_vs_cpu("main", ARCH, RES, depth[0], images, (E2E_MAX, E2E_MEAN, E2E_CORR))
     return counts
 
 
-# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------------- phase 7
 def train_images(n: int, seed: int) -> np.ndarray:
     """Seeded smooth synthetic images, ImageNet-normalized, NHWC fp32."""
     rng = np.random.RandomState(seed)
@@ -392,7 +515,8 @@ def train_images(n: int, seed: int) -> np.ndarray:
 
 
 COUNTERS = {"attention": mha_flash_packed, "tail": fused_dpt_tail,
-            "attention_bwd": packed_attention_backward, "select": kth_select}
+            "attention_bwd": packed_attention_backward, "select": kth_select,
+            "attention_bias": mha_flash_bias, "attention_banded": mha_flash_banded}
 
 
 def read_counts() -> dict:
@@ -407,7 +531,8 @@ def reset_counts() -> None:
 def expected_step_counts(batch: int, chunk: int = 8) -> dict:
     s, t = model_config(ARCH).encoder.depth, model_config(TEACHER).encoder.depth
     chunks = batch // chunk if batch > chunk and batch % chunk == 0 else 1
-    return {"attention": s + chunks * t, "tail": chunks, "attention_bwd": s, "select": 2}
+    return {"attention": s + chunks * t, "tail": chunks, "attention_bwd": s, "select": 2,
+            "attention_bias": 0, "attention_banded": 0}
 
 
 def phase_train() -> tuple[Trainer, dict]:
@@ -471,7 +596,7 @@ def phase_train() -> tuple[Trainer, dict]:
     return trainer, seen[-1]
 
 
-# ---------------------------------------------------------------- phase 7
+# ---------------------------------------------------------------- phase 8
 def phase_train_vs_cpu() -> dict:
     """One fp32 step of the ViT-L -> ViT-B pair at bs2 on the card (kernels
     on their fp32 paths, no TF32) and on the CPU, from the same weights."""
@@ -506,17 +631,40 @@ def phase_train_vs_cpu() -> dict:
     return readings
 
 
-# ---------------------------------------------------------------- phase 8
-def phase_timing(model, images, counts, errs, trainer, train_counts, gen) -> None:
-    kernels = []
+# ---------------------------------------------------------------- phase 9
+def phase_window_path(images) -> tuple[torch.nn.Module, dict]:
+    """Main path 3: the windowed teacher at 518^2 (bias kernel) and 1036^2
+    (banded kernel). Returns the model and each resolution's launch counts."""
+    model = create_model(WINDOW_ARCH, dtype=torch.bfloat16, device="cuda", seed=0)
+    blocks = model.cfg.encoder.depth
+    kernel = dict(zip(WINDOW_RES, ("attention_bias", "attention_banded")))
+    counts = {}
+    for res in WINDOW_RES:
+        depth, counts[res] = run_predict(f"window {res}", model, images, res,
+                                         {kernel[res]: blocks, "tail": 1})
+        depth_vs_cpu(f"window {res}", WINDOW_ARCH, res, depth[0], images,
+                     (WINDOW_E2E_MAX, WINDOW_E2E_MEAN, WINDOW_E2E_CORR))
+    return model, counts
 
-    def entry(name, source, replaces, launches, err, ms, plain, lib, flops, nbytes, **extra):
+
+# ---------------------------------------------------------------- phase 10
+def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts,
+                 gen) -> None:
+    kernels = []
+    runs = {"infer_forward": counts, "train_step": train_counts,
+            **{f"window_{res}_forward": wcounts[res] for res in WINDOW_RES}}
+
+    def entry(name, key, source, replaces, err, ms, plain, lib, flops, nbytes, launches=None,
+              **extra):
         b_ms, b_by = bound(flops, nbytes)
+        by_path = {path: c[key] for path, c in runs.items()}
         kernels.append({"name": name, "route": "cuda",
                         "source": f"distill_any_depth_tpu_torch/csrc/{source}",
-                        "replaces": f"distill_any_depth_tpu/{replaces}", "launches": launches,
+                        "replaces": f"distill_any_depth_tpu/{replaces}",
+                        "launches": by_path["infer_forward"] if launches is None else launches,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": lib, **extra})
+                        "bound_by": b_by, "library_ms": lib, "launches_by_path": by_path,
+                        **extra})
 
     # kernel 1 at the inference shape (ViT-B bs8) and at the teacher's (ViT-L bs8 chunk)
     n, d = (RES // 14) ** 2 + 1, 64
@@ -531,11 +679,9 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, gen) -> Non
             lib=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50),
             bound=bound(4.0 * b * h * n * n * d, 4 * b * n * c * 2))
     a = attn["student"]
-    entry("packed_attention_fwd", "flash_attention.cu", "ops/flash_attention.py:537",
-          counts["attention"], errs["attention"], a["ms"], a["plain"], a["lib"],
+    entry("packed_attention_fwd", "attention", "flash_attention.cu",
+          "ops/flash_attention.py:537", errs["attention"], a["ms"], a["plain"], a["lib"],
           4.0 * BATCH * 12 * n * n * d, 4 * BATCH * n * 12 * d * 2,
-          launches_by_path={"infer_forward": counts["attention"],
-                            "train_step": train_counts["attention"]},
           teacher_shape={"B": 8, "N": n, "H": 16, "ms": attn["teacher"]["ms"],
                          "plain_ms": attn["teacher"]["plain"],
                          "library_ms": attn["teacher"]["lib"],
@@ -547,11 +693,10 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, gen) -> Non
     flops = (2.0 * BATCH * hu * wu * 9 * 128 * 64 + 2.0 * BATCH * RES * RES * 9 * 64 * 32
              + 2.0 * BATCH * RES * RES * 32)
     w_bytes = sum(x.numel() for x in w.values()) * 4
-    entry("dpt_tail", "dpt_tail.cu", "ops/dpt_tail.py:362", counts["tail"], errs["tail"],
+    entry("dpt_tail", "tail", "dpt_tail.cu", "ops/dpt_tail.py:362", errs["tail"],
           cuda_ms(lambda: fused_dpt_tail(t, (RES, RES), trailing_relu=True, **w)),
           cuda_ms(lambda: tail_reference(t, (RES, RES), trailing_relu=True, **w)), None,
-          flops, t.numel() * 2 + w_bytes + BATCH * RES * RES * 2,
-          launches_by_path={"infer_forward": counts["tail"], "train_step": train_counts["tail"]})
+          flops, t.numel() * 2 + w_bytes + BATCH * RES * RES * 2)
 
     # kernel 3 at the student's training shape
     b, h = TRAIN_BATCH, 12
@@ -571,24 +716,58 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, gen) -> Non
                                                   (q, k, v), go), iters=50)
     with torch.no_grad():
         sdpa_f = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50)
-    entry("packed_attention_bwd", "flash_attention_bwd.cu", "ops/flash_attention.py:731",
-          train_counts["attention_bwd"], errs["attention_bwd"],
+    entry("packed_attention_bwd", "attention_bwd", "flash_attention_bwd.cu",
+          "ops/flash_attention.py:731", errs["attention_bwd"],
           cuda_ms(lambda: packed_attention_backward(qkv, out, lse, g, h), iters=50), plain,
           sdpa_fb - sdpa_f, 10.0 * b * h * n * n * d, (3 * c + c + c + 3 * c) * b * n * 2,
-          launches_by_path={"infer_forward": 0, "train_step": train_counts["attention_bwd"]})
+          launches=train_counts["attention_bwd"])
 
     # kernel 4 at the HDN loss's shape
     u, kk = select_inputs(gen)
     wide = u.to(torch.int64) & 0xFFFFFFFF
-    entry("kth_select", "kth_select.cu", "ops/stats.py:131", train_counts["select"],
-          errs["select"],
+    entry("kth_select", "select", "kth_select.cu", "ops/stats.py:131", errs["select"],
           cuda_ms(lambda: kth_select(u, kk), iters=50),
           cuda_ms(lambda: kth_select_reference(u, kk), iters=5),
           cuda_ms(lambda: torch.kthvalue(wide, RES * RES // 2, dim=-1), iters=10),
           0.0, u.numel() * 4 + kk.numel() * 4 + u.shape[0] * 4,
-          launches_by_path={"infer_forward": 0, "train_step": train_counts["select"]},
+          launches=train_counts["select"],
           library_note="torch.kthvalue over int64 order bits, one k for every row: the "
                        "value, not the first index")
+
+    # kernels 5 and 7 at the windowed teacher's bs8 shapes: 518^2 with the
+    # window bias, 1036^2 banded. The bound counts the products of the live
+    # (query, key) pairs, which this run's window mask sets; "dense_gflop" and
+    # "band_gflop" are what the kernels' loops could visit.
+    h = 12
+    c = h * d
+    bf16 = torch.bfloat16
+    for key, res in zip(("attention_bias", "attention_banded"), WINDOW_RES):
+        g = res // 14
+        n = g * g
+        q, k, v = masked_inputs(BATCH, n, h, bf16, gen)
+        wb = local_window_bias(g, g, 7, 0, "cuda", bf16)
+        live = int(torch.isfinite(wb).sum())
+        sd = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(*sd, attn_mask=wb), iters=20)
+        nbytes = 4 * BATCH * n * c * 2
+        if key == "attention_bias":
+            entry("bias_attention_fwd", key, "flash_attention_bias.cu",
+                  "ops/flash_attention.py:410", errs[key],
+                  cuda_ms(lambda: mha_flash_bias(q, k, v, wb), iters=50),
+                  cuda_ms(lambda: mha_bias_reference(q, k, v, wb), iters=5), lib,
+                  4.0 * BATCH * h * d * live, nbytes + wb.numel() * 2,
+                  launches=wcounts[res][key], shape={"B": BATCH, "N": n, "H": h, "res": res},
+                  dense_gflop=4.0 * BATCH * h * d * n * n / 1e9)
+        else:
+            band = (g, 7)
+            entry("banded_attention_fwd", key, "flash_attention_banded.cu",
+                  "ops/flash_attention.py:330", errs[key],
+                  cuda_ms(lambda: mha_flash_banded(q, k, v, band), iters=50),
+                  cuda_ms(lambda: mha_banded_reference(q, k, v, band), iters=5), lib,
+                  4.0 * BATCH * h * d * live, nbytes,
+                  launches=wcounts[res][key], shape={"B": BATCH, "N": n, "H": h, "res": res},
+                  band_gflop=4.0 * BATCH * h * d * n * 7 * g / 1e9)
+        del q, k, v, sd, wb
     for kd in kernels:
         log(f"[timing] {kd['name']}: kernel {kd['ms']:.4f} ms, plain {kd['plain_ms']:.4f} ms, "
             f"library {kd['library_ms']}, bound {kd['bound_ms']:.4f} ms ({kd['bound_by']}), "
@@ -624,8 +803,32 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, gen) -> Non
              "dtype": "bfloat16", "step_ms": step_ms, "step_ms_windows": step_windows,
              "steps_per_s": 1e3 / step_ms, "images_per_s": TRAIN_BATCH * 1e3 / step_ms,
              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    # end to end, path 3: the windowed teacher's bs8 forward at both sizes,
+    # predict(), and its PEG conv alone
+    window = {}
+    for res in WINDOW_RES:
+        g = res // 14
+        x = preprocess_on_device(raw, res, dtype=wmodel.dtype)
+        tokens = torch.randn(BATCH, g * g, 768, generator=gen, device="cuda").to(bf16)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            windows = [cuda_ms(lambda: wmodel(x), iters=5) for _ in range(5)]
+            peg = cuda_ms(lambda: wmodel.pretrained.pos_conv(tokens, g, g), iters=10)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            predict(wmodel, images[:BATCH], res, batch_size=BATCH)
+        fwd = statistics.median(windows)
+        window[res] = {"arch": WINDOW_ARCH, "res": res, "batch": BATCH, "dtype": "bfloat16",
+                       "forward_ms": fwd, "forward_ms_windows": windows,
+                       "forward_images_per_s": BATCH / fwd * 1e3,
+                       "predict_images_per_s": BATCH * 3 / (time.perf_counter() - t0),
+                       "peg_conv_ms": peg,
+                       "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"[timing] {WINDOW_ARCH} {res}^2 bs{BATCH}: forward {fwd:.3f} ms "
+            f"({BATCH / fwd * 1e3:.1f} img/s), PEG conv {peg:.3f} ms")
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"end_to_end": e2e, "train_step": train}), flush=True)
+    print(json.dumps({"end_to_end": e2e, "train_step": train, "window": window}), flush=True)
 
 
 def main() -> None:
@@ -640,12 +843,14 @@ def main() -> None:
     phase_build()
     errs = {"attention": phase_attention(gen), "attention_bwd": phase_attention_grad(gen),
             "tail": phase_tail(gen), "select": phase_select(gen)}
+    errs["attention_bias"], errs["attention_banded"] = phase_window_attention(gen)
     model = create_model(ARCH, dtype=torch.bfloat16, device="cuda", seed=0)
     images = synthetic_images(BATCH)
     counts = phase_main_path(model, images)
     trainer, train_counts = phase_train()
     phase_train_vs_cpu()
-    phase_timing(model, images, counts, errs, trainer, train_counts, gen)
+    wmodel, wcounts = phase_window_path(images)
+    phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts, gen)
     log(f"[smoke] all phases passed in {time.time() - t0:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

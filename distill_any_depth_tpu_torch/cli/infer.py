@@ -9,7 +9,10 @@ Counterpart of distill_any_depth_tpu/cli/infer.py, in two parts:
   colorize, save), which imports cv2, PIL and matplotlib lazily.
 
 Run: ``python -m distill_any_depth_tpu_torch.cli.infer --device cuda
---arch_name depthanything-base --input IMAGES --output_dir OUT``. Not
+--arch_name depthanything-base --input IMAGES --output_dir OUT``; the
+windowed high-resolution teacher is ``--arch_name depthanything-base-window
+--processing_res 1036`` (518 runs the biased attention kernel, 1036 the
+banded one). Not
 ported yet: ``--quant`` (int8 GEMMs) and ``--fused_tail`` (the tail kernel
 always runs on the card), and multi-device sharding of the batch.
 """

@@ -1,0 +1,93 @@
+"""Least times on an H100 for the ten TPU kernels' work, at their paths' shapes.
+
+Run anywhere (it computes, it measures nothing): ``python -m
+distill_any_depth_tpu_torch.cli.kernel_bounds``. For each kernel of the JAX
+package it prints the operations and the bytes the function needs (each
+input read once, each output written once) and the bound: the larger of
+operations over the card's peak rate for their type and bytes over its
+memory rate. Masked attention counts the products of the live (query, key)
+pairs that the window mask leaves (49 per row for a 7x7 window), not the
+dense N^2 its loops could visit; both are printed. ``chip_smoke.py``
+computes the same bounds for the ported kernels from the inputs of its run.
+"""
+from __future__ import annotations
+
+import json
+
+BF16_OPS, INT8_OPS, BYTES = 989e12, 1979e12, 3.35e12  # H100 SXM dense peaks, HBM3
+D = 64
+
+
+def _bound(ops: float, nbytes: float, rate: float = BF16_OPS) -> dict:
+    t_ops, t_bytes = ops / rate, nbytes / BYTES
+    return {"gop": ops / 1e9, "mb": nbytes / 1e6, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _attention(b: int, n: int, h: int, keys: int, backward: bool, bias_bytes: int = 0) -> dict:
+    """Forward: 4*D flops per (query, key) pair and head, qkv in, out out.
+    Backward: 10*D (S and dP recomputed, dV, dQ, dK), qkv, out and the
+    cotangent in, d(qkv) out."""
+    c = h * D
+    per_pair = 10 if backward else 4
+    nbytes = (8 if backward else 4) * b * n * c * 2 + bias_bytes
+    out = _bound(per_pair * b * h * n * keys * D, nbytes)
+    out["dense_gop"] = per_pair * b * h * n * n * D / 1e9
+    return out
+
+
+def _tail(b: int, res: int, c: int) -> dict:
+    """DPT tail at a 4x-patch-grid input: 2x upsample + conv1 (C -> C/2),
+    resize to res, conv2 (C/2 -> 32) + ReLU, 1x1 head."""
+    ht = res // 14 * 4
+    hu = 2 * ht
+    ops = (2.0 * b * hu * hu * 9 * c * c // 2 + 2.0 * b * res * res * 9 * (c // 2) * 32
+           + 2.0 * b * res * res * 32)
+    weights = (9 * c * c // 2 + c // 2 + 9 * (c // 2) * 32 + 32 + 32 + 1) * 4
+    return _bound(ops, b * ht * ht * c * 2 + weights + b * res * res * 2)
+
+
+def _w8a8(m: int, k: int, n: int) -> tuple[float, float]:
+    """x [M, K] bf16 quantized in-kernel, w [K, N] int8 with per-column fp32
+    scales, fp32 bias, out [M, N] bf16."""
+    return 2.0 * m * k * n, m * k * 2 + k * n + n * 8 + m * n * 2
+
+
+def bounds() -> dict:
+    n392, n518, n1036 = 28 * 28 + 1, 37 * 37, 74 * 74
+    win = 49  # live keys per query row under the 7x7 clamped-centre window
+    m = 8 * n392  # ViT-B 392^2 bs8 tokens
+    gemms = {"qkv": (768, 2304), "proj": (768, 768), "fc1": (768, 3072), "fc2": (3072, 768)}
+    ops = nbytes = 0.0
+    for k, n in gemms.values():
+        o, by = _w8a8(m, k, n)
+        ops, nbytes = ops + 12 * o, nbytes + 12 * by
+    fc1 = _bound(*_w8a8(m, *gemms["fc1"]), rate=INT8_OPS)
+    return {
+        "1 packed attention fwd, ViT-B 392^2 bs8": _attention(8, n392, 12, n392, False),
+        "2 DPT tail v2, C=128 392^2 bs8": _tail(8, 392, 128),
+        "3 packed attention bwd, ViT-B 392^2 bs16": _attention(16, n392, 12, n392, True),
+        "4 kth select, [112, 153664] int32": _bound(0.0, 112 * 153664 * 4 + 112 * 8),
+        "5 bias attention fwd, window 518^2 bs8": _attention(8, n518, 12, win, False,
+                                                             n518 * n518 * 2),
+        "6 bias attention bwd, window student 518^2 bs16": _attention(16, n518, 12, win, True,
+                                                                      n518 * n518 * 2),
+        "7 banded attention fwd, window 1036^2 bs8": _attention(8, n1036, 12, win, False),
+        "8 banded attention bwd, window student 1036^2 bs16": _attention(16, n1036, 12, win,
+                                                                         True),
+        "9 W8A8 GEMM, ViT-B 392^2 bs8 fc1": fc1,
+        "9 W8A8 GEMMs, ViT-B 392^2 bs8, whole encoder (48)": _bound(ops, nbytes,
+                                                                    rate=INT8_OPS),
+        "10 DPT tail v1, C=128 392^2 bs8": _tail(8, 392, 128),
+    }
+
+
+def main() -> dict:
+    table = bounds()
+    for name, row in table.items():
+        print(json.dumps({"kernel": name, **row}))
+    return table
+
+
+if __name__ == "__main__":
+    main()

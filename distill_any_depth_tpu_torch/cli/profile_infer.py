@@ -5,6 +5,9 @@ Run on a machine with a CUDA card:
     python -m distill_any_depth_tpu_torch.cli.profile_infer \
         [--arch_name depthanything-base] [--res 392] [--batch 8]
 
+(the windowed teacher: ``--arch_name depthanything-base-window --res 518``
+runs the bias kernel, ``--res 1036`` the banded one).
+
 It measures the host time to enqueue a forward and the time the device
 still needs after that, then traces 10 forwards with ``torch.profiler`` and
 prints, from the trace's kernel events: device time per forward by kernel
@@ -34,6 +37,8 @@ ITERS, TOP = 10, 25  # forwards traced, kernels listed
 # GEMMs are ``nvjet_*`` or ``*_cublas``.
 CLASSES = (
     ("attention kernel", r"packed_attn_kernel"),
+    ("bias attention kernel", r"masked_attn_kernel.*BiasMask|tile_live_kernel"),
+    ("banded attention kernel", r"masked_attn_kernel.*WindowMask"),
     ("attention backward kernel", r"dkdv_kernel|dq_kernel|delta_kernel"),
     ("select kernel", r"kth_select_kernel"),
     ("tail kernel", r"tail_conv1_kernel|tail_head_kernel"),
@@ -42,6 +47,7 @@ CLASSES = (
     ("cast to bf16", r"bfloat16_copy_kernel"),
     ("copy / cat", r"direct_copy_kernel|CatArrayBatchedCopy"),
     ("layer norm", r"layer_norm_kernel"),
+    ("depthwise conv (PEG, ATen)", r"conv_depthwise2d"),
     ("conv (cudnn)", r"cudnn"),
     ("gemm (cublas)", r"nvjet|cublas|gemm"),
 )

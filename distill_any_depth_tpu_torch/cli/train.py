@@ -7,7 +7,9 @@ device: ``python -m distill_any_depth_tpu_torch.cli.train --device cuda
 features not ported yet are accepted by name and refuse any value but their
 default: checkpoints (``--teacher_checkpoints``, ``--checkpoint_interval``,
 ``--resume``), visualisation, the profiler, the dp/tp mesh, the int8
-teacher, image-folder data, LoRA/SSF adapters and device preprocessing.
+teacher, image-folder data, LoRA/SSF adapters and device preprocessing. A
+windowed student (``--student_arch depthanything-base-window``) is refused on
+the card: its attention kernels are forward-only.
 """
 from __future__ import annotations
 
@@ -78,6 +80,8 @@ def argument_parser() -> argparse.ArgumentParser:
 
 
 def main(args=None) -> dict:
+    import torch
+
     from distill_any_depth_tpu_torch.configs import (
         LossConfig,
         OptimizerConfig,
@@ -92,11 +96,16 @@ def main(args=None) -> dict:
         if getattr(args, flag) != default:
             raise NotImplementedError(f"--{flag}: {what} is not ported to the PyTorch "
                                       f"package yet")
+    student = model_config(args.student_arch)
+    if student.encoder.window_size is not None and torch.device(args.device).type != "cpu":
+        raise NotImplementedError(f"--student_arch {args.student_arch}: the windowed attention "
+                                  f"kernels have no backward on the card yet (--device cpu "
+                                  f"trains it through their plain versions)")
     logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO)
 
     total_steps = args.num_iterations or args.num_epochs * 1000
     cfg = TrainConfig(
-        student=model_config(args.student_arch),
+        student=student,
         teachers=tuple(args.teacher_models),
         loss=LossConfig(
             normalization=args.normalization, num_segments=args.num_segments,

@@ -27,6 +27,17 @@ class EncoderConfig:
     init_values: float | None = 1.0  # LayerScale init; None disables
     interpolate_offset: float = 0.1
     out_indices: tuple[int, int, int, int] = (2, 5, 8, 11)
+    # Local-window attention (odd window width in patches; None = global).
+    window_size: int | None = None
+    # The windowed variant (DinoWindowVisionTransformer): no cls token, the
+    # PEG conv positional encoding blended with the interpolated pos-embed
+    # on a step schedule, and all four taps equal to the final post-norm
+    # layer.
+    use_cls_token: bool = True
+    use_pos_conv: bool = False
+    pe_start_step: int = 2000
+    pe_total_step: int = 10000
+    final_taps: bool = False
 
 
 def _enc(name, dim, depth, heads, idx, **kw) -> EncoderConfig:
@@ -39,6 +50,13 @@ ENCODERS: dict[str, EncoderConfig] = {
     "vits": _enc("vits", 384, 12, 6, (2, 5, 8, 11)),
     "vitb": _enc("vitb", 768, 12, 12, (2, 5, 8, 11)),
     "vitl": _enc("vitl", 1024, 24, 16, (4, 11, 17, 23)),
+    # the windowed high-resolution ViT-B: window 7, PEG, no cls token, a
+    # 224-based pos-embed grid, four identical final-layer taps
+    "vitb_window": _enc(
+        "vitb_window", 768, 12, 12, (2, 5, 8, 11),
+        window_size=7, use_pos_conv=True, use_cls_token=False,
+        base_img_size=224, init_values=1e-5, final_taps=True,
+    ),
 }
 
 
@@ -75,6 +93,15 @@ MODELS: dict[str, ModelConfig] = {
         dataclasses.replace(ENCODERS["vitl"], init_values=1e-5),
         256,
         (256, 512, 1024, 1024),
+        trailing_head_relu=False,
+        interp_to_input=True,
+    ),
+    # the windowed ViT-B teacher
+    "depthanything-base-window": ModelConfig(
+        "depthanything-base-window",
+        ENCODERS["vitb_window"],
+        128,
+        (96, 192, 384, 768),
         trailing_head_relu=False,
         interp_to_input=True,
     ),

@@ -160,7 +160,9 @@ class DPTHead(nn.Module):
 class DepthModel(nn.Module):
     """DINOv2 encoder + DPT head, student or teacher by ``ModelConfig``.
 
-    ``forward(x [B, 3, H, W])`` runs in ``self.dtype`` and returns
+    ``forward(x [B, 3, H, W], pe_step=None)`` runs in ``self.dtype`` (the
+    windowed encoder's PE -> GPE blend at training step ``pe_step``; None
+    is inference, past the schedule) and returns
     ``(depth, features)``: depth ``[B, H', W']`` (``[B, C, H', W']`` for a
     multi-channel head) ReLU'd as the reference does, and the last tap's
     tokens ``[B, N, C]``. ``fused_tail`` selects the DPT tail kernel for a
@@ -178,11 +180,11 @@ class DepthModel(nn.Module):
                                   cfg.head_out_channels, cfg.use_clstoken,
                                   cfg.trailing_head_relu, enc.patch_size, fused_tail)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, pe_step=None):
         x = x.to(self.dtype)
         h, w = x.shape[-2:]
         p = self.cfg.encoder.patch_size
-        taps, cls_tokens = self.pretrained(x)
+        taps, cls_tokens = self.pretrained(x, pe_step)
         depth = self.depth_head(taps, h // p, w // p, cls_tokens)
         if self.cfg.interp_to_input and tuple(depth.shape[-2:]) != (h, w):
             depth = resize_nchw(depth, (h, w))

@@ -62,7 +62,8 @@ def init_params(model: nn.Module, seed: int = 0) -> None:
     for m in model.modules():
         if isinstance(m, DinoViT):
             _trunc_normal(m.pos_embed, 0.02, gen)
-            m.cls_token.normal_(0.0, 1e-6, generator=gen)
+            if m.cls_token is not None:
+                m.cls_token.normal_(0.0, 1e-6, generator=gen)
         elif isinstance(m, LayerScale):
             pass  # keeps init_values
         elif isinstance(m, nn.LayerNorm):

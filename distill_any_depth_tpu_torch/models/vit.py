@@ -1,16 +1,17 @@
-"""DINOv2-style ViT encoder (global attention, cls token).
+"""DINOv2-style ViT encoder: global attention with a cls token, or the
+windowed high-resolution variant.
 
 Counterpart of distill_any_depth_tpu/models/vit.py (``PatchEmbed``, ``Mlp``,
-``Attention``, ``Block``, ``_interp_pos_embed``, ``DinoViT``). Submodules
-carry the reference state-dict names (``pretrained.blocks.{i}.attn.qkv``
-...), so a state dict from ``utils/convert.params_from_jax`` loads with
+``Attention``, ``Block``, ``_interp_pos_embed``, ``PosConv``, ``DinoViT``).
+Submodules carry the reference state-dict names
+(``pretrained.blocks.{i}.attn.qkv``, ``pretrained.pos_conv.proj.0`` ...), so
+a state dict from ``utils/convert.params_from_jax`` loads with
 ``strict=True``.
 
 Parameters stay fp32; every layer casts its weights to the dtype of its
 input, as flax does with ``kernel.astype(dtype)``, so bf16 activations reach
-the attention kernel. Not ported yet: register tokens, the PEG conv
-positional encoding, windowed attention, LoRA/SSF adapters, int8 GEMMs and
-SwiGLU.
+the attention kernels. Not ported yet: register tokens, LoRA/SSF adapters,
+int8 GEMMs, SwiGLU and ``tap_norm=False`` taps.
 """
 from __future__ import annotations
 
@@ -20,10 +21,12 @@ from torch import nn
 
 from distill_any_depth_tpu_torch.configs import EncoderConfig
 from distill_any_depth_tpu_torch.ops.attention import multi_head_attention_packed
+from distill_any_depth_tpu_torch.ops.flash_attention import banded_eligible
 from distill_any_depth_tpu_torch.ops.resize import resize_matrix
+from distill_any_depth_tpu_torch.ops.window import local_window_bias
 
 __all__ = ["Linear", "LayerNorm", "Conv2d", "gelu", "PatchEmbed", "Mlp", "Attention", "Block",
-           "interp_pos_embed", "DinoViT"]
+           "interp_pos_embed", "PosConv", "DinoViT"]
 
 
 class Linear(nn.Linear):
@@ -41,7 +44,8 @@ class LayerNorm(nn.LayerNorm):
 class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+                        self.dilation, self.groups)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -78,9 +82,10 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # qkv columns are (q|k|v, head, dim): the layout the kernel reads as is
-        return self.proj(multi_head_attention_packed(self.qkv(x), self.num_heads))
+    def forward(self, x: torch.Tensor, bias: torch.Tensor | None = None,
+                band: tuple[int, int] | None = None) -> torch.Tensor:
+        # qkv columns are (q|k|v, head, dim): the layout the kernels read as is
+        return self.proj(multi_head_attention_packed(self.qkv(x), self.num_heads, bias, band))
 
 
 class LayerScale(nn.Module):
@@ -104,28 +109,51 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.ls2 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x)))
+    def forward(self, x: torch.Tensor, bias: torch.Tensor | None = None,
+                band: tuple[int, int] | None = None) -> torch.Tensor:
+        x = x + self.ls1(self.attn(self.norm1(x), bias, band))
         return x + self.ls2(self.mlp(self.norm2(x)))
 
 
 def interp_pos_embed(pos_embed: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor,
-                     dtype: torch.dtype) -> torch.Tensor:
-    """Bicubic resampling of the cls-prefixed base-grid pos-embed with the
-    ``[gh, base]`` / ``[gw, base]`` interpolation matrices ``mh``, ``mw``."""
+                     dtype: torch.dtype, has_cls: bool = True) -> torch.Tensor:
+    """Bicubic resampling of the base-grid pos-embed (after its cls entry
+    when ``has_cls``) with the ``[gh, base]`` / ``[gw, base]`` interpolation
+    matrices ``mh``, ``mw``."""
     base, dim = mh.shape[1], pos_embed.shape[-1]
-    grid = pos_embed[0, 1:].float().reshape(base, base, dim)
+    n_cls = 1 if has_cls else 0
+    grid = pos_embed[0, n_cls:].float().reshape(base, base, dim)
     out = torch.einsum("Hh,hwc->Hwc", mh, grid)
     out = torch.einsum("Ww,hwc->hWc", mw, out).reshape(1, -1, dim)
-    return torch.cat([pos_embed[:, :1].float(), out], dim=1).to(dtype)
+    return torch.cat([pos_embed[:, :n_cls].float(), out], dim=1).to(dtype)
+
+
+class PosConv(nn.Module):
+    """PEG conv positional encoding: a 37x37 depthwise conv over the token
+    grid plus the identity, ``[B, N, C]`` tokens on a ``gh x gw`` grid. The
+    conv is ``proj.0`` (the reference key ``pos_conv.proj.0``)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.proj = nn.Sequential(Conv2d(dim, dim, 37, padding=18, groups=dim))
+
+    def forward(self, tokens: torch.Tensor, gh: int, gw: int) -> torch.Tensor:
+        b, n, c = tokens.shape
+        # NCHW-contiguous whatever the tokens' layout: PyTorch's depthwise
+        # kernel took 7x longer on the channels-last view that contiguous
+        # tokens give (ViT-B 518^2 bs8 on an H100)
+        x = tokens.transpose(1, 2).reshape(b, c, gh, gw).contiguous()
+        return (self.proj(x) + x).flatten(2).transpose(1, 2)
 
 
 class DinoViT(nn.Module):
     """DINOv2 encoder with intermediate-layer taps.
 
-    ``forward(x [B, 3, H, W])`` returns ``(taps, cls_tokens)``: for each
-    index in ``cfg.out_indices`` the final-normed patch tokens ``[B, N, C]``
-    and the cls token ``[B, C]``.
+    ``forward(x [B, 3, H, W], pe_step=None)`` returns ``(taps, cls_tokens)``:
+    for each index in ``cfg.out_indices`` the final-normed patch tokens
+    ``[B, N, C]`` and the cls token ``[B, C]``. The windowed variant
+    (``cfg.final_taps``) returns the final post-norm tokens four times, its
+    "cls token" being patch token 0 (it has no cls token).
     """
 
     def __init__(self, cfg: EncoderConfig):
@@ -133,9 +161,11 @@ class DinoViT(nn.Module):
         self.cfg = cfg
         d = cfg.embed_dim
         n_base = (cfg.base_img_size // cfg.patch_size) ** 2
+        n_cls = 1 if cfg.use_cls_token else 0
         self.patch_embed = PatchEmbed(cfg.patch_size, d)
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
-        self.pos_embed = nn.Parameter(torch.zeros(1, n_base + 1, d))
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, d)) if cfg.use_cls_token else None
+        self.pos_embed = nn.Parameter(torch.zeros(1, n_base + n_cls, d))
+        self.pos_conv = PosConv(d) if cfg.use_pos_conv else None
         self.blocks = nn.ModuleList(
             Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.init_values) for _ in range(cfg.depth)
         )
@@ -167,9 +197,24 @@ class DinoViT(nn.Module):
                 for g in (gh, gw)
             )
             self._pe_mats[(gh, gw, dev)] = mats
-        return interp_pos_embed(self.pos_embed, *mats, dtype)
+        return interp_pos_embed(self.pos_embed, *mats, dtype, cfg.use_cls_token)
 
-    def forward(self, x: torch.Tensor):
+    def _attention_mask(self, gh: int, gw: int, n: int, device: torch.device,
+                        dtype: torch.dtype):
+        """``(bias, band)`` for every block: the local-window bias of the
+        grid (built once per grid and device), and, with no prefix token,
+        the band ``(gw, window)``. A grid that the banded kernel takes needs
+        no bias, so none is built for it."""
+        window = self.cfg.window_size
+        if window is None:
+            return None, None
+        n_prefix = 1 if self.cfg.use_cls_token else 0
+        band = (gw, window) if n_prefix == 0 else None
+        if banded_eligible(n, band):
+            return None, band
+        return local_window_bias(gh, gw, window, n_prefix, device, dtype), band
+
+    def forward(self, x: torch.Tensor, pe_step=None):
         cfg = self.cfg
         b, _, h, w = x.shape
         p = cfg.patch_size
@@ -177,17 +222,40 @@ class DinoViT(nn.Module):
             raise ValueError(f"input {h}x{w} must be a multiple of patch {p}")
         gh, gw = h // p, w // p
         tokens = self.patch_embed(x)
-        cls = self.cls_token.to(x.dtype).expand(b, -1, -1)
-        tokens = torch.cat([cls, tokens], dim=1)
-        tokens = tokens + self._pos_embed(gh, gw, x.dtype)
+        if self.cls_token is not None:
+            cls = self.cls_token.to(x.dtype).expand(b, -1, -1)
+            tokens = torch.cat([cls, tokens], dim=1)
+        if self.pos_conv is None:
+            tokens = tokens + self._pos_embed(gh, gw, x.dtype)
+        else:
+            # PE -> GPE blend: the coefficient ramps 0 -> 1 between
+            # pe_start_step and pe_total_step; inference (pe_step=None) is
+            # past the schedule and reads no pos-embed
+            gpe = self.pos_conv(tokens, gh, gw)
+            if pe_step is None:
+                tokens = tokens + gpe
+            else:
+                step = torch.as_tensor(pe_step, dtype=torch.float32, device=x.device)
+                coef = ((step - cfg.pe_start_step) / (cfg.pe_total_step - cfg.pe_start_step))
+                coef = coef.clamp(0.0, 1.0).to(x.dtype)
+                tokens = tokens + (1.0 - coef) * self._pos_embed(gh, gw, x.dtype) + coef * gpe
+        # a token-major residual stream: without a cls token to concatenate,
+        # the patch embedding's tokens are a transposed view, and every
+        # elementwise op of the blocks would run strided
+        tokens = tokens.contiguous()
+        n_prefix = 1 if cfg.use_cls_token else 0
+        bias, band = self._attention_mask(gh, gw, tokens.shape[1], x.device, x.dtype)
         raw = {}
         for i, blk in enumerate(self.blocks):
-            tokens = blk(tokens)
+            tokens = blk(tokens, bias, band)
             if i in cfg.out_indices:
                 raw[i] = tokens
+        if cfg.final_taps:
+            t = self.norm(tokens)
+            return [t[:, n_prefix:]] * 4, [t[:, 0]] * 4
         taps, cls_tokens = [], []
         for i in cfg.out_indices:
             t = self.norm(raw[i])
             cls_tokens.append(t[:, 0])
-            taps.append(t[:, 1:])
+            taps.append(t[:, n_prefix:])
         return taps, cls_tokens

@@ -26,6 +26,8 @@ BUILD_DIR = _PKG.parent / "build"
 SOURCES = {
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "flash_attention_bias": "flash_attention_bias.cu",
+    "flash_attention_banded": "flash_attention_banded.cu",
     "dpt_tail": "dpt_tail.cu",
     "kth_select": "kth_select.cu",
 }

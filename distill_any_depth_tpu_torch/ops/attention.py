@@ -1,21 +1,30 @@
 """Multi-head attention entry point for the ViT encoder.
 
 Counterpart of distill_any_depth_tpu/ops/attention.py
-``multi_head_attention_packed`` without ``bias``/``band`` (the windowed and
-biased variants are not ported yet). Every CUDA call goes through the
-packed attention kernel: the TPU package's einsum cutover below 512 tokens
-was a TPU launch-cost trade and does not carry over.
+``multi_head_attention_packed``. Bias-free attention goes through the packed
+attention kernel; a bias or a window band goes through ``mha_flash`` (the
+biased or the banded kernel) on q, k, v viewed in place in the packed
+tensor. Every CUDA call reaches a kernel whatever N is: the JAX package's
+einsum cutover below 512 tokens was a TPU launch-cost trade and does not
+change the function.
 """
 from __future__ import annotations
 
 import torch
 
-from distill_any_depth_tpu_torch.ops.flash_attention import mha_flash_packed
+from distill_any_depth_tpu_torch.ops.flash_attention import mha_flash, mha_flash_packed
 
 __all__ = ["multi_head_attention_packed"]
 
 
-def multi_head_attention_packed(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+def multi_head_attention_packed(qkv: torch.Tensor, num_heads: int,
+                                bias: torch.Tensor | None = None,
+                                band: tuple[int, int] | None = None) -> torch.Tensor:
     """Attention on the fused-QKV GEMM output ``[B, N, 3*H*D]`` (column
-    order q|k|v, head, dim), returning ``[B, N, H*D]``."""
-    return mha_flash_packed(qkv, num_heads)
+    order q|k|v, head, dim), returning ``[B, N, H*D]``. ``bias`` and
+    ``band``: see ``ops/flash_attention.mha_flash``."""
+    if bias is None and band is None:
+        return mha_flash_packed(qkv, num_heads)
+    b, n, c3 = qkv.shape
+    q, k, v = qkv.view(b, n, 3, num_heads, c3 // 3 // num_heads).unbind(2)
+    return mha_flash(q, k, v, bias, band).reshape(b, n, c3 // 3)

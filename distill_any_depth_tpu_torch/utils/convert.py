@@ -9,6 +9,8 @@ numpy arrays, so the weights of one JAX model load into the port with
 - Dense ``[I, O]`` -> Linear ``[O, I]``, or a 1x1 conv ``[O, I, 1, 1]``;
 - conv HWIO ``[kh, kw, I, O]`` -> OIHW ``[O, I, kh, kw]``;
 - patch-embed matmul ``[p*p*C, D]`` ((ph, pw, c) order) -> conv OIHW;
+- the PEG depthwise conv ``pos_conv/proj`` HWIO ``[37, 37, 1, C]`` ->
+  ``pos_conv.proj.0`` ``[C, 1, 37, 37]``;
 - PatchExpand ``[I, k*k*O]`` ((kh, kw, o) order) -> ConvTranspose2d
   ``[I, O, k, k]``;
 - LayerNorm ``scale`` -> ``weight``; LayerScale ``ls{1,2}_gamma`` ->
@@ -52,6 +54,9 @@ def _encoder_key(path: tuple[str, ...], v: np.ndarray, patch: int) -> tuple[str,
         if path[1] == "kernel":
             return "pretrained.patch_embed.proj.weight", v.reshape(patch, patch, -1, v.shape[-1]).transpose(3, 2, 0, 1)
         return "pretrained.patch_embed.proj.bias", v
+    if name == "pos_conv":  # PEG depthwise conv: HWIO [37, 37, 1, C] -> [C, 1, 37, 37]
+        leaf = "weight" if path[-1] == "kernel" else "bias"
+        return f"pretrained.pos_conv.proj.0.{leaf}", _oihw(v) if leaf == "weight" else v
     if name == "norm":
         return f"pretrained.norm.{'weight' if path[1] == 'scale' else 'bias'}", v
     if name.startswith("blocks_"):

@@ -33,6 +33,7 @@ def _tiny(models, arch, **head):
 @pytest.mark.parametrize("arch,head", [
     ("depthanything-base", {}),
     ("depthanything-large", {"use_clstoken": True}),  # LayerScale 1e-5, cls readout
+    ("depthanything-base-window", {}),  # PEG conv, no cls token, 224-based pos-embed
 ])
 def test_params_from_jax_matches_params_to_torch(arch, head):
     jcfg, tcfg = _tiny(JAX_MODELS, arch, **head), _tiny(MODELS, arch, **head)
@@ -53,5 +54,5 @@ def test_params_from_jax_matches_params_to_torch(arch, head):
 
 def test_unknown_param_raises():
     with pytest.raises(KeyError, match="unmapped"):
-        params_from_jax({"pretrained": {"pos_conv": {"proj": {"kernel": np.zeros(3)}}}},
+        params_from_jax({"pretrained": {"register_tokens": np.zeros((1, 4, 64))}},
                         MODELS["depthanything-base"])

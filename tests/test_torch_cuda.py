@@ -4,8 +4,9 @@ Marked ``cuda``: they skip without a CUDA device (decided inside each test
 through the ``cuda_device`` fixture). On a machine with a card:
 ``python -m pytest tests/test_torch_cuda.py -m cuda``. Tolerances as in
 ``chip_smoke.py``: fp32 differs by summation order only; bf16 by a few
-bf16 roundings placed differently (attention and its backward: max |err| /
-(1 + |ref|); tail: max |err| / max |ref|); the select is exact.
+bf16 roundings placed differently (attention, biased and banded attention
+and the backward: max |err| / (1 + |ref|); tail: max |err| / max |ref|);
+the select is exact.
 """
 import dataclasses
 
@@ -16,10 +17,15 @@ from distill_any_depth_tpu_torch.configs import model_config
 from distill_any_depth_tpu_torch.models.factory import create_model
 from distill_any_depth_tpu_torch.ops.dpt_tail import fused_dpt_tail, tail_reference
 from distill_any_depth_tpu_torch.ops.flash_attention import (
+    mha_banded_reference,
+    mha_bias_reference,
+    mha_flash_banded,
+    mha_flash_bias,
     mha_flash_packed,
     mha_packed_reference,
     packed_attention_backward,
 )
+from distill_any_depth_tpu_torch.ops.window import local_window_bias, segment_bias
 from distill_any_depth_tpu_torch.ops.stats import _order_bits, kth_select, kth_select_reference
 
 pytestmark = pytest.mark.cuda
@@ -140,3 +146,85 @@ def test_model_runs_kernels_in_grad_mode_or_raises(cuda_device):
     assert (mha_flash_packed.launches - attn, fused_dpt_tail.launches - tail,
             packed_attention_backward.launches - bwd) == (2, 0, 2)
     assert torch.isfinite(student.pretrained.blocks[0].attn.qkv.weight.grad).all()
+
+
+def _masked_qkv(b, n, h, dtype, gen):
+    """q, k, v [B, N, H, 64] viewed in place in a packed qkv."""
+    qkv = torch.randn(b, n, 3 * h * 64, generator=gen, device=gen.device).to(dtype)
+    return qkv.view(b, n, 3, h, 64).unbind(2)
+
+
+def _within(got, ref, tol):
+    assert got.shape == ref.shape and got.dtype == ref.dtype and torch.isfinite(got).all()
+    assert ((got.float() - ref.float()).abs() <= tol * (1 + ref.float().abs())).all()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 6e-3)])
+@pytest.mark.parametrize("kind,n", [
+    ("window", 81), ("window+prefix", 82), ("random", 65), ("segment", 130), ("none", 63),
+])
+def test_bias_kernel_matches_plain(cuda_device, kind, n, dtype, tol):
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    q, k, v = _masked_qkv(2, n, 2, dtype, gen)
+    bias = {
+        "window": lambda: local_window_bias(9, 9, 3, 0, cuda_device, dtype),
+        "window+prefix": lambda: local_window_bias(9, 9, 3, 1, cuda_device, torch.float32),
+        "random": lambda: torch.randn(n, n, generator=gen, device=cuda_device),
+        "segment": lambda: segment_bias(torch.arange(n) // 40).to(cuda_device, dtype),
+        "none": lambda: None,
+    }[kind]()
+    before = mha_flash_bias.launches
+    got = mha_flash_bias(q, k, v, bias)
+    assert mha_flash_bias.launches == before + 1
+    _within(got, mha_bias_reference(q, k, v, bias), tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 6e-3)])
+@pytest.mark.parametrize("gh,gw,window", [
+    (9, 9, 3), (3, 5, 7), (12, 20, 7), (50, 110, 7), (3, 1000, 7), (13, 29, 5),
+])
+def test_banded_kernel_matches_plain_and_bias_kernel(cuda_device, gh, gw, window, dtype, tol):
+    gen = torch.Generator(device=cuda_device).manual_seed(gh * gw)
+    q, k, v = _masked_qkv(2, gh * gw, 2, dtype, gen)
+    before = mha_flash_banded.launches
+    got = mha_flash_banded(q, k, v, (gw, window))
+    assert mha_flash_banded.launches == before + 1
+    _within(got, mha_banded_reference(q, k, v, (gw, window)), tol)
+    # kernel 5 with the window bias visits the same live tiles with the same arithmetic
+    wb = local_window_bias(gh, gw, window, 0, cuda_device, dtype)
+    assert torch.equal(got, mha_flash_bias(q, k, v, wb))
+
+
+def test_masked_kernels_refuse(cuda_device):
+    q, k, v = _masked_qkv(1, 16, 2, torch.float32, torch.Generator(device=cuda_device))
+    with pytest.raises(TypeError):
+        mha_flash_bias(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="bias"):
+        mha_flash_bias(q, k, v, torch.zeros(15, 15, device=cuda_device))
+    with pytest.raises(ValueError, match="band"):
+        mha_flash_banded(q, k, v, (5, 3))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        mha_flash_banded(q.detach().requires_grad_(), k, v, (4, 3))
+
+
+@pytest.mark.parametrize("res,kernel", [(126, "bias"), (70, "banded")])
+def test_windowed_model_runs_masked_kernels(cuda_device, monkeypatch, res, kernel):
+    """A tiny windowed model in bf16 runs one launch of its attention kernel
+    per block (the banded one once the grid passes the threshold, lowered
+    here) and the tail kernel once, and never the packed attention."""
+    from distill_any_depth_tpu_torch.ops import flash_attention
+
+    if kernel == "banded":
+        monkeypatch.setattr(flash_attention, "_BANDED_MIN_SEQ", 0)
+    cfg = model_config("depthanything-base-window")
+    enc = dataclasses.replace(cfg.encoder, embed_dim=128, depth=2, num_heads=2, window_size=3)
+    cfg = dataclasses.replace(cfg, encoder=enc, features=64, out_channels=(32, 64, 96, 128))
+    model = create_model(cfg, dtype=torch.bfloat16, device=cuda_device)
+    x = torch.rand(1, 3, res, res, device=cuda_device)
+    fns = (mha_flash_packed, mha_flash_bias, mha_flash_banded, fused_dpt_tail)
+    before = [f.launches for f in fns]
+    with torch.no_grad():
+        depth, _ = model(x)
+    ran = [f.launches - b for f, b in zip(fns, before)]
+    assert ran == ([0, 2, 0, 1] if kernel == "bias" else [0, 0, 2, 1])
+    assert depth.shape == (1, res, res) and torch.isfinite(depth).all()

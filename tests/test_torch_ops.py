@@ -198,3 +198,17 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
     assert not any(tmp_path.iterdir())
+
+
+def test_kernel_bounds_cover_every_tpu_kernel():
+    """``cli/kernel_bounds`` (the bounds of PERF.md's kernel table) gives every
+    one of the ten kernels a positive bound, masked attention below dense."""
+    from distill_any_depth_tpu_torch.cli import kernel_bounds
+
+    table = kernel_bounds.bounds()
+    assert {name.split()[0] for name in table} == {str(i) for i in range(1, 11)}
+    assert all(row["bound_ms"] > 0 and row["bound_by"] in ("bytes", "operations")
+               for row in table.values())
+    for name, row in table.items():
+        if "dense_gop" in row:
+            assert row["gop"] <= row["dense_gop"], name

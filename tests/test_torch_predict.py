@@ -72,6 +72,32 @@ def test_predict_matches_jax_forward():
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-5 * (1 + np.abs(want).max()))
 
 
+def test_predict_windowed_matches_jax_forward():
+    """The windowed teacher's head flags (no trailing ReLU, resize to the
+    input) and the bias path through ``predict``, tiny: window 3 on a 7x7
+    grid, JAX attention in interpret mode."""
+    def tiny(models):
+        cfg = models["depthanything-base-window"]
+        enc = dataclasses.replace(cfg.encoder, embed_dim=128, depth=2, num_heads=2,
+                                  window_size=3)
+        return dataclasses.replace(cfg, encoder=enc, features=64,
+                                   out_channels=(32, 64, 96, 128))
+
+    jcfg, tcfg = tiny(JAX_MODELS), tiny(MODELS)
+    jmodel = jax_create_model(jcfg, attn_impl="flash")
+    init = jax.jit(jmodel.init)(jax.random.PRNGKey(1), jnp.zeros((1, 98, 98, 3)))
+    params = jax.tree_util.tree_map(np.asarray, init["params"])
+    model = create_model(tcfg, device="cpu")
+    model.load_state_dict(params_from_jax(params, tcfg), strict=True)
+    ims = _images(3, 50, 70, seed=3)
+    got = infer.predict(model, ims, 98, batch_size=2)
+    x = jax_preprocess(jnp.asarray(np.stack(ims)), 98)
+    want = np.asarray(jax.jit(jmodel.apply)({"params": params}, x)[0])
+    assert got.shape == (3, 98, 98)
+    # fp32 through preprocessing and the whole model (see test_torch_model)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5 * (1 + np.abs(want).max()))
+
+
 def test_predict_vitb_392_on_cpu():
     """The slice's main path at full width on the CPU: depthanything-base,
     392^2, batch 2, fp32, plain attention and tail."""
@@ -112,6 +138,21 @@ def test_cli_writes_depth_maps(tmp_path, mode):
         assert disp.shape == ((56, 70) if mode == "native" else (56, 56))
         assert np.isfinite(disp).all() and disp.min() >= 0 and disp.max() <= 1
         assert cv2.imread(path).shape[:2] == (56, 70)
+
+
+def test_cli_windowed_teacher_at_native_resolution(tmp_path):
+    """``--processing_res 0`` with the windowed teacher at full width: a
+    non-square 4x5 grid, shorter than the window on both axes."""
+    cv2 = pytest.importorskip("cv2")
+    inp = tmp_path / "in"
+    inp.mkdir()
+    cv2.imwrite(str(inp / "im.png"), _images(1, 56, 70, seed=4)[0])
+    argv = ["--arch_name", "depthanything-base-window", "--input", str(inp),
+            "--output_dir", str(tmp_path / "out"), "--dtype", "float32", "--device", "cpu",
+            "--save_npy", "--processing_res", "0"]
+    (path,) = infer.main(infer.argument_parser().parse_args(argv))
+    disp = np.load(os.path.join(os.path.dirname(path), "depth_im.npy"))
+    assert disp.shape == (56, 70) and np.isfinite(disp).all()
 
 
 @pytest.mark.parametrize("size", [(50, 70), (56, 70), (97, 131)])

@@ -191,7 +191,8 @@ def test_cli_trains_on_smoke_data(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--resume", "run"], ["--lora_rank", "4"],
                                   ["--teacher_quant", "int8"], ["--data_mode", "images"],
-                                  ["--checkpoint_interval", "10"], ["--device_preprocess"]],
+                                  ["--checkpoint_interval", "10"], ["--device_preprocess"],
+                                  ["--student_arch", "depthanything-base-window"]],
                          ids=lambda f: f[0])
 def test_cli_refuses_features_not_ported(flag, tmp_path):
     with pytest.raises(NotImplementedError, match=flag[0]):
