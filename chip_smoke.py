@@ -30,7 +30,21 @@ Phases, each of which fails the run if it fails:
    ``depthanything-base-window`` at 518^2 (kernel 5) and 1036^2 (kernel 7),
    bs8, bf16; launch counts per forward, and one image of each against the
    port's CPU fp32 forward;
-10. time each kernel, its plain version and its PyTorch library yardstick
+10. hold the biased attention backward (kernel 6) and the banded one
+   (kernel 8) against their plain versions on the same forward output and
+   log-sum-exp, the autograd path (kernels 5 + 6, 7 + 8) against autograd
+   of the plain forwards, and kernel 8 against kernel 6 with the window
+   bias, at the windowed student's shapes and at edge grids;
+11. main path 4: ``train.loop.Trainer`` with the windowed student
+   ``depthanything-base-window`` and the ViT-L teacher at bs16 bf16, 3
+   steps at 518^2 (kernels 5 + 6) and 3 at 1036^2 (kernels 7 + 8): launch
+   counts, finite losses and gradient norm, moved parameters, peak memory
+   and step time; then two steps of ``cli.train --student_arch
+   depthanything-base-window`` over ``data/smoke``;
+12. one fp32 step of the windowed student (``depthanything-small``
+   teacher) on the card against the CPU: bs2 at 518^2 (kernel 6) and bs1
+   at 784^2 (a 56 x 56 grid, kernel 8);
+13. time each kernel, its plain version and its PyTorch library yardstick
    with CUDA events, the end-to-end forwards and the bs16 train step.
 
 The last line is ``{"ok": true, "device": {...}}``.
@@ -52,16 +66,28 @@ import torch.nn.functional as F  # noqa: E402
 
 from distill_any_depth_tpu_torch.cli.infer import predict  # noqa: E402
 from distill_any_depth_tpu_torch.cli.profile_infer import cuda_ms  # noqa: E402
-from distill_any_depth_tpu_torch.configs import TrainConfig, model_config  # noqa: E402
+from distill_any_depth_tpu_torch.configs import (  # noqa: E402
+    LossConfig,
+    TrainConfig,
+    model_config,
+)
 from distill_any_depth_tpu_torch.models.factory import create_model  # noqa: E402
 from distill_any_depth_tpu_torch.ops import _build  # noqa: E402
 from distill_any_depth_tpu_torch.ops.dpt_tail import fused_dpt_tail, tail_reference  # noqa: E402
 from distill_any_depth_tpu_torch.ops.flash_attention import (  # noqa: E402
+    _banded_forward,
+    _bias_forward,
+    banded_attention_backward,
+    banded_attention_backward_reference,
+    banded_eligible,
+    bias_attention_backward,
+    bias_attention_backward_reference,
     mha_banded_reference,
     mha_bias_reference,
     mha_flash_banded,
     mha_flash_bias,
     mha_flash_packed,
+    mha_flash_qkv,
     mha_packed_reference,
     packed_attention_backward,
 )
@@ -79,6 +105,7 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 ARCH, RES, BATCH = "depthanything-base", 392, 8
 TEACHER, TRAIN_BATCH, TRAIN_STEPS = "depthanything-large", 16, 3
 WINDOW_ARCH, WINDOW_RES = "depthanything-base-window", (518, 1036)  # kernel 5, kernel 7
+WINDOW_TRAIN_BATCH = {518: 16, 1036: 16}  # main path 4: kernels 5 + 6, kernels 7 + 8
 HDN_ROWS = 7 * TRAIN_BATCH  # the dr/3 HDN contexts folded with the batch
 
 BF16_ATTN_TOL = 6e-3  # max |err| / (1 + |ref|), bf16 kernel 1 against its plain version
@@ -107,6 +134,27 @@ E2E_MAX, E2E_MEAN, E2E_CORR = 0.1, 0.02, 0.996
 # on an H100 (max 0.0132 / 0.0138, mean 0.00232 / 0.00227, 1 - corr 1.0e-4 /
 # 1.2e-4)
 WINDOW_E2E_MAX, WINDOW_E2E_MEAN, WINDOW_E2E_CORR = 0.04, 0.007, 0.9996
+# max |err| / (1 + |ref|) of dq, dk, dv, kernels 6 and 8 against their plain
+# versions on the same out and lse: bf16 differs by the flips of roundings
+# placed alike, fp32 by summation order. About 3x the readings on an H100
+# (bf16 3.9e-3; fp32 6.6e-7, and 1.24e-6 with every logit below -60; bf16
+# below -60 3.3e-5 in relative L2, where a zero output reads 1)
+BF16_MASKED_GRAD_TOL, FP32_MASKED_GRAD_TOL = 1.2e-2, 2e-6
+FP32_NEG_MASKED_GRAD_TOL, BF16_NEG_MASKED_GRAD_L2_TOL = 4e-6, 1e-4
+# the autograd path (kernels 5 + 6, 7 + 8) against autograd of the plain
+# forward, fp32: about 3x the readings (7.4e-7, 1.2e-6); bf16 is held at
+# kernel 3's BF16_GRAD_TOL (readings 9.2e-3, 1.44e-2)
+FP32_MASKED_AUTOGRAD_TOL = 4e-6
+# fp32 step of the windowed student, card against CPU, as FP32_STEP_TOL, with
+# the relative L2 error of the blocks' qkv weight gradients (what kernels 6
+# and 8 feed) beside the whole gradient's: about 3x the readings on an H100
+# at 518^2 / 784^2 (components <= 2.3e-7, grad norm 3.4e-5 / 2.9e-5,
+# gradient 1.9e-4 / 9.1e-5, qkv gradient 2.2e-4 / 9.2e-5, mean param 1.5e-5
+# / 8.9e-6 lr), and the max param difference as FP32_STEP_TOL
+WINDOW_FP32_STEP_TOL = {"sc rel": 7e-7, "lg rel": 7e-7, "feat rel": 7e-7, "grad rel": 7e-7,
+                        "total rel": 7e-7, "grad_norm rel": 1e-4, "grad rel L2": 6e-4,
+                        "qkv grad rel L2": 7e-4, "param mean |diff|/lr": 5e-5,
+                        "param max |diff|/lr": 2.01}
 
 
 def log(msg: str) -> None:
@@ -351,21 +399,40 @@ def masked_inputs(b, n, h, dtype, gen):
     return qkv.view(b, n, 3, h, 64).unbind(2)
 
 
-def held(name, got, refs: dict, tol, exact=()) -> float:
-    """Check ``got`` against each reference in max |err| / (1 + |ref|) within
-    ``tol``, and equal to those named in ``exact``; returns the max abs error
+def held(name, got, refs: dict, tol, exact=(), l2_tol=None, tag="masked attention") -> float:
+    """Check ``got`` (a tensor, or a tuple such as (dq, dk, dv)) against
+    each reference of the same form: max |err| / (1 + |ref|) within ``tol``
+    (or, with ``l2_tol``, the relative L2 error of all its tensors within
+    it), and equal to those named in ``exact``; returns the max abs error
     against the first (the plain version)."""
     torch.cuda.synchronize()
+
+    def parts(x):
+        return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+    got, refs = parts(got), {k: parts(v) for k, v in refs.items()}
     first = next(iter(refs.values()))
-    check(got.shape == first.shape and got.dtype == first.dtype, f"{name}: bad output")
-    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-    readings = {label: reading_of(got, ref) for label, ref in refs.items()}
-    ok = all(r <= (0.0 if label in exact else tol) for label, r in readings.items())
-    abs_err = errors(got, first)[0]
-    log(f"[masked attention] {name}: max_abs_err={abs_err:.3e} max|err|/(1+|ref|) "
+    for a, b in zip(got, first):
+        check(a.shape == b.shape and a.dtype == b.dtype, f"{name}: bad output")
+        check(bool(torch.isfinite(a).all()), f"{name}: non-finite output")
+    readings, l2 = {}, {}
+    for label, ref in refs.items():
+        if label in exact:
+            continue
+        readings[label] = max(reading_of(a, b) for a, b in zip(got, ref))
+        if l2_tol is not None:
+            diff = sum(((a.float() - b.float()) ** 2).sum() for a, b in zip(got, ref))
+            l2[label] = (diff / sum((b.float() ** 2).sum() for b in ref)).sqrt().item()
+    same = all(torch.equal(a, b) for x in exact for a, b in zip(got, refs[x]))
+    if l2_tol is None:
+        ok, limit = same and all(r <= tol for r in readings.values()), f"tol={tol:g}"
+    else:
+        ok, limit = same and all(v <= l2_tol for v in l2.values()), f"rel L2 tol={l2_tol:g}"
+    abs_err = max(errors(a, b)[0] for a, b in zip(got, first))
+    log(f"[{tag}] {name}: max_abs_err={abs_err:.3e} max|err|/(1+|ref|) "
         + " ".join(f"vs {k}={v:.3e}" for k, v in readings.items())
-        + f" tol={tol:g}" + "".join(f", {k} exactly" for k in exact)
-        + f" {'ok' if ok else 'FAIL'}")
+        + "".join(f" rel L2 vs {k}={v:.3e}" for k, v in l2.items())
+        + f" {limit}" + "".join(f", {k} exactly" for k in exact) + f" {'ok' if ok else 'FAIL'}")
     check(ok, f"{name} outside tolerance")
     return abs_err
 
@@ -427,6 +494,117 @@ def phase_window_attention(gen) -> tuple[float, float]:
         banded_case("edge grid", 2, gh, gw, window, 4, bf16, BF16_ATTN_TOL, gen)
         banded_case("edge grid", 2, gh, gw, window, 4, f32, 1e-5, gen)
     return err5, err7
+
+
+# ---------------------------------------------------------------- phase 10
+def masked_grad_inputs(b, n, h, dtype, gen, negative=False):
+    """q, k, v viewed in one packed qkv (every logit below -60 if asked) and
+    an output cotangent ``[B, N, H, 64]``."""
+    qkv = attention_inputs(b, n, h, dtype, gen, negative)
+    g = torch.randn(b, n, h, 64, generator=gen, device="cuda").to(dtype)
+    return (*qkv.view(b, n, 3, h, 64).unbind(2), g)
+
+
+def bias_grad_case(name, b, n, h, dtype, bias, tol, gen, negative=False, l2_tol=None) -> float:
+    """Kernel 6 against its plain version from kernel 5's out and lse."""
+    q, k, v, g = masked_grad_inputs(b, n, h, dtype, gen, negative)
+    out, lse, live = _bias_forward(q, k, v, bias, with_lse=True)
+    before = bias_attention_backward.launches
+    got = bias_attention_backward(q, k, v, bias, out, lse, g, live)
+    check(bias_attention_backward.launches == before + 1, f"bias grad {name}: no kernel launch")
+    btype = "none" if bias is None else str(bias.dtype)[6:]
+    return held(f"bias grad {name}: B={b} N={n} H={h} {str(dtype)[6:]} bias {btype}", got,
+                {"plain": bias_attention_backward_reference(q, k, v, bias, out, lse, g)},
+                tol, l2_tol=l2_tol, tag="masked grad")
+
+
+def banded_grad_case(name, b, gh, gw, window, h, dtype, tol, gen, negative=False,
+                     l2_tol=None) -> float:
+    """Kernel 8 against its plain version from kernel 7's out and lse, and
+    kernel 6 with the window bias bit for bit."""
+    band = (gw, window)
+    q, k, v, g = masked_grad_inputs(b, gh * gw, h, dtype, gen, negative)
+    out, lse = _banded_forward(q, k, v, band, with_lse=True)
+    before = banded_attention_backward.launches
+    got = banded_attention_backward(q, k, v, band, out, lse, g)
+    check(banded_attention_backward.launches == before + 1,
+          f"banded grad {name}: no kernel launch")
+    wb = local_window_bias(gh, gw, window, 0, "cuda", dtype)
+    refs = {"plain": banded_attention_backward_reference(q, k, v, band, out, lse, g),
+            "kernel 6": bias_attention_backward(q, k, v, wb, out, lse, g)}
+    return held(f"banded grad {name}: B={b} grid {gh}x{gw} window {window} H={h} "
+                f"{str(dtype)[6:]}", got, refs, tol, exact=("kernel 6",), l2_tol=l2_tol,
+                tag="masked grad")
+
+
+def autograd_case(name, b, gh, gw, h, dtype, tol, gen, banded) -> None:
+    """The training path: ``mha_flash_qkv`` on a packed qkv that requires a
+    gradient (kernel 5 or 7 with lse, then kernel 6 or 8 writing d(qkv)
+    packed) against autograd of the plain forward with the window bias."""
+    n = gh * gw
+    qkv = torch.randn(b, n, 3 * h * 64, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(b, n, h * 64, generator=gen, device="cuda").to(dtype)
+    wb = local_window_bias(gh, gw, 7, 0, "cuda", dtype)
+    counter = banded_attention_backward if banded else bias_attention_backward
+    before = counter.launches
+    x = qkv.clone().requires_grad_()
+    mha_flash_qkv(x, h, None if banded else wb, (gw, 7)).backward(g)
+    check(counter.launches == before + 1, f"autograd {name}: the backward kernel did not run")
+    xr = qkv.clone().requires_grad_()
+    q, k, v = xr.view(b, n, 3, h, 64).unbind(2)
+    mha_bias_reference(q, k, v, wb).reshape(b, n, h * 64).backward(g)
+    held(f"autograd {name}: B={b} grid {gh}x{gw} H={h} {str(dtype)[6:]} d(qkv) against "
+         f"autograd of the plain forward", x.grad, {"plain": xr.grad}, tol, tag="masked grad")
+
+
+def phase_window_grad(gen) -> tuple[float, float]:
+    """Kernels 6 and 8; returns their max abs errors at the slice shapes."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    tb, tf = BF16_MASKED_GRAD_TOL, FP32_MASKED_GRAD_TOL
+    g = WINDOW_RES[0] // 14  # 37: N = 1369
+    n = g * g
+    b = WINDOW_TRAIN_BATCH[WINDOW_RES[0]]
+    err6 = bias_grad_case("slice shape, window", b, n, 12, bf16,
+                          local_window_bias(g, g, 7, 0, "cuda", bf16), tb, gen)
+    bias_grad_case("window", 2, n, 12, f32, local_window_bias(g, g, 7, 0, "cuda", f32), tf, gen)
+    rb = torch.randn(n, n, generator=gen, device="cuda")
+    bias_grad_case("random", 2, n, 12, bf16, rb.to(bf16), tb, gen)
+    bias_grad_case("random", 2, n, 12, f32, rb, tf, gen)
+    ids = torch.repeat_interleave(torch.arange(5), torch.tensor([300, 1, 500, 68, 500]))
+    sb = segment_bias(ids).cuda()  # a 1-token segment: one live key in its row
+    bias_grad_case("segment", 2, n, 12, bf16, sb.to(bf16), tb, gen)
+    bias_grad_case("segment", 2, n, 12, f32, sb, tf, gen)
+    bias_grad_case("window + prefix", 2, 197, 12, bf16,
+                   local_window_bias(14, 14, 7, 1, "cuda", f32), tb, gen)
+    bias_grad_case("window + prefix", 2, 197, 12, f32,
+                   local_window_bias(14, 14, 7, 1, "cuda", f32), tf, gen)
+    bias_grad_case("no bias", 2, 197, 12, f32, None, tf, gen)
+    # every logit below -60: p from the lse stays finite. dK sums nearly
+    # cancelling terms, so bf16 is held in relative L2, as kernel 3
+    wb = local_window_bias(g, g, 7, 0, "cuda", f32)
+    bias_grad_case("logits < -60", 2, n, 4, f32, wb, FP32_NEG_MASKED_GRAD_TOL, gen,
+                   negative=True)
+    bias_grad_case("logits < -60", 2, n, 4, bf16, wb.to(bf16), None, gen, negative=True,
+                   l2_tol=BF16_NEG_MASKED_GRAD_L2_TOL)
+
+    g = WINDOW_RES[1] // 14  # 74: N = 5476
+    b = WINDOW_TRAIN_BATCH[WINDOW_RES[1]]
+    err8 = banded_grad_case("slice grid", b, g, g, 7, 12, bf16, tb, gen)
+    banded_grad_case("slice grid", 2, g, g, 7, 12, f32, tf, gen)
+    for gh, gw, window in ((50, 110, 7), (3, 1000, 7), (9, 9, 3), (3, 5, 7), (13, 29, 5)):
+        banded_grad_case("edge grid", 2, gh, gw, window, 4, bf16, tb, gen)
+        banded_grad_case("edge grid", 2, gh, gw, window, 4, f32, tf, gen)
+    banded_grad_case("logits < -60", 2, g, g, 7, 4, f32, FP32_NEG_MASKED_GRAD_TOL, gen,
+                     negative=True)
+    banded_grad_case("logits < -60", 2, g, g, 7, 4, bf16, None, gen, negative=True,
+                     l2_tol=BF16_NEG_MASKED_GRAD_L2_TOL)
+
+    # the autograd Function on the packed qkv, as the encoder runs it
+    for banded, (gh, gw) in ((False, (37, 37)), (True, (74, 74))):
+        tag = "kernels 7 + 8" if banded else "kernels 5 + 6"
+        autograd_case(tag, 2, gh, gw, 4, f32, FP32_MASKED_AUTOGRAD_TOL, gen, banded)
+        autograd_case(tag, 2, gh, gw, 4, bf16, BF16_GRAD_TOL, gen, banded)
+    return err6, err8
 
 
 # ---------------------------------------------------------------- phase 6
@@ -499,11 +677,11 @@ def phase_main_path(model, images) -> dict:
 
 
 # ---------------------------------------------------------------- phase 7
-def train_images(n: int, seed: int) -> np.ndarray:
+def train_images(n: int, seed: int, res: int = RES) -> np.ndarray:
     """Seeded smooth synthetic images, ImageNet-normalized, NHWC fp32."""
     rng = np.random.RandomState(seed)
-    yy, xx = np.mgrid[0:RES, 0:RES].astype(np.float32) / RES
-    out = np.empty((n, RES, RES, 3), np.float32)
+    yy, xx = np.mgrid[0:res, 0:res].astype(np.float32) / res
+    out = np.empty((n, res, res, 3), np.float32)
     for i in range(n):
         f = rng.uniform(2, 12, size=(3, 2))
         ph = rng.uniform(0, 6.3, size=3)
@@ -516,7 +694,9 @@ def train_images(n: int, seed: int) -> np.ndarray:
 
 COUNTERS = {"attention": mha_flash_packed, "tail": fused_dpt_tail,
             "attention_bwd": packed_attention_backward, "select": kth_select,
-            "attention_bias": mha_flash_bias, "attention_banded": mha_flash_banded}
+            "attention_bias": mha_flash_bias, "attention_banded": mha_flash_banded,
+            "attention_bias_bwd": bias_attention_backward,
+            "attention_banded_bwd": banded_attention_backward}
 
 
 def read_counts() -> dict:
@@ -532,7 +712,8 @@ def expected_step_counts(batch: int, chunk: int = 8) -> dict:
     s, t = model_config(ARCH).encoder.depth, model_config(TEACHER).encoder.depth
     chunks = batch // chunk if batch > chunk and batch % chunk == 0 else 1
     return {"attention": s + chunks * t, "tail": chunks, "attention_bwd": s, "select": 2,
-            "attention_bias": 0, "attention_banded": 0}
+            "attention_bias": 0, "attention_banded": 0, "attention_bias_bwd": 0,
+            "attention_banded_bwd": 0}
 
 
 def phase_train() -> tuple[Trainer, dict]:
@@ -598,37 +779,12 @@ def phase_train() -> tuple[Trainer, dict]:
 
 # ---------------------------------------------------------------- phase 8
 def phase_train_vs_cpu() -> dict:
-    """One fp32 step of the ViT-L -> ViT-B pair at bs2 on the card (kernels
-    on their fp32 paths, no TF32) and on the CPU, from the same weights."""
+    """One fp32 step of the ViT-L -> ViT-B pair at bs2 on the card and on
+    the CPU, from the same weights (``step_vs_cpu``)."""
     cfg = TrainConfig(student=model_config(ARCH), teachers=(TEACHER,), batch_size=2,
                       image_size=RES, student_compute_dtype="float32", teacher_dtype="float32",
                       log_interval=10 ** 6, output_dir=str(OUT / "train_fp32"))
-    x = train_images(2, seed=2)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.time()
-        trainer = Trainer(cfg, dev)
-        metrics = {}
-        trainer.run(lambda epoch: iter([{"image": x}]), max_steps=1,
-                    on_step=lambda step, m: metrics.update(m))
-        params = trainer.state.params
-        runs[dev] = ({k: float(v) for k, v in metrics.items() if k != "teacher_idx"},
-                     torch.cat([p.detach().reshape(-1).cpu() for p in params]),
-                     torch.cat([p.grad.reshape(-1).cpu() for p in params]))
-        log(f"[fp32 step] {dev}: {json.dumps({k: round(v, 6) for k, v in runs[dev][0].items()})}"
-            f" in {time.time() - t0:.1f} s")
-        del trainer
-    (mc, pc, gc), (mr, pr, gr) = runs["cuda"], runs["cpu"]
-    readings = {f"{k} rel": abs(mc[k] - mr[k]) / max(abs(mr[k]), 1e-12) for k in mr}
-    readings["grad rel L2"] = ((gc - gr).norm() / gr.norm()).item()
-    lr = cfg.optimizer.lr
-    readings["param mean |diff|/lr"] = (pc - pr).abs().mean().item() / lr
-    readings["param max |diff|/lr"] = (pc - pr).abs().max().item() / lr
-    bad = {k: (v, FP32_STEP_TOL[k]) for k, v in readings.items() if not v <= FP32_STEP_TOL[k]}
-    log(f"[fp32 step] card vs CPU: {json.dumps(readings)} tol {json.dumps(FP32_STEP_TOL)} "
-        f"{'ok' if not bad else 'FAIL'}")
-    check(not bad, f"fp32 step: card disagrees with the CPU: {bad}")
-    return readings
+    return step_vs_cpu("fp32 step", cfg, train_images(2, seed=2), FP32_STEP_TOL)
 
 
 # ---------------------------------------------------------------- phase 9
@@ -647,12 +803,184 @@ def phase_window_path(images) -> tuple[torch.nn.Module, dict]:
     return model, counts
 
 
-# ---------------------------------------------------------------- phase 10
+# ---------------------------------------------------------------- phase 11
+def expected_window_step_counts(res: int, batch: int, chunk: int = 8) -> dict:
+    """Per step of the windowed student under the ViT-L teacher: kernel 1 in
+    the teacher only, kernels 5 + 6 below the banded threshold, 7 + 8 above
+    it, no kernel 3."""
+    s, t = model_config(WINDOW_ARCH).encoder.depth, model_config(TEACHER).encoder.depth
+    chunks = batch // chunk if batch > chunk and batch % chunk == 0 else 1
+    g = res // 14
+    banded = banded_eligible(g * g, (g, model_config(WINDOW_ARCH).encoder.window_size))
+    return {"attention": chunks * t, "tail": chunks, "attention_bwd": 0, "select": 2,
+            "attention_bias": 0 if banded else s, "attention_banded": s if banded else 0,
+            "attention_bias_bwd": 0 if banded else s, "attention_banded_bwd": s if banded else 0}
+
+
+def phase_window_train() -> dict:
+    """Main path 4: one Trainer (windowed student, ViT-L teacher, bf16), 3
+    steps at each of the two sizes, then its step time on a device-resident
+    batch; then the CLI over data/smoke. Returns, per size, the launch
+    counts of the last step, the step time and the peak memory."""
+    cfg = TrainConfig(student=model_config(WINDOW_ARCH), teachers=(TEACHER,),
+                      batch_size=WINDOW_TRAIN_BATCH[WINDOW_RES[0]], image_size=WINDOW_RES[0],
+                      log_interval=10 ** 6, output_dir=str(OUT / "window_train"))
+    t0 = time.time()
+    trainer = Trainer(cfg, "cuda")
+    log(f"[window train] Trainer({WINDOW_ARCH} <- {TEACHER}, bf16) built in "
+        f"{time.time() - t0:.1f} s")
+    watched = trainer.student.pretrained.blocks[0].attn.qkv.weight
+    results = {}
+    for res in WINDOW_RES:
+        batch = WINDOW_TRAIN_BATCH[res]
+        images = train_images(batch * TRAIN_STEPS, seed=4, res=res)
+        want = expected_window_step_counts(res, batch, cfg.teacher_chunk)
+        before = watched.detach().clone()
+        seen: list[dict] = []
+        last = {}
+
+        def on_step(step, metrics):
+            torch.cuda.synchronize()
+            now = read_counts()
+            per = {k: now[k] - last.get(k, 0) for k in now}
+            last.update(now)
+            vals = {k: float(v) for k, v in metrics.items() if k != "teacher_idx"}
+            seen.append(per)
+            log(f"[window train] {res}^2 bs{batch} step {step}: "
+                f"{json.dumps({k: round(v, 5) for k, v in vals.items()})} launches {per}")
+            check(per == want, f"window train {res} step {step}: launches {per}, expected {want}")
+            check(all(np.isfinite(v) for v in vals.values()),
+                  f"window train {res} step {step}: non-finite")
+
+        def batches(epoch):
+            for i in range(TRAIN_STEPS):
+                yield {"image": images[i * batch:(i + 1) * batch]}
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        trainer.run(batches, max_steps=int(trainer.state.step) + TRAIN_STEPS, on_step=on_step)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        moved = (watched.detach() - before).abs().max().item()
+        log(f"[window train] {res}^2: {TRAIN_STEPS} steps in {time.time() - t0:.1f} s, block 0 "
+            f"qkv weight moved by up to {moved:.3e}, peak memory {peak:.2f} GB")
+        check(len(seen) == TRAIN_STEPS, f"window train {res}: {len(seen)} steps ran")
+        check(moved > 0, f"window train {res}: the student's parameters did not move")
+        xs = torch.from_numpy(train_images(batch, seed=5, res=res)).cuda().permute(0, 3, 1, 2)
+        windows = [cuda_ms(lambda: trainer.train_step(trainer.state, 0, xs, xs), iters=2,
+                           warmup=1) for _ in range(3)]
+        step_ms = statistics.median(windows)
+        log(f"[window train] {res}^2 bs{batch} step {step_ms:.1f} ms (windows {windows})")
+        results[res] = {"counts": seen[-1], "step_ms": step_ms, "step_ms_windows": windows,
+                        "steps_per_s": 1e3 / step_ms, "images_per_s": batch * 1e3 / step_ms,
+                        "batch": batch, "peak_memory_gb": peak}
+        del xs
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the CLI over the repository's smoke data: kernels 5 + 6 at 518^2
+    from distill_any_depth_tpu_torch.cli import train as train_cli
+
+    out = OUT / "window_train_cli"
+    reset_counts()
+    history = train_cli.main([
+        "--device", "cuda", "--dataset_dir", "data/smoke", "--output_dir", str(out),
+        "--student_arch", WINDOW_ARCH, "--batch_size", "2", "--num_iterations", "2",
+        "--image_size", str(WINDOW_RES[0]), "--use_hdn_loss", "--log_interval", "1",
+    ])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: 2 * v for k, v in expected_window_step_counts(WINDOW_RES[0], 2).items()}
+    log(f"[window train] cli.train --student_arch {WINDOW_ARCH} over data/smoke, bs2 "
+        f"{WINDOW_RES[0]}^2, 2 steps: history {history}, launches {counts}")
+    check(counts == want, f"cli.train windowed: launches {counts}, expected {want}")
+    check(all(np.isfinite(history["train_loss"])), "cli.train windowed: non-finite loss")
+    return results
+
+
+# ---------------------------------------------------------------- phase 12
+def step_vs_cpu(tag: str, cfg: TrainConfig, x: np.ndarray, tol: dict, want=None) -> dict:
+    """One fp32 step of ``cfg`` on the card (kernels on their fp32 paths, no
+    TF32) and on the CPU from the same weights: relative errors of the loss
+    components and the gradient norm, the relative L2 error of the whole
+    (clipped) gradient, and the parameters after the first Adam update in
+    units of lr, each within ``tol``; on the card, the launch counts of the
+    kernels in ``want`` if given."""
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.time()
+        trainer = Trainer(cfg, dev)
+        metrics = {}
+        reset_counts()
+        trainer.run(lambda epoch: iter([{"image": x}]), max_steps=1,
+                    on_step=lambda step, m: metrics.update(m))
+        if dev == "cuda" and want is not None:
+            got = {k: read_counts()[k] for k in want}
+            check(got == want, f"{tag}: launches {got}, expected {want}")
+        params = trainer.state.params
+        qkv = [p for name, p in trainer.student.named_parameters() if ".attn.qkv." in name]
+        runs[dev] = ({k: float(v) for k, v in metrics.items() if k != "teacher_idx"},
+                     torch.cat([p.detach().reshape(-1).cpu() for p in params]),
+                     torch.cat([p.grad.reshape(-1).cpu() for p in params]),
+                     torch.cat([p.grad.reshape(-1).cpu() for p in qkv]))
+        log(f"[{tag}] {dev}: {json.dumps({k: round(v, 6) for k, v in runs[dev][0].items()})}"
+            f" in {time.time() - t0:.1f} s")
+        del trainer
+    (mc, pc, gc, qc), (mr, pr, gr, qr) = runs["cuda"], runs["cpu"]
+    readings = {f"{k} rel": abs(mc[k] - mr[k]) / max(abs(mr[k]), 1e-12) for k in mr}
+    readings["grad rel L2"] = ((gc - gr).norm() / gr.norm()).item()
+    if "qkv grad rel L2" in tol:
+        readings["qkv grad rel L2"] = ((qc - qr).norm() / qr.norm()).item()
+    lr = cfg.optimizer.lr
+    readings["param mean |diff|/lr"] = (pc - pr).abs().mean().item() / lr
+    readings["param max |diff|/lr"] = (pc - pr).abs().max().item() / lr
+    bad = {k: (v, tol[k]) for k, v in readings.items() if not v <= tol[k]}
+    log(f"[{tag}] card vs CPU: {json.dumps(readings)} tol {json.dumps(tol)} "
+        f"{'ok' if not bad else 'FAIL'}")
+    check(not bad, f"{tag}: card disagrees with the CPU: {bad}")
+    return readings
+
+
+def phase_window_train_vs_cpu() -> dict:
+    """The windowed student's fp32 step under a ViT-S teacher, card against
+    CPU: bs2 at 518^2 (kernels 5 + 6) and bs1 at 784^2 (56 x 56 = 3136
+    tokens: kernels 7 + 8). The loss stack has no order statistic (no
+    depth normalization, no HDN: SC L1, feature cosine, Sobel gradient):
+    a median or quantile puts its whole derivative on the one pixel it
+    selects, and at random init this model's depth has near-ties that fp32
+    reordering resolves differently on the card and the CPU, which moved
+    4-6% of the gradient (hybrid or global normalization) with the
+    attention kernels and with plain attention on the card alike, while
+    the model's own backward agreed to 1e-5. Phase 8 holds the default
+    stack."""
+    readings = {}
+    for res, batch, seed in ((WINDOW_RES[0], 2, 6), (784, 1, 7)):
+        cfg = TrainConfig(student=model_config(WINDOW_ARCH), teachers=("depthanything-small",),
+                          loss=LossConfig(normalization="none", use_hdn=False),
+                          batch_size=batch, image_size=res, student_compute_dtype="float32",
+                          teacher_dtype="float32", log_interval=10 ** 6,
+                          output_dir=str(OUT / f"window_fp32_{res}"))
+        g = res // 14
+        banded = banded_eligible(g * g, (g, 7))
+        s = model_config(WINDOW_ARCH).encoder.depth
+        want = {"attention": model_config("depthanything-small").encoder.depth,
+                "attention_bwd": 0, "attention_bias": 0 if banded else s,
+                "attention_bias_bwd": 0 if banded else s, "attention_banded": s if banded else 0,
+                "attention_banded_bwd": s if banded else 0}
+        readings[res] = step_vs_cpu(f"window fp32 step {res}", cfg,
+                                    train_images(batch, seed=seed, res=res),
+                                    WINDOW_FP32_STEP_TOL, want)
+    return readings
+
+
+# ---------------------------------------------------------------- phase 13
 def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts,
-                 gen) -> None:
+                 wtrain, gen) -> None:
     kernels = []
     runs = {"infer_forward": counts, "train_step": train_counts,
-            **{f"window_{res}_forward": wcounts[res] for res in WINDOW_RES}}
+            **{f"window_{res}_forward": wcounts[res] for res in WINDOW_RES},
+            **{f"window_train_{res}_step": wtrain[res]["counts"] for res in WINDOW_RES}}
 
     def entry(name, key, source, replaces, err, ms, plain, lib, flops, nbytes, launches=None,
               **extra):
@@ -678,6 +1006,17 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
             plain=cuda_ms(lambda: mha_packed_reference(qkv, h)),
             lib=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50),
             bound=bound(4.0 * b * h * n * n * d, 4 * b * n * c * 2))
+    # and at the ViT-L teacher's N at 1036^2 (the windowed student's path 4):
+    # its time in the bs8 chunk, its error at bs1 (the plain version's fp32
+    # scores at bs8 would take 15 GB)
+    n1036 = (WINDOW_RES[1] // 14) ** 2 + 1
+    qkv = torch.randn(8, n1036, 3 * 1024, generator=gen, device="cuda").to(torch.bfloat16)
+    t1036 = cuda_ms(lambda: mha_flash_packed(qkv, 16), iters=10)
+    err1036 = reading_of(mha_flash_packed(qkv[:1], 16), mha_packed_reference(qkv[:1], 16))
+    log(f"[timing] kernel 1 at the teacher's 1036^2 shape (B=8, N={n1036}, H=16): "
+        f"{t1036:.4f} ms; max|err|/(1+|ref|) at B=1 {err1036:.3e} (tol {BF16_ATTN_TOL})")
+    check(err1036 <= BF16_ATTN_TOL, "kernel 1 at N = 5477 outside tolerance")
+    del qkv
     a = attn["student"]
     entry("packed_attention_fwd", "attention", "flash_attention.cu",
           "ops/flash_attention.py:537", errs["attention"], a["ms"], a["plain"], a["lib"],
@@ -685,7 +1024,11 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
           teacher_shape={"B": 8, "N": n, "H": 16, "ms": attn["teacher"]["ms"],
                          "plain_ms": attn["teacher"]["plain"],
                          "library_ms": attn["teacher"]["lib"],
-                         "bound_ms": attn["teacher"]["bound"][0]})
+                         "bound_ms": attn["teacher"]["bound"][0]},
+          teacher_1036_shape={"B": 8, "N": n1036, "H": 16, "ms": t1036,
+                              "bound_ms": bound(4.0 * 8 * 16 * n1036 ** 2 * d,
+                                                4 * 8 * n1036 * 1024 * 2)[0],
+                              "max_err_b1": err1036})
 
     # kernel 2 at the inference shape
     t, w = tail_inputs(BATCH, RES // 14 * 4, RES // 14 * 4, 128, torch.bfloat16, gen)
@@ -768,6 +1111,47 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
                   launches=wcounts[res][key], shape={"B": BATCH, "N": n, "H": h, "res": res},
                   band_gflop=4.0 * BATCH * h * d * n * 7 * g / 1e9)
         del q, k, v, sd, wb
+
+    # kernels 6 and 8 at the windowed student's bs16 training shapes, from
+    # kernel 5's and 7's out, lse (and tile marks); the library yardstick is
+    # SDPA with the additive mask, forward + backward less forward
+    for key, res in zip(("attention_bias_bwd", "attention_banded_bwd"), WINDOW_RES):
+        g, b = res // 14, WINDOW_TRAIN_BATCH[res]
+        n, band = g * g, (g, 7)
+        q, k, v = masked_inputs(b, n, h, bf16, gen)
+        go = torch.randn(b, n, h, d, generator=gen, device="cuda").to(bf16)
+        wb = local_window_bias(g, g, 7, 0, "cuda", bf16)
+        live = int(torch.isfinite(wb).sum())
+        sd = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
+        gsd = go.transpose(1, 2).contiguous()
+        fb = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(*sd, attn_mask=wb),
+                                                 sd, gsd), iters=5)
+        with torch.no_grad():
+            lib = fb - cuda_ms(lambda: F.scaled_dot_product_attention(*sd, attn_mask=wb), iters=5)
+        nbytes = 8 * b * n * c * 2
+        shape = {"B": b, "N": n, "H": h, "res": res}
+        if key == "attention_bias_bwd":
+            out, lse, marks = _bias_forward(q, k, v, wb, with_lse=True)
+            entry("bias_attention_bwd", key, "flash_attention_bias_bwd.cu",
+                  "ops/flash_attention.py:973", errs[key],
+                  cuda_ms(lambda: bias_attention_backward(q, k, v, wb, out, lse, go, marks)),
+                  cuda_ms(lambda: bias_attention_backward_reference(q, k, v, wb, out, lse, go),
+                          iters=3),
+                  lib, 10.0 * b * h * d * live, nbytes + wb.numel() * 2,
+                  launches=wtrain[res]["counts"][key], shape=shape,
+                  dense_gflop=10.0 * b * h * d * n * n / 1e9)
+        else:
+            out, lse = _banded_forward(q, k, v, band, with_lse=True)
+            entry("banded_attention_bwd", key, "flash_attention_banded_bwd.cu",
+                  "ops/flash_attention.py:1188", errs[key],
+                  cuda_ms(lambda: banded_attention_backward(q, k, v, band, out, lse, go)),
+                  cuda_ms(lambda: banded_attention_backward_reference(q, k, v, band, out, lse,
+                                                                      go), iters=3),
+                  lib, 10.0 * b * h * d * live, nbytes,
+                  launches=wtrain[res]["counts"][key], shape=shape,
+                  band_gflop=10.0 * b * h * d * n * 7 * g / 1e9)
+        del q, k, v, go, sd, gsd, wb, out, lse
+        torch.cuda.empty_cache()
     for kd in kernels:
         log(f"[timing] {kd['name']}: kernel {kd['ms']:.4f} ms, plain {kd['plain_ms']:.4f} ms, "
             f"library {kd['library_ms']}, bound {kd['bound_ms']:.4f} ms ({kd['bound_by']}), "
@@ -827,8 +1211,13 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
                        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
         log(f"[timing] {WINDOW_ARCH} {res}^2 bs{BATCH}: forward {fwd:.3f} ms "
             f"({BATCH / fwd * 1e3:.1f} img/s), PEG conv {peg:.3f} ms")
+    window_train = {res: {"student": WINDOW_ARCH, "teacher": TEACHER, "res": res,
+                          "dtype": "bfloat16",
+                          **{k: v for k, v in wtrain[res].items() if k != "counts"}}
+                    for res in WINDOW_RES}
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"end_to_end": e2e, "train_step": train, "window": window}), flush=True)
+    print(json.dumps({"end_to_end": e2e, "train_step": train, "window": window,
+                      "window_train": window_train}), flush=True)
 
 
 def main() -> None:
@@ -844,13 +1233,17 @@ def main() -> None:
     errs = {"attention": phase_attention(gen), "attention_bwd": phase_attention_grad(gen),
             "tail": phase_tail(gen), "select": phase_select(gen)}
     errs["attention_bias"], errs["attention_banded"] = phase_window_attention(gen)
+    errs["attention_bias_bwd"], errs["attention_banded_bwd"] = phase_window_grad(gen)
     model = create_model(ARCH, dtype=torch.bfloat16, device="cuda", seed=0)
     images = synthetic_images(BATCH)
     counts = phase_main_path(model, images)
     trainer, train_counts = phase_train()
     phase_train_vs_cpu()
     wmodel, wcounts = phase_window_path(images)
-    phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts, gen)
+    wtrain = phase_window_train()
+    phase_window_train_vs_cpu()
+    phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts, wtrain,
+                 gen)
     log(f"[smoke] all phases passed in {time.time() - t0:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

@@ -39,7 +39,9 @@ CLASSES = (
     ("attention kernel", r"packed_attn_kernel"),
     ("bias attention kernel", r"masked_attn_kernel.*BiasMask|tile_live_kernel"),
     ("banded attention kernel", r"masked_attn_kernel.*WindowMask"),
-    ("attention backward kernel", r"dkdv_kernel|dq_kernel|delta_kernel"),
+    ("bias attention backward kernel", r"masked_(dkdv|dq)_kernel.*BiasMask"),
+    ("banded attention backward kernel", r"masked_(dkdv|dq)_kernel.*WindowMask"),
+    ("attention backward kernel (packed; all deltas)", r"dkdv_kernel|dq_kernel|delta_kernel"),
     ("select kernel", r"kth_select_kernel"),
     ("tail kernel", r"tail_conv1_kernel|tail_head_kernel"),
     ("optimizer (fused Adam, norms)", r"fused_adam|FusedAdam|multi_tensor|foreach"),

@@ -3,11 +3,14 @@
 Run on a machine with a CUDA card:
 
     python -m distill_any_depth_tpu_torch.cli.profile_train [--out DIR]
+        [--student_arch ARCH] [--image_size RES]
 
 It builds ``train.loop.Trainer`` at the configuration of the JAX package's
-``bench.py`` train step (student ``depthanything-base``, teacher
+``bench.py`` train step by default (student ``depthanything-base``, teacher
 ``depthanything-large``, bs16 at 392^2, bf16 compute, the default loss
-stack, shared views, the teacher in bs8 chunks) and reports:
+stack, shared views, the teacher in bs8 chunks); ``--student_arch
+depthanything-base-window --image_size 518`` (or ``1036``) breaks down the
+windowed student's step instead. It reports:
 
 - the pieces of the step timed alone with CUDA events on the same batch:
   the teacher forward, the student forward, the loss stack forward and
@@ -47,18 +50,21 @@ def main(argv=None) -> dict:
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default="chiprun_out/profile")
+    p.add_argument("--student_arch", default=STUDENT)
+    p.add_argument("--image_size", type=int, default=RES)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
+    arch, res, batch = args.student_arch, args.image_size, BATCH
 
-    cfg = TrainConfig(student=model_config(STUDENT), teachers=(TEACHER,),
-                      batch_size=BATCH, image_size=RES, log_interval=10 ** 6,
+    cfg = TrainConfig(student=model_config(arch), teachers=(TEACHER,),
+                      batch_size=batch, image_size=res, log_interval=10 ** 6,
                       output_dir=os.path.join(args.out, "train"))
     trainer = Trainer(cfg, "cuda")
     trainer._build_steps(views_shared=True)
     student, teacher, state = trainer.student, trainer.teachers[0], trainer.state
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn(BATCH, 3, RES, RES, generator=gen, device="cuda")
+    x = torch.randn(batch, 3, res, res, generator=gen, device="cuda")
 
     def step():
         trainer.train_step(state, 0, x, x)
@@ -91,7 +97,7 @@ def main(argv=None) -> dict:
     def optimizer():
         apply_gradients(state)
 
-    pieces = {"teacher forward (2 x bs8)": teacher_fwd, "student forward": student_fwd,
+    pieces = {f"teacher forward (bs{batch} in chunks of {cfg.teacher_chunk})": teacher_fwd, "student forward": student_fwd,
               "loss stack forward + backward": loss_fwd_bwd,
               "student forward + loss + backward": student_fwd_bwd,
               "optimizer (clip, guard, Adam)": optimizer, "whole step": step}
@@ -113,7 +119,7 @@ def main(argv=None) -> dict:
             step()
         torch.cuda.synchronize()
     os.makedirs(args.out, exist_ok=True)
-    trace_path = os.path.join(args.out, f"train_{STUDENT}_{RES}_bs{BATCH}.json")
+    trace_path = os.path.join(args.out, f"train_{arch}_{res}_bs{batch}.json")
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
@@ -131,7 +137,7 @@ def main(argv=None) -> dict:
     per_step = ITERS * 1e3  # us -> ms per step
     report = {
         "device": torch.cuda.get_device_name(0),
-        "student": STUDENT, "teacher": TEACHER, "res": RES, "batch": BATCH,
+        "student": arch, "teacher": TEACHER, "res": res, "batch": batch,
         "pieces_ms": times,
         "host_enqueue_ms_per_step": enqueue_ms, "device_drain_ms_after_enqueue": drain_ms,
         "traced_kernel_ms_per_step": sum(by_class.values()) / per_step,

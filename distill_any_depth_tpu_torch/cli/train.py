@@ -3,13 +3,14 @@
 Counterpart of distill_any_depth_tpu/cli/train.py, for one process and one
 device: ``python -m distill_any_depth_tpu_torch.cli.train --device cuda
 --output_dir OUT [--dataset_dir data/nyu ...]`` runs ``train/loop.train_nyu``
-(a ViT-L teacher and a ViT-B student at bs16 392^2 by default). The flags of
-features not ported yet are accepted by name and refuse any value but their
-default: checkpoints (``--teacher_checkpoints``, ``--checkpoint_interval``,
+(a ViT-L teacher and a ViT-B student at bs16 392^2 by default; ``--student_arch
+depthanything-base-window`` trains the windowed student, whose attention
+backward is kernel 6 at fewer than 3000 tokens, e.g. ``--image_size 518``,
+and kernel 8 above, e.g. ``--image_size 1036``). The flags of features not
+ported yet are accepted by name and refuse any value but their default:
+checkpoints (``--teacher_checkpoints``, ``--checkpoint_interval``,
 ``--resume``), visualisation, the profiler, the dp/tp mesh, the int8
-teacher, image-folder data, LoRA/SSF adapters and device preprocessing. A
-windowed student (``--student_arch depthanything-base-window``) is refused on
-the card: its attention kernels are forward-only.
+teacher, image-folder data, LoRA/SSF adapters and device preprocessing.
 """
 from __future__ import annotations
 
@@ -80,8 +81,6 @@ def argument_parser() -> argparse.ArgumentParser:
 
 
 def main(args=None) -> dict:
-    import torch
-
     from distill_any_depth_tpu_torch.configs import (
         LossConfig,
         OptimizerConfig,
@@ -96,16 +95,11 @@ def main(args=None) -> dict:
         if getattr(args, flag) != default:
             raise NotImplementedError(f"--{flag}: {what} is not ported to the PyTorch "
                                       f"package yet")
-    student = model_config(args.student_arch)
-    if student.encoder.window_size is not None and torch.device(args.device).type != "cpu":
-        raise NotImplementedError(f"--student_arch {args.student_arch}: the windowed attention "
-                                  f"kernels have no backward on the card yet (--device cpu "
-                                  f"trains it through their plain versions)")
     logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO)
 
     total_steps = args.num_iterations or args.num_epochs * 1000
     cfg = TrainConfig(
-        student=student,
+        student=model_config(args.student_arch),
         teachers=tuple(args.teacher_models),
         loss=LossConfig(
             normalization=args.normalization, num_segments=args.num_segments,

@@ -1,5 +1,5 @@
-// Tile helpers shared by the packed attention forward (flash_attention.cu)
-// and backward (flash_attention_bwd.cu), for sm_90a.
+// Tile helpers shared by every attention kernel of csrc/ (packed, biased and
+// banded; forward and backward), for sm_90a.
 //
 // Tiles are 64 rows of one head's 64 columns, staged in shared memory with a
 // 16-byte row pad. A block has 4 warps; warp w owns rows [16w, 16w + 16) of
@@ -203,6 +203,60 @@ __device__ __forceinline__ void fma_nn(float (&acc)[8][4], const float (&p)[8][4
     }
   }
   __syncwarp();
+}
+
+// p rounded to T (a no-op for fp32): the backward rounds P and P (dP - delta)
+// to the input type before their products.
+template <typename T>
+__device__ __forceinline__ float round_to(float p) {
+  if constexpr (sizeof(T) == 2) return __bfloat162float(__float2bfloat16_rn(p));
+  return p;
+}
+
+// delta[b, h, i] = sum_d g . out over the row's 64 columns, fp32, from out
+// and g [B, N, H*64] contiguous: 8 threads per (token, head) row.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    delta_kernel(const T* __restrict__ out, const T* __restrict__ g, float* __restrict__ delta,
+                 int n, int heads, long rows) {
+  const long r = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 3;
+  const int sub = threadIdx.x & 7;
+  float acc = 0.f;
+  if (r < rows) {
+    const long token = r / heads;
+    const int h = (int)(r % heads);
+    const long off = token * heads * kD + h * kD + sub * 8;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float o, d;
+      if constexpr (sizeof(T) == 2) {
+        o = __bfloat162float(out[off + e]);
+        d = __bfloat162float(g[off + e]);
+      } else {
+        o = out[off + e];
+        d = g[off + e];
+      }
+      acc = fmaf(o, d, acc);
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+  if (r < rows && sub == 0) {
+    const long token = r / heads;
+    const int h = (int)(r % heads);
+    const long b = token / n, i = token % n;
+    delta[(b * heads + h) * n + i] = acc;
+  }
+}
+
+template <typename T>
+cudaError_t launch_delta(const T* out, const T* g, float* delta, int batch, int n, int heads,
+                         cudaStream_t stream) {
+  const long rows = (long)batch * n * heads;
+  delta_kernel<T><<<(unsigned)((rows * 8 + 255) / 256), 256, 0, stream>>>(out, g, delta, n,
+                                                                          heads, rows);
+  return cudaGetLastError();
 }
 
 // Store rows g and g+8 of this warp's 16 rows of an accumulator, times

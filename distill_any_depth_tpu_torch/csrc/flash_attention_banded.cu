@@ -13,7 +13,8 @@
 // (a 74 x 74 grid) an [N, N] fp32 bias would be 120 MB. Each 64-row q tile,
 // covering grid rows r0..r1, visits only the key tiles of token rows
 // [clip(r0) - half, clip(r1) + half] (_band_bounds_traced), 8 to 10 of the
-// 86 at 1036^2. The kernel body is masked_attention.cuh's.
+// 86 at 1036^2. The kernel body is masked_attention.cuh's, the mask
+// attention_masks.cuh's WindowMask.
 //
 // Bound at the windowed ViT-B 1036^2 bs8 shape (B=8, N=5476, H=12, D=64,
 // window 7, bf16): a band of 7 grid rows x 74 = 518 keys per query gives
@@ -23,65 +24,27 @@
 
 #include "masked_attention.cuh"
 
-namespace {
-
 using namespace dad_attn;
 
-// The window mask. Each tile stages its 64 keys' grid coordinates (one
-// division each) so that the per-score test is two compares.
-struct WindowMask {
-  static constexpr size_t kScratch = (size_t)kTile * sizeof(int2);
-  int n, gh, gw, half;
-  struct Row {
-    int cy, cx;
-    bool ok;
-  };
-  __device__ static int clampi(int x, int lo, int hi) { return x < lo ? lo : (x > hi ? hi : x); }
-  __device__ Row row(int r) const {
-    int y = r / gw, x = r - y * gw;
-    return {clampi(y, half, max(gh - 1 - half, half)), clampi(x, half, max(gw - 1 - half, half)),
-            r < n};
-  }
-  __device__ bool tile_live(int, int) const { return true; }  // the band is the whole range
-  __device__ void stage(unsigned char* sm, int, int k0) const {
-    if (threadIdx.x < kTile) {
-      int key = k0 + threadIdx.x, ky = key / gw;
-      reinterpret_cast<int2*>(sm)[threadIdx.x] = make_int2(ky, key - ky * gw);
-    }
-  }
-  __device__ float at(const unsigned char* sm, const Row& r, int, int kl) const {
-    int2 k = reinterpret_cast<const int2*>(sm)[kl];
-    return r.ok && abs(r.cy - k.x) <= half && abs(r.cx - k.y) <= half ? 0.f : -INFINITY;
-  }
-  __device__ int2 tiles(int q0) const {
-    int top = max(gh - 1 - half, half);
-    int r0 = q0 / gw, r1 = min(q0 + kTile - 1, n - 1) / gw;
-    int lo = (clampi(r0, half, top) - half) * gw;
-    int hi = min((clampi(r1, half, top) + half + 1) * gw, n) - 1;
-    return make_int2(lo / kTile, hi / kTile);
-  }
-};
-
-}  // namespace
-
 // q, k, v: [B, N, H, 64] with rows `stride` elements apart and batches
-// `batch_stride` apart, N = gh * gw; out: [B, N, H*64]. dtype: 0 =
-// bfloat16, 1 = float32. Returns a cudaError_t (0 = success); -1 for an
-// argument the kernel does not take.
+// `batch_stride` apart, N = gh * gw; out: [B, N, H*64]; lse: [B, H, N] fp32,
+// or null (inference). dtype: 0 = bfloat16, 1 = float32. Returns a
+// cudaError_t (0 = success); -1 for an argument the kernel does not take.
 extern "C" int dad_banded_attention(const void* q, const void* k, const void* v, void* out,
-                                    int batch, int n, int heads, int head_dim, long long stride,
-                                    long long batch_stride, int gh, int gw, int window, int dtype,
-                                    float scale, void* stream) {
+                                    void* lse, int batch, int n, int heads, int head_dim,
+                                    long long stride, long long batch_stride, int gh, int gw,
+                                    int window, int dtype, float scale, void* stream) {
   if (head_dim != kD || n <= 0 || batch <= 0 || heads <= 0 || heads > 65535 || batch > 65535)
     return -1;
   if (gh <= 0 || gw <= 0 || (long long)gh * gw != n || window <= 0) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   WindowMask m{n, gh, gw, window / 2};
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return launch_masked<__nv_bfloat16>(q, k, v, out, stride, batch_stride, batch, n, heads,
+    return launch_masked<__nv_bfloat16>(q, k, v, out, l, stride, batch_stride, batch, n, heads,
                                         scale, m, st);
   if (dtype == 1)
-    return launch_masked<float>(q, k, v, out, stride, batch_stride, batch, n, heads, scale, m,
-                                st);
+    return launch_masked<float>(q, k, v, out, l, stride, batch_stride, batch, n, heads, scale,
+                                m, st);
   return -1;
 }

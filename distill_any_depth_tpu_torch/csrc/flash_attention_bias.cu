@@ -26,106 +26,58 @@ namespace {
 
 using namespace dad_attn;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// One block per (key tile, q tile): live[q tile * nk + key tile] = whether
-// the tile of the bias holds a finite entry (rows and keys < N).
-template <typename TB>
-__global__ void __launch_bounds__(256)
-    tile_live_kernel(const TB* __restrict__ bias, int n, int nk, unsigned char* __restrict__ live) {
-  const int k0 = blockIdx.x * kTile, q0 = blockIdx.y * kTile;
-  bool any = false;
-  for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
-    int row = q0 + i / kTile, key = k0 + i % kTile;
-    if (row < n && key < n) any |= to_float(bias[(long)row * n + key]) != -INFINITY;
-  }
-  any = __syncthreads_or(any);
-  if (threadIdx.x == 0) live[blockIdx.y * nk + blockIdx.x] = any;
-}
-
-// The bias (or none: every key < N is live), staged per tile as fp32 in
-// shared memory with coalesced loads: consecutive threads read consecutive
-// keys of a row (the rows of an odd N are not 4-byte aligned, so the loads
-// are scalar). Row stride kBs = 68 floats keeps the accumulator-order reads
-// to 2-way bank conflicts.
-template <typename TB>
-struct BiasMask {
-  static constexpr int kBs = kTile + 4;
-  static constexpr size_t kScratch = (size_t)kTile * kBs * sizeof(float);
-  const TB* bias;
-  const unsigned char* live;  // tile_live_kernel's marks; null without a bias
-  int n, nk;
-  struct Row {};
-  __device__ Row row(int) const { return {}; }
-  __device__ bool tile_live(int q0, int kt) const {
-    return live == nullptr || live[(q0 / kTile) * nk + kt];
-  }
-  __device__ void stage(unsigned char* sm, int q0, int k0) const {
-    float* tile = reinterpret_cast<float*>(sm);
-    for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
-      int r = i / kTile, c = i % kTile;
-      int row = q0 + r, key = k0 + c;
-      float x = -INFINITY;
-      if (row < n && key < n) x = bias == nullptr ? 0.f : to_float(bias[(long)row * n + key]);
-      tile[r * kBs + c] = x;
-    }
-  }
-  __device__ float at(const unsigned char* sm, const Row&, int rl, int kl) const {
-    return reinterpret_cast<const float*>(sm)[rl * kBs + kl];
-  }
-  __device__ int2 tiles(int) const { return make_int2(0, (n - 1) / kTile); }
-};
-
 template <typename T, typename TB>
 int launch_biased(const void* q, const void* k, const void* v, const void* bias,
-                  unsigned char* live, void* out, long stride, long batch_stride, int batch,
-                  int n, int heads, float scale, cudaStream_t st) {
+                  unsigned char* live, void* out, float* lse, long stride, long batch_stride,
+                  int batch, int n, int heads, float scale, cudaStream_t st) {
   const int nk = (n + kTile - 1) / kTile;
   BiasMask<TB> m{static_cast<const TB*>(bias), bias ? live : nullptr, n, nk};
   if (bias != nullptr) {
-    tile_live_kernel<TB><<<dim3(nk, nk), 256, 0, st>>>(m.bias, n, nk, live);
-    cudaError_t err = cudaGetLastError();
+    cudaError_t err = mark_live_tiles<TB>(m.bias, n, live, st);
     if (err != cudaSuccess) return (int)err;
   }
-  return launch_masked<T>(q, k, v, out, stride, batch_stride, batch, n, heads, scale, m, st);
+  return launch_masked<T>(q, k, v, out, lse, stride, batch_stride, batch, n, heads, scale, m,
+                          st);
 }
 
 template <typename T>
 int launch_typed(const void* q, const void* k, const void* v, const void* bias, int bias_dtype,
-                 unsigned char* live, void* out, long stride, long batch_stride, int batch, int n,
-                 int heads, float scale, cudaStream_t st) {
+                 unsigned char* live, void* out, float* lse, long stride, long batch_stride,
+                 int batch, int n, int heads, float scale, cudaStream_t st) {
   if (bias_dtype == 0)
-    return launch_biased<T, __nv_bfloat16>(q, k, v, bias, live, out, stride, batch_stride,
+    return launch_biased<T, __nv_bfloat16>(q, k, v, bias, live, out, lse, stride, batch_stride,
                                            batch, n, heads, scale, st);
   // an fp32 bias, or none
-  return launch_biased<T, float>(q, k, v, bias, live, out, stride, batch_stride, batch, n,
+  return launch_biased<T, float>(q, k, v, bias, live, out, lse, stride, batch_stride, batch, n,
                                  heads, scale, st);
 }
 
 }  // namespace
 
 // q, k, v: [B, N, H, 64] with rows `stride` elements apart and batches
-// `batch_stride` apart; bias: [N, N] contiguous, or null; live: scratch of
-// ceil(N/64)^2 bytes (null without a bias); out: [B, N, H*64].
+// `batch_stride` apart; bias: [N, N] contiguous, or null; live: ceil(N/64)^2
+// bytes (null without a bias) that receive the tile marks, which the
+// backward (flash_attention_bias_bwd.cu) reads again; out: [B, N, H*64];
+// lse: [B, H, N] fp32, or null (inference).
 // dtype: 0 = bfloat16, 1 = float32 (q, k, v, out); bias_dtype: 0 = bfloat16,
 // 1 = float32, -1 = no bias. Returns a cudaError_t (0 = success); -1 for an
 // argument the kernel does not take.
 extern "C" int dad_bias_attention(const void* q, const void* k, const void* v, const void* bias,
-                                  void* live, void* out, int batch, int n, int heads, int head_dim,
-                                  long long stride, long long batch_stride, int dtype,
-                                  int bias_dtype, float scale, void* stream) {
+                                  void* live, void* out, void* lse, int batch, int n, int heads,
+                                  int head_dim, long long stride, long long batch_stride,
+                                  int dtype, int bias_dtype, float scale, void* stream) {
   if (head_dim != kD || n <= 0 || batch <= 0 || heads <= 0 || heads > 65535 || batch > 65535)
     return -1;
   if ((bias == nullptr) != (bias_dtype == -1) || bias_dtype < -1 || bias_dtype > 1) return -1;
   if (bias != nullptr && live == nullptr) return -1;
   unsigned char* marks = static_cast<unsigned char*>(live);
+  float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_typed<__nv_bfloat16>(q, k, v, bias, bias_dtype, marks, out, stride,
+    return launch_typed<__nv_bfloat16>(q, k, v, bias, bias_dtype, marks, out, l, stride,
                                        batch_stride, batch, n, heads, scale, st);
   if (dtype == 1)
-    return launch_typed<float>(q, k, v, bias, bias_dtype, marks, out, stride, batch_stride,
+    return launch_typed<float>(q, k, v, bias, bias_dtype, marks, out, l, stride, batch_stride,
                                batch, n, heads, scale, st);
   return -1;
 }

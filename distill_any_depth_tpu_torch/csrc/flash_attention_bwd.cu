@@ -45,48 +45,7 @@ namespace {
 
 using namespace dad_attn;
 
-// ---- 1. delta: 8 threads per (token, head) row of 64 columns
-template <typename T>
-__global__ void __launch_bounds__(256)
-    delta_kernel(const T* __restrict__ out, const T* __restrict__ g, float* __restrict__ delta,
-                 int n, int heads, long rows) {
-  const long r = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 3;
-  const int sub = threadIdx.x & 7;
-  float acc = 0.f;
-  if (r < rows) {
-    const long token = r / heads;
-    const int h = (int)(r % heads);
-    const long off = token * heads * kD + h * kD + sub * 8;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      float o, d;
-      if constexpr (sizeof(T) == 2) {
-        o = __bfloat162float(out[off + e]);
-        d = __bfloat162float(g[off + e]);
-      } else {
-        o = out[off + e];
-        d = g[off + e];
-      }
-      acc = fmaf(o, d, acc);
-    }
-  }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
-  if (r < rows && sub == 0) {
-    const long token = r / heads;
-    const int h = (int)(r % heads);
-    const long b = token / n, i = token % n;
-    delta[(b * heads + h) * n + i] = acc;
-  }
-}
-
-// p rounded to T (a no-op for fp32)
-template <typename T>
-__device__ __forceinline__ float round_to(float p) {
-  if constexpr (sizeof(T) == 2) return __bfloat162float(__float2bfloat16_rn(p));
-  return p;
-}
+// ---- 1. delta: attention_tiles.cuh's delta_kernel
 
 template <typename T>
 struct Smem {
@@ -301,11 +260,8 @@ int launch(const void* qkv, const void* out, const void* g, const float* lse, fl
   const T* qkv_t = static_cast<const T*>(qkv);
   const T* g_t = static_cast<const T*>(g);
   T* dqkv_t = static_cast<T*>(dqkv);
-  const long rows = (long)batch * n * heads;
-  const long threads = rows * 8;
-  delta_kernel<T><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
-      static_cast<const T*>(out), g_t, delta, n, heads, rows);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta<T>(static_cast<const T*>(out), g_t, delta, batch, n, heads,
+                                    stream);
   if (err != cudaSuccess) return (int)err;
 
   const size_t smem = smem_bytes<T>();

@@ -5,24 +5,11 @@
 //   q, k, v [B, N, H, D] with rows `stride` elements apart and batches
 //   `batch_stride` apart (head h at column h*D): three separate tensors, or
 //   the q|k|v thirds of the fused-QKV GEMM output read in place
-//   ->  out [B, N, H*D] contiguous
+//   ->  out [B, N, H*D] contiguous, and, if asked, the row log-sum-exp
+//       lse [B, H, N] fp32 for the backward (masked_attention_bwd.cuh)
 //
-// A Mask policy supplies the additive term of each score and the range of
-// 64-key tiles a q tile visits:
-//   kScratch                      bytes of shared memory it stages per tile;
-//   Row row(int r)                the per-query-row state (r may be >= N);
-//   bool tile_live(q0, kt)        false if key tile kt is known to be masked
-//                                 for every row of the q tile at q0 (the
-//                                 same answer for every thread);
-//   void stage(sm, q0, k0)        called by every thread of the block: stage
-//                                 what `at` reads for the tile of rows
-//                                 [q0, q0+64) and keys [k0, k0+64);
-//   float at(sm, Row, rl, kl)     the additive term of row q0+rl and key
-//                                 k0+kl < N: a finite value, or -inf where
-//                                 the key is masked (always -inf for a row
-//                                 >= N);
-//   int2 tiles(int q0)            the first and last key tile (inclusive)
-//                                 the q tile starting at row q0 may see.
+// The Mask policy (attention_masks.cuh) supplies the additive term of each
+// score and the range of 64-key tiles a q tile visits.
 //
 // Numerics follow the JAX package's _attn_kernel / _banded_kernel: fp32
 // scores (q.k)*D^-1/2 + term, an online softmax over 64-key tiles with
@@ -31,7 +18,9 @@
 // N are a true -inf. The -inf guards of _banded_kernel keep a row whose
 // keys so far are all masked at m = -inf without a NaN: its exponentials are
 // taken against 0 and are exactly 0, and its correction factor is 0. A row
-// with no unmasked key at all is written as 0.
+// with no unmasked key at all is written as 0, and its lse as +inf, so that
+// the backward's recomputed probabilities exp(s - lse) are exactly 0 there
+// (the JAX _banded_kernel_lse).
 //
 // A key tile whose term is -inf for every row of the q tile adds exactly
 // nothing, so the block skips it before loading its K and V (the window
@@ -49,7 +38,7 @@
 
 #include <type_traits>
 
-#include "attention_tiles.cuh"
+#include "attention_masks.cuh"
 
 namespace dad_attn {
 
@@ -63,8 +52,8 @@ size_t masked_attn_smem() {
 template <typename T, typename Mask>
 __global__ void __launch_bounds__(kThreads)
     masked_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       T* __restrict__ out, long stride, long batch_stride, int n, int heads,
-                       float scale, const Mask mask) {
+                       T* __restrict__ out, float* __restrict__ lse, long stride,
+                       long batch_stride, int n, int heads, float scale, const Mask mask) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int kRow = row_elems<T>();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -187,7 +176,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // ---- normalise and store rows g, g+8 of this warp
+  // ---- normalise and store rows g, g+8 of this warp (and their lse)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
@@ -198,17 +187,22 @@ __global__ void __launch_bounds__(kThreads)
       o[j][2 * r] *= inv;
       o[j][2 * r + 1] *= inv;
     }
+    const int row = q0 + rl + 8 * r;
+    if (lse != nullptr && t == 0 && row < n)
+      lse[((long)b * heads + h) * n + row] = l_run[r] > 0.f ? m_run[r] + logf(l_run[r])
+                                                            : INFINITY;
   }
   const int c = heads * kD;
   store_rows<T>(out + (long)b * n * c, o, q0, n, c, h * kD, 1.f);
 }
 
 // Launch masked_attn_kernel<T, Mask> over (q tiles, heads, batch) on
-// `stream`; returns a cudaError_t (0 = success).
+// `stream` (lse may be null: inference); returns a cudaError_t (0 =
+// success).
 template <typename T, typename Mask>
-int launch_masked(const void* q, const void* k, const void* v, void* out, long stride,
-                  long batch_stride, int batch, int n, int heads, float scale, const Mask& mask,
-                  cudaStream_t stream) {
+int launch_masked(const void* q, const void* k, const void* v, void* out, float* lse,
+                  long stride, long batch_stride, int batch, int n, int heads, float scale,
+                  const Mask& mask, cudaStream_t stream) {
   size_t smem = masked_attn_smem<T, Mask>();
   cudaError_t err = cudaFuncSetAttribute(masked_attn_kernel<T, Mask>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -216,7 +210,7 @@ int launch_masked(const void* q, const void* k, const void* v, void* out, long s
   dim3 grid((n + kTile - 1) / kTile, heads, batch);
   masked_attn_kernel<T, Mask><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), stride, batch_stride, n, heads, scale, mask);
+      static_cast<T*>(out), lse, stride, batch_stride, n, heads, scale, mask);
   return (int)cudaGetLastError();
 }
 

@@ -28,6 +28,8 @@ SOURCES = {
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "flash_attention_bias": "flash_attention_bias.cu",
     "flash_attention_banded": "flash_attention_banded.cu",
+    "flash_attention_bias_bwd": "flash_attention_bias_bwd.cu",
+    "flash_attention_banded_bwd": "flash_attention_banded_bwd.cu",
     "dpt_tail": "dpt_tail.cu",
     "kth_select": "kth_select.cu",
 }

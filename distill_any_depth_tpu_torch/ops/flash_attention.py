@@ -8,10 +8,13 @@ Counterpart of distill_any_depth_tpu/ops/flash_attention.py:
   ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``;
 - ``mha_flash``: attention over ``[B, N, H, D]`` with an additive bias or a
   window band, dispatched as the JAX ``mha_flash`` does to
-  ``mha_flash_bias`` (TPU ``_flash_fwd_impl``, CUDA
-  ``csrc/flash_attention_bias.cu``) or ``mha_flash_banded`` (TPU
-  ``_banded_fwd_impl``, CUDA ``csrc/flash_attention_banded.cu``). Both are
-  forward-only on the card.
+  ``mha_flash_bias`` (TPU ``_flash_fwd_impl`` forward and ``_flash_bwd_impl``
+  backward, CUDA ``csrc/flash_attention_bias.cu`` and
+  ``csrc/flash_attention_bias_bwd.cu``) or ``mha_flash_banded`` (TPU
+  ``_banded_fwd_impl`` and ``_banded_bwd_impl``, CUDA
+  ``csrc/flash_attention_banded.cu`` and
+  ``csrc/flash_attention_banded_bwd.cu``); ``mha_flash_qkv`` is the same on
+  the packed QKV, with the backward writing ``d(qkv)`` packed.
 
 The kernels' headers state their bounds on the H100 and what their designs
 do about them.
@@ -19,9 +22,11 @@ do about them.
 ``qkv`` is the fused-QKV GEMM output ``[B, N, 3*H*D]`` in the column order
 (q|k|v, head, dim); the result is ``[B, N, H*D]`` in (head, dim) order,
 ready for the output projection. On a CUDA tensor that requires a gradient
-the call is a ``torch.autograd.Function``: the forward kernel also writes
-the row log-sum-exp and the backward kernel returns ``d(qkv)`` in the same
-packed layout. On the CPU, autograd runs through the plain version.
+each call is a ``torch.autograd.Function``: the forward kernel also writes
+the row log-sum-exp and the backward kernels return the gradient in the
+packed layout. On the CPU, autograd runs through the plain versions; the
+plain backward versions (``*_backward_reference``) follow the backward
+kernels' numerics and serve the tests and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -32,8 +37,10 @@ import torch
 from distill_any_depth_tpu_torch.ops import _build
 
 __all__ = ["mha_flash_packed", "mha_packed_reference", "packed_attention_backward",
-           "mha_flash", "mha_flash_bias", "mha_flash_banded", "mha_bias_reference",
-           "mha_banded_reference", "banded_eligible"]
+           "mha_flash", "mha_flash_qkv", "mha_flash_bias", "mha_flash_banded",
+           "mha_bias_reference", "mha_banded_reference", "bias_attention_backward",
+           "banded_attention_backward", "bias_attention_backward_reference",
+           "banded_attention_backward_reference", "banded_eligible"]
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIM = 64
@@ -75,15 +82,8 @@ def _forward(qkv: torch.Tensor, num_heads: int, with_lse: bool):
     out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
            if with_lse else None)
-    lib = _lib("flash_attention", "dad_packed_attention", 3, ["i"] * 5 + ["f", "p"])
-    with torch.cuda.device(qkv.device):
-        err = lib.dad_packed_attention(
-            qkv.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-            b, n, num_heads, _HEAD_DIM, _DTYPES[qkv.dtype], _HEAD_DIM ** -0.5,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"packed attention kernel launch failed (error {err})")
+    _launch("packed attention", "flash_attention", "dad_packed_attention", qkv.device,
+            [qkv, out, lse], [b, n, num_heads, _HEAD_DIM, _DTYPES[qkv.dtype]], "iiiii")
     mha_flash_packed.launches += 1
     return out, lse
 
@@ -105,15 +105,9 @@ def packed_attention_backward(qkv: torch.Tensor, out: torch.Tensor, lse: torch.T
         raise ValueError("packed attention backward needs contiguous, aligned operands")
     dqkv = torch.empty_like(qkv)
     delta = torch.empty_like(lse)
-    lib = _lib("flash_attention_bwd", "dad_packed_attention_bwd", 6, ["i"] * 5 + ["f", "p"])
-    with torch.cuda.device(qkv.device):
-        err = lib.dad_packed_attention_bwd(
-            qkv.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dqkv.data_ptr(), b, n, num_heads, _HEAD_DIM, _DTYPES[qkv.dtype], _HEAD_DIM ** -0.5,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"packed attention backward launch failed (error {err})")
+    _launch("packed attention backward", "flash_attention_bwd", "dad_packed_attention_bwd",
+            qkv.device, [qkv, out, g, lse, delta, dqkv],
+            [b, n, num_heads, _HEAD_DIM, _DTYPES[qkv.dtype]], "iiiii")
     packed_attention_backward.launches += 1
     return dqkv
 
@@ -157,27 +151,36 @@ def mha_flash_packed(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 mha_flash_packed.launches = 0
 
 
-def _lib(name: str, fn_name: str, n_ptrs: int, rest: list[str]) -> ctypes.CDLL:
-    """The library ``name`` with ``fn_name``'s signature set: ``n_ptrs``
-    pointers, then ``rest`` ("i" int, "l" int64, "f" float, "p" pointer)."""
-    lib = _build.load(name)
-    fn = getattr(lib, fn_name)
+def _launch(what: str, name: str, fn_name: str, device: torch.device, ptrs: list,
+            ints: list, kinds: str) -> None:
+    """Call ``fn_name`` of library ``name`` (built at first use) with
+    ``ptrs`` (tensors, or None for a null pointer), then ``ints`` of
+    ``kinds`` ("i" int, "l" int64), the head-dim scale and the current
+    stream; raise if the launch failed."""
+    fn = getattr(_build.load(name), fn_name)
     if fn.argtypes is None:
-        kinds = {"i": ctypes.c_int, "l": ctypes.c_int64, "f": ctypes.c_float,
-                 "p": ctypes.c_void_p}
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [kinds[k] for k in rest]
+        types = {"i": ctypes.c_int, "l": ctypes.c_int64}
+        fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [types[k] for k in kinds]
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+    with torch.cuda.device(device):
+        err = fn(*(None if x is None else x.data_ptr() for x in ptrs), *ints, _HEAD_DIM ** -0.5,
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed (error {err})")
 
 
 # ------------------------------------------------------------------ biased and banded attention
 def mha_bias_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       bias: torch.Tensor | None = None) -> torch.Tensor:
+                       bias: torch.Tensor | None = None, with_lse: bool = False):
     """Plain PyTorch attention over ``[B, N, H, D]`` with ``_attn_kernel``'s
     numerics: fp32 scores ``(q.k) * D**-0.5 + bias``, ``exp(s - max)``
     rounded to the input dtype before both the row sum and the PV product,
     the division after PV. ``bias``: ``[N, N]``, ``[H, N, N]`` or None. A row
-    with no finite score gives 0 (the JAX dense kernel gives NaN there)."""
+    with no finite score gives 0 (the JAX dense kernel gives NaN there).
+    With ``with_lse`` it returns ``(out, lse)``: the row log-sum-exp
+    ``[B, H, N]`` fp32 of the rounded exponentials, +inf on a row with no
+    finite score, as kernel 5 writes it for the backward."""
     d = q.shape[-1]
     qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # [B, H, N, D]
     s = torch.matmul(qf, kf.transpose(-1, -2)) * d ** -0.5
@@ -187,13 +190,40 @@ def mha_bias_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     e = torch.exp(s - torch.where(m == -torch.inf, 0.0, m)).to(q.dtype)
     denom = e.float().sum(dim=-1, keepdim=True)
     o = torch.matmul(e.float(), vf) / torch.where(denom == 0, 1.0, denom)
-    return o.to(q.dtype).transpose(1, 2)
+    out = o.to(q.dtype).transpose(1, 2)
+    if not with_lse:
+        return out
+    return out, torch.where(denom == 0, torch.inf, m + torch.log(denom))[..., 0]
+
+
+def bias_attention_backward_reference(q, k, v, bias, out, lse, g):
+    """Plain version of kernel 6: ``(dq, dk, dv)`` ``[B, N, H, D]`` of
+    ``mha_flash_bias`` from the forward's ``out`` ``[B, N, H, D]`` and row
+    log-sum-exp ``lse`` ``[B, H, N]`` and the cotangent ``g``, with the
+    kernel's numerics (those of kernel 3 and of the JAX banded backward):
+    ``p = exp(s - lse)`` in fp32, rounded to the input dtype before the dV
+    product; ``ds = p (dP - delta)``, ``delta = rowsum(g * out)``, rounded
+    before the dQ and dK products; ``D**-0.5`` on the fp32 sums. The scores
+    are dense, ``[B, H, N, N]`` fp32."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf, of = (x.float().transpose(1, 2) for x in (q, k, v, g, out))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.exp(s - lse[..., None]).to(q.dtype).float()
+    del s
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = (p * (dp - (gf * of).sum(-1, keepdim=True))).to(q.dtype).float()
+    del dp
+    grads = (torch.matmul(ds, kf) * scale, torch.matmul(ds.transpose(-1, -2), qf) * scale,
+             torch.matmul(p.transpose(-1, -2), gf))
+    return tuple(x.to(q.dtype).transpose(1, 2) for x in grads)
 
 
 def _band_tiles(n: int, gh: int, gw: int, half: int) -> tuple[torch.Tensor, torch.Tensor]:
     """First and last key tile (inclusive) of each 64-row q tile's band: the
     token rows ``[clip(r0) - half, clip(r1) + half]`` of its grid rows
-    ``r0..r1`` (the JAX ``_band_bounds_traced``; the kernel's ``tiles``)."""
+    ``r0..r1`` (the JAX ``_band_bounds_traced``; the kernels' ``tiles``)."""
     top = max(gh - 1 - half, half)
     q0 = torch.arange(0, n, _TILE)
     r0, r1 = q0 // gw, torch.clamp(q0 + _TILE - 1, max=n - 1) // gw
@@ -202,8 +232,20 @@ def _band_tiles(n: int, gh: int, gw: int, half: int) -> tuple[torch.Tensor, torc
     return lo // _TILE, hi // _TILE
 
 
+def _inv_band_tiles(n: int, gh: int, gw: int, half: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """First and last q tile (inclusive) whose band holds a key of each
+    64-key tile, covering grid rows ``c0..c1``: query rows ``[c0 - half,
+    c1 + half]``, from row 0 (to the last row) where that passes the clip
+    (the JAX ``_inv_band_bounds_traced``; the kernels' ``inv_tiles``)."""
+    k0 = torch.arange(0, n, _TILE)
+    c0, c1 = k0 // gw, torch.clamp(k0 + _TILE - 1, max=n - 1) // gw
+    r_lo = torch.where(c0 - half <= half, 0, c0 - half)
+    r_hi = torch.where(c1 + half >= gh - 1 - half, gh - 1, c1 + half)
+    return r_lo * gw // _TILE, ((r_hi + 1) * gw - 1) // _TILE
+
+
 def mha_banded_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         band: tuple[int, int]) -> torch.Tensor:
+                         band: tuple[int, int], with_lse: bool = False):
     """Plain PyTorch window attention over ``[B, N, H, D]`` on a row-major
     ``(N / gw, gw)`` grid, ``band = (gw, window)``, with ``_banded_kernel``'s
     numerics: each 64-row q tile runs an online softmax over the 64-key
@@ -212,7 +254,8 @@ def mha_banded_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the sum and PV, and the -inf guards that keep a row with no live key so
     far at a zero correction. Equal to ``mha_bias_reference`` with
     ``ops/window.local_window_bias(gh, gw, window, n_prefix=0)`` but for
-    the rounding of the online softmax."""
+    the rounding of the online softmax. With ``with_lse``, ``(out, lse)``
+    as ``mha_bias_reference`` gives them."""
     b, n, h, d = q.shape
     gw, window = band
     gh, half = n // gw, window // 2
@@ -249,7 +292,76 @@ def mha_banded_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * corr + torch.matmul(e.float(), vt[:, :, jt])
         m = m_new
     out = (acc / torch.where(l == 0, 1.0, l)).to(q.dtype)
-    return out.reshape(b, h, nq * _TILE, d)[:, :, :n].transpose(1, 2)
+    out = out.reshape(b, h, nq * _TILE, d)[:, :, :n].transpose(1, 2)
+    if not with_lse:
+        return out
+    lse = torch.where(l == 0, torch.inf, m + torch.log(l))
+    return out, lse.reshape(b, h, nq * _TILE)[:, :, :n]
+
+
+def banded_attention_backward_reference(q, k, v, band, out, lse, g):
+    """Plain version of kernel 8: ``(dq, dk, dv)`` ``[B, N, H, D]`` of
+    ``mha_flash_banded`` from the forward's ``out`` and ``lse`` and the
+    cotangent ``g``, with ``bias_attention_backward_reference``'s numerics,
+    tile by tile as the JAX ``_banded_tile_grads`` and the kernel visit the
+    tiles: dQ over each q tile's band (``_band_tiles``), dK and dV over each
+    key tile's inverse band (``_inv_band_tiles``), all tiles of one step of
+    the band at once. Memory is O(N * band): at 1036^2 bs16 dense fp32
+    scores would take 23 GB."""
+    b, n, h, d = q.shape
+    gw, window = band
+    gh, half = n // gw, window // 2
+    scale = d ** -0.5
+    dev = q.device
+    nt = -(-n // _TILE)
+    pad = nt * _TILE - n
+
+    def tiles(x):  # [B, N, H, D] -> fp32 [B, H, nt, 64, D], zero rows past N
+        x = torch.nn.functional.pad(x.float().transpose(1, 2), (0, 0, 0, pad))
+        return x.reshape(b, h, nt, _TILE, d)
+
+    qt, kt, vt, gt = (tiles(x) for x in (q, k, v, g))
+    delta = (gt * tiles(out)).sum(-1, keepdim=True)
+    lse_t = torch.nn.functional.pad(lse.float(), (0, pad), value=torch.inf)
+    lse_t = lse_t.view(b, h, nt, _TILE, 1)
+    # each token's clamped window centre as a query and its grid cell as a
+    # key; a token past N gets a coordinate no window reaches
+    tok = torch.arange(nt * _TILE, device=dev)
+    real, far = tok < n, 1 << 20
+    cy = torch.where(real, (tok // gw).clamp(half, max(gh - 1 - half, half)), far)
+    cx = torch.where(real, (tok % gw).clamp(half, max(gw - 1 - half, half)), far)
+    ky, kx = torch.where(real, tok // gw, -far), torch.where(real, tok % gw, -far)
+    local = torch.arange(_TILE, device=dev)
+
+    def tile_grads(qi, kj):
+        """p and ds ``[B, H, T, 64, 64]`` of the tile pairs (qi[t], kj[t])."""
+        rows = (qi[:, None] * _TILE + local)[:, :, None]
+        keys = (kj[:, None] * _TILE + local)[:, None, :]
+        allowed = ((cy[rows] - ky[keys]).abs() <= half) & ((cx[rows] - kx[keys]).abs() <= half)
+        s = torch.matmul(qt[:, :, qi], kt[:, :, kj].transpose(-1, -2)) * scale
+        p = torch.exp(s.masked_fill(~allowed, -torch.inf) - lse_t[:, :, qi]).to(q.dtype).float()
+        dp = torch.matmul(gt[:, :, qi], vt[:, :, kj].transpose(-1, -2))
+        return p, (p * (dp - delta[:, :, qi])).to(q.dtype).float()
+
+    dq, dk, dv = (torch.zeros_like(qt) for _ in range(3))
+    every = torch.arange(nt, device=dev)
+    j0, j1 = (x.to(dev) for x in _band_tiles(n, gh, gw, half))
+    for step in range(int((j1 - j0).max()) + 1):
+        live = j0 + step <= j1
+        qi, kj = every[live], (j0 + step)[live]
+        dq[:, :, qi] += torch.matmul(tile_grads(qi, kj)[1], kt[:, :, kj])
+    i0, i1 = (x.to(dev) for x in _inv_band_tiles(n, gh, gw, half))
+    for step in range(int((i1 - i0).max()) + 1):
+        live = i0 + step <= i1
+        qi, kj = (i0 + step)[live], every[live]
+        p, ds = tile_grads(qi, kj)
+        dk[:, :, kj] += torch.matmul(ds.transpose(-1, -2), qt[:, :, qi])
+        dv[:, :, kj] += torch.matmul(p.transpose(-1, -2), gt[:, :, qi])
+
+    def untile(x, f):
+        return (x * f).reshape(b, h, nt * _TILE, d)[:, :, :n].to(q.dtype).transpose(1, 2)
+
+    return untile(dq, scale), untile(dk, scale), untile(dv, 1.0)
 
 
 def banded_eligible(n: int, band: tuple[int, int] | None) -> bool:
@@ -275,56 +387,219 @@ def _check_heads(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
             or (q.stride(1) * item) % 16 or (q.stride(0) * item) % 16:
         raise ValueError(f"{name} kernel needs [B, N, H, D] with contiguous heads and 16-byte "
                          f"aligned rows; got strides {q.stride()}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise RuntimeError(f"the {name} kernel is forward-only: its backward is not on the "
-                           f"card yet")
 
 
-def _run(name: str, fn_name: str, q, k, v, ptrs, ints) -> torch.Tensor:
-    """Launch ``fn_name`` of library ``name`` on q, k, v (checked), writing
-    ``out [B, N, H, D]``: ``ptrs`` after q, k, v and before out, ``ints``
-    after (batch, n, heads, head dim, row stride, batch stride)."""
+def _checked_bias(bias: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    n = q.shape[1]
+    if bias.shape != (n, n) or bias.dtype not in _DTYPES or bias.device != q.device:
+        raise ValueError(f"biased attention kernel needs a bfloat16 or float32 [N, N] bias "
+                         f"on {q.device}; got {tuple(bias.shape)} {bias.dtype} {bias.device}")
+    return bias.contiguous()
+
+
+def _bias_forward(q, k, v, bias, with_lse: bool):
+    """Kernel 5 on CUDA tensors: ``out [B, N, H, D]``, the row log-sum-exp
+    ``[B, H, N]`` fp32 if asked, and the (q tile, key tile) live marks of
+    the bias that its first pass writes (None without a bias), which the
+    backward reads again. With a bias one call launches two kernels and
+    counts as one launch."""
+    _check_heads("biased attention", q, k, v)
     b, n, h, d = q.shape
+    live, bias_dtype = None, -1
+    if bias is not None:
+        bias = _checked_bias(bias, q)
+        nt = -(-n // _TILE)
+        live = torch.empty(nt * nt, dtype=torch.uint8, device=q.device)
+        bias_dtype = _DTYPES[bias.dtype]
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    lib = _lib(name, fn_name, 4 + len(ptrs),
-               ["i"] * 4 + ["l", "l"] + ["i"] * len(ints) + ["f", "p"])
-    with torch.cuda.device(q.device):
-        err = getattr(lib, fn_name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, out.data_ptr(), b, n, h, d,
-            q.stride(1), q.stride(0), *ints, d ** -0.5, torch.cuda.current_stream().cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed (error {err})")
-    return out
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
+    _launch("biased attention", "flash_attention_bias", "dad_bias_attention", q.device,
+            [q, k, v, bias, live, out, lse], [b, n, h, d, q.stride(1), q.stride(0),
+                                              _DTYPES[q.dtype], bias_dtype], "iiiillii")
+    mha_flash_bias.launches += 1
+    return out, lse, live
+
+
+def _banded_forward(q, k, v, band, with_lse: bool):
+    """Kernel 7 on CUDA tensors: ``out [B, N, H, D]`` and the row
+    log-sum-exp ``[B, H, N]`` fp32 if asked."""
+    _check_heads("banded attention", q, k, v)
+    b, n, h, d = q.shape
+    gw, window = band
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
+    _launch("banded attention", "flash_attention_banded", "dad_banded_attention", q.device,
+            [q, k, v, out, lse], [b, n, h, d, q.stride(1), q.stride(0), n // gw, gw, window,
+                                  _DTYPES[q.dtype]], "iiiilliiii")
+    mha_flash_banded.launches += 1
+    return out, lse
+
+
+def _grad_operands(q, out, lse, g) -> torch.Tensor:
+    """Check the backward's operands; returns ``g`` ``[B, N, H, D]``
+    contiguous."""
+    b, n, h, d = q.shape
+    g = g.reshape(b, n, h, d).contiguous()
+    if out.shape != q.shape or lse.shape != (b, h, n):
+        raise ValueError(f"attention backward: q {tuple(q.shape)}, out {tuple(out.shape)}, "
+                         f"lse {tuple(lse.shape)}")
+    if out.dtype != q.dtype or g.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError("attention backward: out and g in q's dtype, lse in float32")
+    if not (out.is_contiguous() and lse.is_contiguous()) or g.data_ptr() % 16 \
+            or out.data_ptr() % 16:
+        raise ValueError("attention backward needs contiguous, aligned out and lse")
+    return g
+
+
+def _dst(dqkv: torch.Tensor) -> tuple[list, list]:
+    """dq, dk, dv pointers of a packed ``[B, N, 3, H, D]`` gradient, and its
+    row and batch strides."""
+    return list(dqkv.unbind(2)), [dqkv.stride(1), dqkv.stride(0)]
+
+
+def _bias_backward(q, k, v, bias, out, lse, g, live, dqkv) -> None:
+    """Kernel 6 into the packed ``dqkv [B, N, 3, H, D]``; ``live`` None
+    marks the tiles first."""
+    _check_heads("biased attention backward", q, k, v)
+    g = _grad_operands(q, out, lse, g)
+    b, n, h, d = q.shape
+    bias_dtype, mark = -1, 0
+    if bias is not None:
+        bias = _checked_bias(bias, q)
+        bias_dtype = _DTYPES[bias.dtype]
+        if live is None:
+            nt = -(-n // _TILE)
+            live, mark = torch.empty(nt * nt, dtype=torch.uint8, device=q.device), 1
+    ptrs, strides = _dst(dqkv)
+    delta = torch.empty_like(lse)
+    _launch("biased attention backward", "flash_attention_bias_bwd", "dad_bias_attention_bwd",
+            q.device, [q, k, v, out, g, lse, delta, bias, live, *ptrs],
+            [b, n, h, d, q.stride(1), q.stride(0), *strides, _DTYPES[q.dtype], bias_dtype, mark],
+            "iiiilllliii")
+    bias_attention_backward.launches += 1
+
+
+def _banded_backward(q, k, v, band, out, lse, g, dqkv) -> None:
+    """Kernel 8 into the packed ``dqkv [B, N, 3, H, D]``."""
+    _check_heads("banded attention backward", q, k, v)
+    g = _grad_operands(q, out, lse, g)
+    b, n, h, d = q.shape
+    gw, window = band
+    ptrs, strides = _dst(dqkv)
+    delta = torch.empty_like(lse)
+    _launch("banded attention backward", "flash_attention_banded_bwd",
+            "dad_banded_attention_bwd", q.device, [q, k, v, out, g, lse, delta, *ptrs],
+            [b, n, h, d, q.stride(1), q.stride(0), *strides, n // gw, gw, window,
+             _DTYPES[q.dtype]], "iiiilllliiii")
+    banded_attention_backward.launches += 1
+
+
+def bias_attention_backward(q, k, v, bias, out, lse, g, live=None):
+    """Kernel 6: ``(dq, dk, dv)`` of ``mha_flash_bias`` (q, k, v ``[B, N, H,
+    D]``, a constant ``[N, N]`` bias or None) from the forward's ``out``,
+    its row log-sum-exp ``lse [B, H, N]`` and the cotangent ``g``: the plain
+    version for CPU tensors; for CUDA tensors the kernels, which write the
+    three into one packed ``[B, N, 3, H, D]`` buffer (the results are views
+    of it). ``live``: kernel 5's tile marks, written here when not given.
+    One call counts as one launch, though it starts three or four kernels."""
+    if q.device.type == "cpu":
+        return bias_attention_backward_reference(q, k, v, bias, out, lse, g)
+    b, n, h, d = q.shape
+    dqkv = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
+    _bias_backward(q, k, v, bias, out, lse, g, live, dqkv)
+    return dqkv.unbind(2)
+
+
+bias_attention_backward.launches = 0
+
+
+def banded_attention_backward(q, k, v, band, out, lse, g):
+    """Kernel 8: ``(dq, dk, dv)`` of ``mha_flash_banded`` from the forward's
+    ``out`` and ``lse`` and the cotangent ``g``, as
+    ``bias_attention_backward``: the plain version for CPU tensors, the
+    kernels (one launch counted) for CUDA tensors."""
+    if q.device.type == "cpu":
+        return banded_attention_backward_reference(q, k, v, band, out, lse, g)
+    b, n, h, d = q.shape
+    dqkv = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
+    _banded_backward(q, k, v, band, out, lse, g, dqkv)
+    return dqkv.unbind(2)
+
+
+banded_attention_backward.launches = 0
+
+
+class _MaskedAttention(torch.autograd.Function):
+    """On q, k, v viewed in the packed ``qkv [B, N, 3*H*D]``: kernel 5 (no
+    ``band``) or kernel 7 forward with the row log-sum-exp, returning ``out
+    [B, N, H, D]``, and kernel 6 or 8
+    backward writing ``d(qkv)`` in the packed layout. Kernel 5's tile marks
+    are kept for kernel 6. The bias is a constant: it gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, bias, band):
+        q, k, v = _split(qkv, num_heads)
+        if band is None:
+            out, lse, live = _bias_forward(q, k, v, bias, with_lse=True)
+        else:
+            (out, lse), bias, live = _banded_forward(q, k, v, band, with_lse=True), None, None
+        ctx.save_for_backward(qkv, out, lse, bias, live)
+        ctx.num_heads, ctx.band = num_heads, band
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        qkv, out, lse, bias, live = ctx.saved_tensors
+        q, k, v = _split(qkv, ctx.num_heads)
+        dqkv = torch.empty_like(qkv)
+        dst = dqkv.view(q.shape[0], q.shape[1], 3, q.shape[2], q.shape[3])
+        if ctx.band is None:
+            _bias_backward(q, k, v, bias, out, lse, g, live, dst)
+        else:
+            _banded_backward(q, k, v, ctx.band, out, lse, g, dst)
+        return dqkv, None, None, None
+
+
+def _split(qkv: torch.Tensor, num_heads: int):
+    """q, k, v ``[B, N, H, D]`` viewed in place in the packed ``qkv``."""
+    b, n, c3 = qkv.shape
+    return qkv.view(b, n, 3, num_heads, c3 // 3 // num_heads).unbind(2)
+
+
+def _pack(q, k, v) -> torch.Tensor:
+    """Separate q, k, v ``[B, N, H, D]`` as one packed ``[B, N, 3*H*D]`` (a
+    copy), for the autograd Function."""
+    b, n, h, d = q.shape
+    return torch.stack((q, k, v), dim=2).reshape(b, n, 3 * h * d)
+
+
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def _trains(bias) -> bool:
+    """A bias that needs a gradient: the plain attention serves it (the JAX
+    ``_flash_bwd``'s einsum fallback), whose autograd returns a real dbias."""
+    return bias is not None and _needs_grad(bias)
 
 
 def mha_flash_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bias: torch.Tensor | None = None) -> torch.Tensor:
     """Attention over ``[B, N, H, D]`` with an additive ``[N, N]`` bias shared
     by batch and heads (or none): kernel 5 for CUDA tensors, returning
-    ``[B, N, H, D]`` contiguous; the plain version for CPU tensors. With a
-    bias, one call launches two kernels (the tile marks, then attention) and
-    counts as one launch."""
-    if q.device.type == "cpu":
+    ``[B, N, H, D]`` contiguous, with kernel 6 as its backward when q, k or
+    v requires a gradient (a bias that requires one takes the plain
+    version); the plain version for CPU tensors. With a bias, one call
+    launches two kernels (the tile marks, then attention) and counts as one
+    launch."""
+    if q.device.type == "cpu" or _trains(bias):
         return mha_bias_reference(q, k, v, bias)
     if q.device.type != "cuda":
         raise ValueError(f"no biased attention for device {q.device}")
-    _check_heads("biased attention", q, k, v)
-    n = q.shape[1]
-    if bias is None:
-        ptrs, bias_dtype = [None, None], -1
-    else:
-        if bias.shape != (n, n) or bias.dtype not in _DTYPES or bias.device != q.device:
-            raise ValueError(f"biased attention kernel needs a bfloat16 or float32 [N, N] bias "
-                             f"on {q.device}; got {tuple(bias.shape)} {bias.dtype} {bias.device}")
-        bias = bias.contiguous()
-        nt = -(-n // _TILE)
-        live = torch.empty(nt * nt, dtype=torch.uint8, device=q.device)  # the kernel's tile marks
-        ptrs, bias_dtype = [bias.data_ptr(), live.data_ptr()], _DTYPES[bias.dtype]
-    out = _run("flash_attention_bias", "dad_bias_attention", q, k, v, ptrs,
-               [_DTYPES[q.dtype], bias_dtype])
-    mha_flash_bias.launches += 1
-    return out
+    if _needs_grad(q, k, v):
+        return _MaskedAttention.apply(_pack(q, k, v), q.shape[2], bias, None)
+    return _bias_forward(q, k, v, bias, with_lse=False)[0]
 
 
 mha_flash_bias.launches = 0
@@ -334,8 +609,9 @@ def mha_flash_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      band: tuple[int, int]) -> torch.Tensor:
     """Window attention over ``[B, N, H, D]`` on a prefix-less row-major
     ``(N / gw, gw)`` grid, ``band = (gw, window)``: kernel 7 for CUDA
-    tensors, returning ``[B, N, H, D]`` contiguous; the plain version for
-    CPU tensors."""
+    tensors, returning ``[B, N, H, D]`` contiguous, with kernel 8 as its
+    backward when q, k or v requires a gradient; the plain version for CPU
+    tensors."""
     n = q.shape[1]
     gw, window = band
     if n % gw or window < 1:
@@ -344,14 +620,22 @@ def mha_flash_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return mha_banded_reference(q, k, v, band)
     if q.device.type != "cuda":
         raise ValueError(f"no banded attention for device {q.device}")
-    _check_heads("banded attention", q, k, v)
-    out = _run("flash_attention_banded", "dad_banded_attention", q, k, v, [],
-               [n // gw, gw, window, _DTYPES[q.dtype]])
-    mha_flash_banded.launches += 1
-    return out
+    if _needs_grad(q, k, v):
+        return _MaskedAttention.apply(_pack(q, k, v), q.shape[2], None, band)
+    return _banded_forward(q, k, v, band, with_lse=False)[0]
 
 
 mha_flash_banded.launches = 0
+
+
+def _shared_bias(bias: torch.Tensor | None) -> torch.Tensor | None:
+    """``[1, N, N]`` as ``[N, N]``; ``[N, N]``, a per-head ``[H, N, N]`` or
+    None as given."""
+    if bias is None or bias.ndim == 2:
+        return bias
+    if bias.ndim == 3:
+        return bias[0] if bias.shape[0] == 1 else bias
+    raise ValueError(f"bias shape {tuple(bias.shape)}")
 
 
 def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -359,22 +643,37 @@ def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               band: tuple[int, int] | None = None) -> torch.Tensor:
     """Attention over ``[B, N, H, D]`` with an optional additive bias
     (``[N, N]`` or ``[1, N, N]`` shared by batch and heads, or per-head
-    ``[H, N, N]``), dispatched as the JAX ``mha_flash``: a per-head bias to
-    the plain attention, a ``band = (gw, window)`` over a whole grid of at
-    least ``_BANDED_MIN_SEQ`` tokens to ``mha_flash_banded``, everything else
-    to ``mha_flash_bias``. A band asserts that the bias is the prefix-less
-    local-window mask of that grid; the banded kernel computes the mask
-    itself, so a band needs no bias beside it here (the JAX package needs
-    both)."""
+    ``[H, N, N]``), dispatched as the JAX ``mha_flash``: a per-head bias or
+    one that requires a gradient to the plain attention, a ``band = (gw,
+    window)`` over a whole grid of at least ``_BANDED_MIN_SEQ`` tokens to
+    ``mha_flash_banded``, everything else to ``mha_flash_bias``. A band
+    asserts that the bias is the prefix-less local-window mask of that
+    grid; the banded kernel computes the mask itself, so a band needs no
+    bias beside it here (the JAX package needs both)."""
     if q.ndim != 4:
         raise ValueError(f"q must be [B, N, H, D]; got {tuple(q.shape)}")
-    if bias is not None:
-        if bias.ndim == 3 and bias.shape[0] == 1:
-            bias = bias[0]
-        elif bias.ndim == 3:
-            return mha_bias_reference(q, k, v, bias)
-        elif bias.ndim != 2:
-            raise ValueError(f"bias shape {tuple(bias.shape)}")
+    bias = _shared_bias(bias)
+    if bias is not None and (bias.ndim == 3 or _trains(bias)):
+        return mha_bias_reference(q, k, v, bias)
     if banded_eligible(q.shape[1], band):
         return mha_flash_banded(q, k, v, band)
     return mha_flash_bias(q, k, v, bias)
+
+
+def mha_flash_qkv(qkv: torch.Tensor, num_heads: int, bias: torch.Tensor | None = None,
+                  band: tuple[int, int] | None = None) -> torch.Tensor:
+    """``mha_flash`` on q, k, v viewed in place in the fused-QKV output
+    ``[B, N, 3*H*D]``, returning ``[B, N, H*D]``. On the card, when ``qkv``
+    requires a gradient and the bias is a constant shared by batch and
+    heads, one autograd Function runs kernel 5 or 7 and, as its backward,
+    kernel 6 or 8, which writes ``d(qkv)`` in the packed layout: autograd of
+    the three views would sum three strided gradients into a zeroed
+    buffer."""
+    b, n, c3 = qkv.shape
+    bias = _shared_bias(bias)
+    if qkv.device.type == "cuda" and _needs_grad(qkv) \
+            and (bias is None or (bias.ndim == 2 and not _trains(bias))):
+        band = band if banded_eligible(n, band) else None
+        return _MaskedAttention.apply(qkv, num_heads, bias, band).reshape(b, n, c3 // 3)
+    q, k, v = _split(qkv, num_heads)
+    return mha_flash(q, k, v, bias, band).reshape(b, n, c3 // 3)

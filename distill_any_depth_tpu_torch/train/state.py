@@ -101,7 +101,13 @@ def apply_gradients(state: TrainState) -> torch.Tensor:
     """Clip, guard and apply the gradients held in the parameters' ``.grad``;
     returns the unclipped global norm (a device scalar)."""
     cfg = state.cfg
-    grads = [p.grad for p in state.params if p.grad is not None]
+    for p in state.params:
+        if p.grad is None:
+            # a parameter the loss does not reach (the windowed encoder's
+            # pos-embed past the PE schedule): JAX differentiates it to 0,
+            # and the L2 decay and Adam still move it
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in state.params]
     norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     if cfg.max_grad_norm and cfg.max_grad_norm > 0:
         torch._foreach_mul_(grads, cfg.max_grad_norm / torch.clamp(norm, min=cfg.max_grad_norm))

@@ -5,8 +5,12 @@ through the ``cuda_device`` fixture). On a machine with a card:
 ``python -m pytest tests/test_torch_cuda.py -m cuda``. Tolerances as in
 ``chip_smoke.py``: fp32 differs by summation order only; bf16 by a few
 bf16 roundings placed differently (attention, biased and banded attention
-and the backward: max |err| / (1 + |ref|); tail: max |err| / max |ref|);
-the select is exact.
+and their backwards: max |err| / (1 + |ref|); tail: max |err| / max
+|ref|); the select is exact. The biased and banded backwards (kernels 6
+and 8) are held against their plain versions on the same forward output
+and log-sum-exp, where the two round at the same places (bf16 differs by
+the flips of those roundings), and, through autograd, against autograd of
+the plain forward.
 """
 import dataclasses
 
@@ -17,6 +21,12 @@ from distill_any_depth_tpu_torch.configs import model_config
 from distill_any_depth_tpu_torch.models.factory import create_model
 from distill_any_depth_tpu_torch.ops.dpt_tail import fused_dpt_tail, tail_reference
 from distill_any_depth_tpu_torch.ops.flash_attention import (
+    _banded_forward,
+    _bias_forward,
+    banded_attention_backward,
+    banded_attention_backward_reference,
+    bias_attention_backward,
+    bias_attention_backward_reference,
     mha_banded_reference,
     mha_bias_reference,
     mha_flash_banded,
@@ -203,15 +213,86 @@ def test_masked_kernels_refuse(cuda_device):
         mha_flash_bias(q, k, v, torch.zeros(15, 15, device=cuda_device))
     with pytest.raises(ValueError, match="band"):
         mha_flash_banded(q, k, v, (5, 3))
-    with pytest.raises(RuntimeError, match="forward-only"):
-        mha_flash_banded(q.detach().requires_grad_(), k, v, (4, 3))
+    out, lse = _banded_forward(q, k, v, (4, 3), with_lse=True)
+    with pytest.raises(ValueError, match="backward"):
+        banded_attention_backward(q, k, v, (4, 3), out, lse[:, :, :8], out)
+
+
+# bf16 kernel against the plain backward on the same out and lse; fp32
+# summation order only
+GRAD_TOLS = [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
+
+
+def _grads_within(got, ref, tol):
+    for a, b in zip(got, ref):
+        _within(a, b, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", GRAD_TOLS)
+@pytest.mark.parametrize("kind,n", [
+    ("window", 81), ("window+prefix", 82), ("random", 65), ("segment", 130), ("none", 63),
+])
+def test_bias_backward_matches_plain(cuda_device, kind, n, dtype, tol):
+    """Kernel 6 against its plain version from kernel 5's out and lse, and
+    the autograd path of ``mha_flash_bias`` (kernels 5 + 6) against
+    autograd of the plain forward."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 1)
+    q, k, v = _masked_qkv(2, n, 2, dtype, gen)
+    bias = {
+        "window": lambda: local_window_bias(9, 9, 3, 0, cuda_device, dtype),
+        "window+prefix": lambda: local_window_bias(9, 9, 3, 1, cuda_device, torch.float32),
+        "random": lambda: torch.randn(n, n, generator=gen, device=cuda_device),
+        "segment": lambda: segment_bias(torch.arange(n) // 40).to(cuda_device, dtype),
+        "none": lambda: None,
+    }[kind]()
+    g = torch.randn(2, n, 2, 64, generator=gen, device=cuda_device).to(dtype)
+    out, lse, live = _bias_forward(q, k, v, bias, with_lse=True)
+    before = bias_attention_backward.launches
+    got = bias_attention_backward(q, k, v, bias, out, lse, g, live)
+    assert bias_attention_backward.launches == before + 1
+    _grads_within(got, bias_attention_backward_reference(q, k, v, bias, out, lse, g), tol)
+    # the autograd path: kernel 5 with lse, then kernel 6
+    xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    mha_flash_bias(*xs, bias).backward(g)
+    assert bias_attention_backward.launches == before + 2
+    xr = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    mha_bias_reference(*xr, bias).backward(g)
+    _grads_within([x.grad for x in xs], [x.grad for x in xr], 2.5e-2 if tol > 1e-3 else tol)
+
+
+@pytest.mark.parametrize("dtype,tol", GRAD_TOLS)
+@pytest.mark.parametrize("gh,gw,window", [
+    (9, 9, 3), (3, 5, 7), (12, 20, 7), (50, 110, 7), (3, 1000, 7), (13, 29, 5),
+])
+def test_banded_backward_matches_plain_and_bias_backward(cuda_device, gh, gw, window, dtype,
+                                                         tol):
+    """Kernel 8 against its plain version from kernel 7's out and lse, and
+    equal to kernel 6 with the window bias (the same live tiles in the same
+    order with the same arithmetic)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(gh * gw + 1)
+    n = gh * gw
+    q, k, v = _masked_qkv(2, n, 2, dtype, gen)
+    g = torch.randn(2, n, 2, 64, generator=gen, device=cuda_device).to(dtype)
+    out, lse = _banded_forward(q, k, v, (gw, window), with_lse=True)
+    before = banded_attention_backward.launches
+    got = banded_attention_backward(q, k, v, (gw, window), out, lse, g)
+    assert banded_attention_backward.launches == before + 1
+    _grads_within(got, banded_attention_backward_reference(q, k, v, (gw, window), out, lse, g),
+                  tol)
+    wb = local_window_bias(gh, gw, window, 0, cuda_device, dtype)
+    out5, lse5, live = _bias_forward(q, k, v, wb, with_lse=True)
+    assert torch.equal(out5, out) and torch.equal(lse5, lse)
+    for a, b in zip(got, bias_attention_backward(q, k, v, wb, out, lse, g, live)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("res,kernel", [(126, "bias"), (70, "banded")])
 def test_windowed_model_runs_masked_kernels(cuda_device, monkeypatch, res, kernel):
     """A tiny windowed model in bf16 runs one launch of its attention kernel
     per block (the banded one once the grid passes the threshold, lowered
-    here) and the tail kernel once, and never the packed attention."""
+    here) and the tail kernel once, and never the packed attention; as a
+    student (plain tail), one backward runs the matching backward kernel
+    once per block and gives finite gradients."""
     from distill_any_depth_tpu_torch.ops import flash_attention
 
     if kernel == "banded":
@@ -221,10 +302,19 @@ def test_windowed_model_runs_masked_kernels(cuda_device, monkeypatch, res, kerne
     cfg = dataclasses.replace(cfg, encoder=enc, features=64, out_channels=(32, 64, 96, 128))
     model = create_model(cfg, dtype=torch.bfloat16, device=cuda_device)
     x = torch.rand(1, 3, res, res, device=cuda_device)
-    fns = (mha_flash_packed, mha_flash_bias, mha_flash_banded, fused_dpt_tail)
+    fns = (mha_flash_packed, mha_flash_bias, mha_flash_banded, fused_dpt_tail,
+           packed_attention_backward, bias_attention_backward, banded_attention_backward)
     before = [f.launches for f in fns]
     with torch.no_grad():
         depth, _ = model(x)
     ran = [f.launches - b for f, b in zip(fns, before)]
-    assert ran == ([0, 2, 0, 1] if kernel == "bias" else [0, 0, 2, 1])
+    assert ran == ([0, 2, 0, 1, 0, 0, 0] if kernel == "bias" else [0, 0, 2, 1, 0, 0, 0])
     assert depth.shape == (1, res, res) and torch.isfinite(depth).all()
+
+    student = create_model(cfg, dtype=torch.bfloat16, device=cuda_device, fused_tail=False)
+    before = [f.launches for f in fns]
+    student(x)[0].mean().backward()
+    ran = [f.launches - b for f, b in zip(fns, before)]
+    assert ran == ([0, 2, 0, 0, 0, 2, 0] if kernel == "bias" else [0, 0, 2, 0, 0, 0, 2])
+    qkv = student.pretrained.blocks[0].attn.qkv.weight.grad
+    assert qkv is not None and torch.isfinite(qkv).all() and qkv.abs().max() > 0

@@ -12,8 +12,9 @@
   ``test_train_trajectory_matches_jax``).
 - The optimizer (clip, guard, L2 decay, Adam, schedule) against optax on
   a gradient sequence with a non-finite step.
-- ``cli.train`` over ``data/smoke`` for 2 steps, and its refusal of the
-  flags of features not ported yet.
+- ``cli.train`` over ``data/smoke`` for 2 steps, with the ViT-B and the
+  windowed student, and its refusal of the flags of features not ported
+  yet.
 """
 import dataclasses
 import json
@@ -191,12 +192,23 @@ def test_cli_trains_on_smoke_data(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--resume", "run"], ["--lora_rank", "4"],
                                   ["--teacher_quant", "int8"], ["--data_mode", "images"],
-                                  ["--checkpoint_interval", "10"], ["--device_preprocess"],
-                                  ["--student_arch", "depthanything-base-window"]],
+                                  ["--checkpoint_interval", "10"], ["--device_preprocess"]],
                          ids=lambda f: f[0])
 def test_cli_refuses_features_not_ported(flag, tmp_path):
     with pytest.raises(NotImplementedError, match=flag[0]):
         train_cli.main(["--output_dir", str(tmp_path), *flag])
+
+
+def test_cli_trains_windowed_student_on_smoke_data(tmp_path, monkeypatch):
+    """The windowed student trains through the CLI (on the CPU, through the
+    plain attention; on the card, kernels 5 and 6 at this size)."""
+    monkeypatch.chdir(ROOT)
+    history = train_cli.main([
+        "--device", "cpu", "--dataset_dir", "data/smoke", "--output_dir", str(tmp_path),
+        "--student_arch", "depthanything-base-window", "--teacher_models", "depthanything-small",
+        "--image_size", "126", "--batch_size", "2", "--num_iterations", "2",
+    ])
+    assert len(history["lr"]) == 1 and np.isfinite(history["train_loss"]).all()
 
 
 def test_student_plain_tail_and_teacher_kernel_tail():
