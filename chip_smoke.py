@@ -44,8 +44,23 @@ Phases, each of which fails the run if it fails:
 12. one fp32 step of the windowed student (``depthanything-small``
    teacher) on the card against the CPU: bs2 at 518^2 (kernel 6) and bs1
    at 784^2 (a 56 x 56 grid, kernel 8);
-13. time each kernel, its plain version and its PyTorch library yardstick
-   with CUDA events, the end-to-end forwards and the bs16 train step.
+13. hold the W8A8 GEMM (kernel 9) against its plain version, bit for bit:
+   bf16 and fp32, with and without bias, at the ViT-L 518^2 bs8 and ViT-B
+   392^2 bs8 encoder GEMM shapes and at edge shapes, on rows holding exact
+   rounding ties and all-zero rows;
+14. main path 5: ``cli.pseudo_label.label_batches`` with
+   ``depthanything-large`` at 518^2, bs8, bf16, ``quant="int8_pallas"``
+   over 10 images (the second batch padded): launch counts per forward,
+   one image against the port's CPU fp32 forward with the same weights and
+   quant, the depth against the card's own unquantized forward; then
+   ``cli.pseudo_label.main`` over a folder of 10 PNGs;
+15. main path 2 with the int8 teacher (``teacher_quant="int8_pallas"``):
+   3 ``Trainer`` steps at bs16 392^2 with kernel 9's launches per step,
+   then two steps of ``cli.train --teacher_quant int8_pallas``;
+16. time each kernel, its plain version and its PyTorch library yardstick
+   with CUDA events (kernel 9 also beside bf16 ``F.linear``), the
+   end-to-end forwards (the ViT-L 518^2 forward with each quant mode) and
+   the bs16 train steps (bf16 and int8 teacher).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -91,6 +106,12 @@ from distill_any_depth_tpu_torch.ops.flash_attention import (  # noqa: E402
     mha_packed_reference,
     packed_attention_backward,
 )
+from distill_any_depth_tpu_torch.ops.quant import (  # noqa: E402
+    int8_matmul,
+    quantize_rows,
+    quantize_weight,
+)
+from distill_any_depth_tpu_torch.ops.quant_matmul import w8a8_matmul, w8a8_reference  # noqa: E402
 from distill_any_depth_tpu_torch.ops.stats import (  # noqa: E402
     _order_bits,
     kth_select,
@@ -100,6 +121,7 @@ from distill_any_depth_tpu_torch.ops.window import local_window_bias, segment_bi
 from distill_any_depth_tpu_torch.train.loop import Trainer  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 
 ARCH, RES, BATCH = "depthanything-base", 392, 8
@@ -107,6 +129,16 @@ TEACHER, TRAIN_BATCH, TRAIN_STEPS = "depthanything-large", 16, 3
 WINDOW_ARCH, WINDOW_RES = "depthanything-base-window", (518, 1036)  # kernel 5, kernel 7
 WINDOW_TRAIN_BATCH = {518: 16, 1036: 16}  # main path 4: kernels 5 + 6, kernels 7 + 8
 HDN_ROWS = 7 * TRAIN_BATCH  # the dr/3 HDN contexts folded with the batch
+# main path 5: ViT-L pseudo-labelling at 518^2 bs8 with int8 encoder GEMMs
+QUANT_ARCH, QUANT_RES, QUANT_BATCH, QUANT_IMAGES = "depthanything-large", 518, 8, 10
+# kernel 9's shapes: (M, the (K, N) of qkv, proj, fc1, fc2) of each encoder
+W8A8_SHAPES = {
+    "ViT-L 518^2 bs8": (8 * ((518 // 14) ** 2 + 1), ((1024, 3072), (1024, 1024), (1024, 4096),
+                                                     (4096, 1024))),
+    "ViT-B 392^2 bs8": (8 * ((392 // 14) ** 2 + 1), ((768, 2304), (768, 768), (768, 3072),
+                                                     (3072, 768))),
+}
+GEMMS = ("qkv", "proj", "fc1", "fc2")
 
 BF16_ATTN_TOL = 6e-3  # max |err| / (1 + |ref|), bf16 kernel 1 against its plain version
 # max |err| / (1 + |ref|), bf16 kernels 1 + 3 against autograd of the plain
@@ -134,6 +166,13 @@ E2E_MAX, E2E_MEAN, E2E_CORR = 0.1, 0.02, 0.996
 # on an H100 (max 0.0132 / 0.0138, mean 0.00232 / 0.00227, 1 - corr 1.0e-4 /
 # 1.2e-4)
 WINDOW_E2E_MAX, WINDOW_E2E_MEAN, WINDOW_E2E_CORR = 0.04, 0.007, 0.9996
+# path 5, the same with int8_pallas GEMMs on both sides (the CPU runs kernel
+# 9's plain version) at ViT-L 518^2: about 3x the readings on an H100 (max
+# 0.0136, mean 0.00291, 1 - corr 7e-5)
+QUANT_E2E_MAX, QUANT_E2E_MEAN, QUANT_E2E_CORR = 0.04, 0.009, 0.9998
+# path 5's int8 depth against the card's own unquantized bf16 depth, all
+# pixels of the 10 images: the JAX package's bound for int8 against fp32
+QUANT_VS_PLAIN_CORR = 0.99
 # max |err| / (1 + |ref|) of dq, dk, dv, kernels 6 and 8 against their plain
 # versions on the same out and lse: bf16 differs by the flips of roundings
 # placed alike, fp32 by summation order. About 3x the readings on an H100
@@ -177,9 +216,10 @@ def errors(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return d, d / max(ref.float().abs().max().item(), 1e-30)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least time (ms) for bf16 work of ``flops`` moving ``nbytes``, and which bounds it."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, rate: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    """Least time (ms) for work of ``flops`` at peak ``rate`` (bf16 by
+    default) moving ``nbytes``, and which bounds it."""
+    t_ops, t_bytes = flops / rate, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -628,7 +668,12 @@ def depth_vs_cpu(tag: str, arch: str, res: int, depth0: np.ndarray, images, limi
     cpu = create_model(arch, dtype=torch.float32, device="cpu", seed=0)
     t0 = time.time()
     ref = predict(cpu, images[:1], res, batch_size=1)[0]
-    cpu_s = time.time() - t0
+    return compare_depth(tag, depth0, ref, limits, time.time() - t0)
+
+
+def compare_depth(tag: str, depth0: np.ndarray, ref: np.ndarray, limits, cpu_s: float) -> dict:
+    """``depth_vs_cpu``'s comparison of the card's depth of one image with
+    the CPU fp32 forward's ``ref``, which took ``cpu_s``."""
 
     def norm(d):
         return (d - d.min()) / (d.max() - d.min() + 1e-8)
@@ -696,7 +741,7 @@ COUNTERS = {"attention": mha_flash_packed, "tail": fused_dpt_tail,
             "attention_bwd": packed_attention_backward, "select": kth_select,
             "attention_bias": mha_flash_bias, "attention_banded": mha_flash_banded,
             "attention_bias_bwd": bias_attention_backward,
-            "attention_banded_bwd": banded_attention_backward}
+            "attention_banded_bwd": banded_attention_backward, "w8a8": w8a8_matmul}
 
 
 def read_counts() -> dict:
@@ -708,27 +753,33 @@ def reset_counts() -> None:
         fn.launches = 0
 
 
-def expected_step_counts(batch: int, chunk: int = 8) -> dict:
+def expected_step_counts(batch: int, chunk: int = 8, teacher_quant: str = "none") -> dict:
+    """Per step of the ViT-B student under the ViT-L teacher; an int8
+    teacher adds kernel 9 four times per teacher block and chunk."""
     s, t = model_config(ARCH).encoder.depth, model_config(TEACHER).encoder.depth
     chunks = batch // chunk if batch > chunk and batch % chunk == 0 else 1
     return {"attention": s + chunks * t, "tail": chunks, "attention_bwd": s, "select": 2,
             "attention_bias": 0, "attention_banded": 0, "attention_bias_bwd": 0,
-            "attention_banded_bwd": 0}
+            "attention_banded_bwd": 0,
+            "w8a8": 4 * chunks * t if teacher_quant == "int8_pallas" else 0}
 
 
-def phase_train() -> tuple[Trainer, dict]:
-    """Main path 2 at the tentpole's configuration, then the CLI over
-    data/smoke. Returns the trainer and the per-step launch counts."""
+def phase_train(teacher_quant: str = "none") -> tuple[Trainer, dict]:
+    """Main path 2 at the tentpole's configuration (with the teacher's
+    GEMMs as ``teacher_quant`` sets them), then the CLI over data/smoke.
+    Returns the trainer and the per-step launch counts."""
+    tag = "train" if teacher_quant == "none" else f"train, teacher {teacher_quant}"
     cfg = TrainConfig(student=model_config(ARCH), teachers=(TEACHER,), batch_size=TRAIN_BATCH,
-                      image_size=RES, log_interval=10 ** 6, output_dir=str(OUT / "train"))
+                      image_size=RES, log_interval=10 ** 6, teacher_quant=teacher_quant,
+                      output_dir=str(OUT / f"train_{teacher_quant}"))
     t0 = time.time()
     trainer = Trainer(cfg, "cuda")
-    log(f"[train] Trainer({ARCH} <- {TEACHER}, bs{TRAIN_BATCH} {RES}^2 bf16) built in "
+    log(f"[{tag}] Trainer({ARCH} <- {TEACHER}, bs{TRAIN_BATCH} {RES}^2 bf16) built in "
         f"{time.time() - t0:.1f} s")
     images = train_images(TRAIN_BATCH * TRAIN_STEPS, seed=1)
     watched = trainer.student.pretrained.blocks[0].attn.qkv.weight
     before = watched.detach().clone()
-    want = expected_step_counts(TRAIN_BATCH, cfg.teacher_chunk)
+    want = expected_step_counts(TRAIN_BATCH, cfg.teacher_chunk, teacher_quant)
     seen: list[dict] = []
     last = {}
 
@@ -739,10 +790,10 @@ def phase_train() -> tuple[Trainer, dict]:
         last.update(now)
         vals = {k: float(v) for k, v in metrics.items() if k != "teacher_idx"}
         seen.append(per)
-        log(f"[train] step {step}: {json.dumps({k: round(v, 5) for k, v in vals.items()})} "
+        log(f"[{tag}] step {step}: {json.dumps({k: round(v, 5) for k, v in vals.items()})} "
             f"launches {per}")
-        check(per == want, f"train step {step}: launches {per}, expected {want}")
-        check(all(np.isfinite(v) for v in vals.values()), f"train step {step}: non-finite")
+        check(per == want, f"{tag} step {step}: launches {per}, expected {want}")
+        check(all(np.isfinite(v) for v in vals.values()), f"{tag} step {step}: non-finite")
 
     def batches(epoch):
         for i in range(TRAIN_STEPS):
@@ -752,25 +803,25 @@ def phase_train() -> tuple[Trainer, dict]:
     t0 = time.time()
     trainer.run(batches, max_steps=TRAIN_STEPS, on_step=on_step)
     torch.cuda.synchronize()
-    log(f"[train] {TRAIN_STEPS} steps in {time.time() - t0:.1f} s (first includes set-up)")
-    check(len(seen) == TRAIN_STEPS, f"train: {len(seen)} steps ran")
+    log(f"[{tag}] {TRAIN_STEPS} steps in {time.time() - t0:.1f} s (first includes set-up)")
+    check(len(seen) == TRAIN_STEPS, f"{tag}: {len(seen)} steps ran")
     moved = (watched.detach() - before).abs().max().item()
-    log(f"[train] block 0 qkv weight moved by up to {moved:.3e}")
-    check(moved > 0, "train: the student's parameters did not move")
+    log(f"[{tag}] block 0 qkv weight moved by up to {moved:.3e}")
+    check(moved > 0, f"{tag}: the student's parameters did not move")
 
     # the CLI over the repository's smoke data, at a batch it holds
     from distill_any_depth_tpu_torch.cli import train as train_cli
 
-    out = OUT / "train_cli"
+    out = OUT / f"train_cli_{teacher_quant}"
     reset_counts()
     history = train_cli.main([
         "--device", "cuda", "--dataset_dir", "data/smoke", "--output_dir", str(out),
         "--batch_size", "2", "--num_iterations", "2", "--image_size", str(RES),
-        "--use_hdn_loss", "--log_interval", "1",
+        "--use_hdn_loss", "--log_interval", "1", "--teacher_quant", teacher_quant,
     ])
     torch.cuda.synchronize()
-    counts, want = read_counts(), expected_step_counts(2)
-    log(f"[train] cli.train over data/smoke, bs2, 2 steps: history {history}, launches {counts}")
+    counts, want = read_counts(), expected_step_counts(2, teacher_quant=teacher_quant)
+    log(f"[{tag}] cli.train over data/smoke, bs2, 2 steps: history {history}, launches {counts}")
     check(counts == {k: 2 * v for k, v in want.items()}, f"cli.train: launches {counts}")
     check((out / "history.json").exists(), "cli.train: no history.json")
     check(all(np.isfinite(history["train_loss"])), "cli.train: non-finite loss")
@@ -814,7 +865,8 @@ def expected_window_step_counts(res: int, batch: int, chunk: int = 8) -> dict:
     banded = banded_eligible(g * g, (g, model_config(WINDOW_ARCH).encoder.window_size))
     return {"attention": chunks * t, "tail": chunks, "attention_bwd": 0, "select": 2,
             "attention_bias": 0 if banded else s, "attention_banded": s if banded else 0,
-            "attention_bias_bwd": 0 if banded else s, "attention_banded_bwd": s if banded else 0}
+            "attention_bias_bwd": 0 if banded else s, "attention_banded_bwd": s if banded else 0,
+            "w8a8": 0}
 
 
 def phase_window_train() -> dict:
@@ -975,16 +1027,146 @@ def phase_window_train_vs_cpu() -> dict:
 
 
 # ---------------------------------------------------------------- phase 13
+def w8a8_inputs(m, k, n, dtype, gen, with_bias=True):
+    """x ``[M, K]`` whose row 0 has amax 127 (scale exactly 1) and holds the
+    ties +-0.5, 2.5, -3.5, 1.5, and whose row 1 is zero; an fp32 ``[N, K]``
+    weight and bias as a Linear holds them."""
+    x = torch.randn(m, k, generator=gen, device="cuda") * 2
+    x[0, :6] = torch.tensor([127.0, 0.5, -0.5, 2.5, -3.5, 1.5], device="cuda")
+    if m > 1:
+        x[1] = 0.0
+    w = torch.randn(n, k, generator=gen, device="cuda") * k ** -0.5
+    b = torch.randn(n, generator=gen, device="cuda") * 0.1 if with_bias else None
+    return x.to(dtype), w, b
+
+
+def w8a8_case(name, m, k, n, dtype, with_bias, gen) -> float:
+    """Kernel 9 against its plain version on the same quantized weight:
+    equal bit for bit (the same true divisions, an exact integer product,
+    the same separately rounded dequant). Returns the max abs error."""
+    x, w, b = w8a8_inputs(m, k, n, dtype, gen, with_bias)
+    wq, ws = quantize_weight(w)
+    before = w8a8_matmul.launches
+    got = w8a8_matmul(x, w, b, quantized=(wq, ws))
+    check(w8a8_matmul.launches == before + 1, f"w8a8 {name}: the kernel did not run")
+    ref = w8a8_reference(x, wq, ws, b, dtype)
+    torch.cuda.synchronize()
+    check(got.shape == (m, n) and got.dtype == dtype, f"w8a8 {name}: bad output")
+    check(bool(torch.isfinite(got).all()), f"w8a8 {name}: non-finite output")
+    same = bool(torch.equal(got, ref))
+    abs_err = errors(got, ref)[0]
+    log(f"[w8a8] {name}: M={m} K={k} N={n} {str(dtype)[6:]} {'bias' if with_bias else 'no bias'}"
+        f": {int((got != ref).sum())} outputs differ, max_abs_err={abs_err:.3e} "
+        f"(exact equality required) {'ok' if same else 'FAIL'}")
+    check(same, f"w8a8 {name} disagrees with its plain version")
+    return abs_err
+
+
+def phase_w8a8(gen) -> float:
+    """Kernel 9 at every encoder GEMM shape of paths 5 and 1 and at edge
+    shapes (a single row; M, K, N off every tile); returns the max abs
+    error at the slice shapes."""
+    err = 0.0
+    for label, (m, gemms) in W8A8_SHAPES.items():
+        for gemm, (k, n) in zip(GEMMS, gemms):
+            for dtype in (torch.bfloat16, torch.float32):
+                for with_bias in (True, False):
+                    err = max(err, w8a8_case(f"{label} {gemm}", m, k, n, dtype, with_bias, gen))
+    for m in (1, 100):
+        for dtype in (torch.bfloat16, torch.float32):
+            for with_bias in (True, False):
+                w8a8_case("edge", m, 96, 200, dtype, with_bias, gen)
+    return err
+
+
+# ---------------------------------------------------------------- phase 14
+def quant_images(n: int) -> np.ndarray:
+    """The synthetic images resized on the host to the 518 bucket, as
+    ``cli.pseudo_label.main`` resizes them."""
+    import cv2
+
+    return np.stack([cv2.resize(im, (QUANT_RES, QUANT_RES), interpolation=cv2.INTER_CUBIC)
+                     for im in synthetic_images(n)])
+
+
+def phase_pseudo_label():
+    """Main path 5: ViT-L at 518^2 bs8 bf16 with int8_pallas GEMMs over 10
+    images (two forwards, the second padded with zero images), then the CLI
+    over a folder of PNGs. Returns the int8_pallas model, the unquantized
+    one, the launch counts and the images."""
+    import cv2
+
+    from distill_any_depth_tpu_torch.cli import pseudo_label
+
+    bf16 = torch.bfloat16
+    model = create_model(QUANT_ARCH, dtype=bf16, device="cuda", seed=0, quant="int8_pallas")
+    ims = quant_images(QUANT_IMAGES)
+    blocks = model.cfg.encoder.depth
+    forwards = -(-QUANT_IMAGES // QUANT_BATCH)
+    per_forward = {"w8a8": 4 * blocks, "attention": blocks, "tail": 1}
+    want = {k: per_forward.get(k, 0) * forwards for k in COUNTERS}
+    reset_counts()
+    t0 = time.time()
+    depth = pseudo_label.label_batches(model, ims, QUANT_RES, QUANT_BATCH)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[pseudo-label] label_batches({QUANT_ARCH}, {QUANT_IMAGES} images, {QUANT_RES}, bs"
+        f"{QUANT_BATCH}, bf16, int8_pallas) in {time.time() - t0:.2f} s (first call); "
+        f"launches {counts}")
+    check(counts == want, f"pseudo-label: launches {counts}, expected {want}")
+    check(depth.shape == (QUANT_IMAGES, QUANT_RES, QUANT_RES) and depth.dtype == np.float32,
+          f"pseudo-label: depth {depth.shape} {depth.dtype}")
+    check(bool(np.isfinite(depth).all()) and bool((depth >= 0).all()),
+          "pseudo-label: non-finite or negative depth")
+
+    cpu = create_model(QUANT_ARCH, dtype=torch.float32, device="cpu", seed=0, quant="int8_pallas")
+    t0 = time.time()
+    ref = pseudo_label.label_batches(cpu, ims[:1], QUANT_RES, 1)[0]
+    compare_depth("pseudo-label", depth[0], ref, (QUANT_E2E_MAX, QUANT_E2E_MEAN, QUANT_E2E_CORR),
+                  time.time() - t0)
+    del cpu
+
+    plain = create_model(QUANT_ARCH, dtype=bf16, device="cuda", seed=0)
+    unquantized = pseudo_label.label_batches(plain, ims, QUANT_RES, QUANT_BATCH)
+    corr = float(np.corrcoef(depth.ravel(), unquantized.ravel())[0, 1])
+    ok = corr >= QUANT_VS_PLAIN_CORR
+    log(f"[pseudo-label] int8_pallas depth against the unquantized bf16 depth, {QUANT_IMAGES} "
+        f"images: corr {corr:.5f} (tol >= {QUANT_VS_PLAIN_CORR}) {'ok' if ok else 'FAIL'}")
+    check(ok, "pseudo-label: int8 depth does not follow the unquantized depth")
+
+    inp, out = OUT / "pseudo_label_in", OUT / "pseudo_label_out"
+    inp.mkdir(parents=True, exist_ok=True)
+    for i, im in enumerate(synthetic_images(QUANT_IMAGES)):
+        cv2.imwrite(str(inp / f"im{i:02d}.png"), cv2.cvtColor(im, cv2.COLOR_RGB2BGR))
+    reset_counts()
+    written = pseudo_label.main(["--input", str(inp), "--output_dir", str(out),
+                                 "--quant", "int8_pallas", "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_counts = read_counts()
+    log(f"[pseudo-label] cli.pseudo_label over {QUANT_IMAGES} PNGs: {len(written)} depth maps, "
+        f"launches {cli_counts}")
+    check(cli_counts == want, f"cli.pseudo_label: launches {cli_counts}, expected {want}")
+    check(len(written) == QUANT_IMAGES, f"cli.pseudo_label wrote {len(written)} maps")
+    for path in written:
+        d = np.load(path)
+        check(d.shape == (QUANT_RES, QUANT_RES) and d.dtype == np.float32
+              and bool(np.isfinite(d).all()), f"cli.pseudo_label: bad map {path}")
+    return model, plain, counts, ims
+
+
+# ---------------------------------------------------------------- phase 16
 def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts,
-                 wtrain, gen) -> None:
+                 wtrain, qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, gen) -> None:
     kernels = []
     runs = {"infer_forward": counts, "train_step": train_counts,
             **{f"window_{res}_forward": wcounts[res] for res in WINDOW_RES},
-            **{f"window_train_{res}_step": wtrain[res]["counts"] for res in WINDOW_RES}}
+            **{f"window_train_{res}_step": wtrain[res]["counts"] for res in WINDOW_RES},
+            f"pseudo_label_{QUANT_IMAGES}_images": qcounts,
+            "int8_teacher_train_step": qtrain_counts}
 
     def entry(name, key, source, replaces, err, ms, plain, lib, flops, nbytes, launches=None,
-              **extra):
-        b_ms, b_by = bound(flops, nbytes)
+              rate=PEAK_BF16_FLOPS, **extra):
+        b_ms, b_by = bound(flops, nbytes, rate)
         by_path = {path: c[key] for path, c in runs.items()}
         kernels.append({"name": name, "route": "cuda",
                         "source": f"distill_any_depth_tpu_torch/csrc/{source}",
@@ -1040,6 +1222,10 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
           cuda_ms(lambda: fused_dpt_tail(t, (RES, RES), trailing_relu=True, **w)),
           cuda_ms(lambda: tail_reference(t, (RES, RES), trailing_relu=True, **w)), None,
           flops, t.numel() * 2 + w_bytes + BATCH * RES * RES * 2)
+    # kernel 10, the v1 tail (same function and contract), is served by kernel 2
+    tail_v1 = {**kernels[-1], "name": "dpt_tail_v1",
+               "replaces": "distill_any_depth_tpu/ops/dpt_tail.py:529",
+               "served_by": "kernel 2 (dpt_tail.cu) through ops/dpt_tail.fused_dpt_tail"}
 
     # kernel 3 at the student's training shape
     b, h = TRAIN_BATCH, 12
@@ -1152,6 +1338,37 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
                   band_gflop=10.0 * b * h * d * n * 7 * g / 1e9)
         del q, k, v, go, sd, gsd, wb, out, lse
         torch.cuda.empty_cache()
+    # kernel 9 at every encoder GEMM of paths 5 and 1 (bf16, with bias), beside
+    # its plain version, the int8 route (row quant + torch._int_mm + dequant;
+    # the library yardstick), torch._int_mm alone and bf16 F.linear
+    shapes = []
+    for label, (m, gemms) in W8A8_SHAPES.items():
+        for gemm, (k, n) in zip(GEMMS, gemms):
+            x, w, b = w8a8_inputs(m, k, n, bf16, gen)
+            q = quantize_weight(w)
+            xq = quantize_rows(x)[0]
+            w16, b16 = w.to(bf16), b.to(bf16)
+            ops, nbytes = 2.0 * m * k * n, m * k * 2 + n * k + n * 8 + m * n * 2
+            b_ms, b_by = bound(ops, nbytes, PEAK_INT8_OPS)
+            shapes.append({
+                "shape": label, "gemm": gemm, "M": m, "K": k, "N": n,
+                "ms": cuda_ms(lambda: w8a8_matmul(x, w, b, quantized=q), iters=20),
+                "plain_ms": cuda_ms(lambda: w8a8_reference(x, *q, b, bf16), iters=3),
+                "int8_route_ms": cuda_ms(lambda: int8_matmul(x, w, b, quantized=q), iters=20),
+                "int_mm_ms": cuda_ms(lambda: torch._int_mm(xq, q[0].t()), iters=20),
+                "bf16_linear_ms": cuda_ms(lambda: F.linear(x, w16, b16), iters=20),
+                "bound_ms": b_ms, "bound_by": b_by})
+            log(f"[timing] w8a8 {label} {gemm}: {json.dumps(shapes[-1])}")
+            del x, w, b, q, xq, w16, b16
+    qkv = shapes[0]
+    entry("w8a8_matmul", "w8a8", "w8a8_matmul.cu", "ops/quant_matmul.py:75", errs["w8a8"],
+          qkv["ms"], qkv["plain_ms"], qkv["int8_route_ms"], 2.0 * qkv["M"] * qkv["K"] * qkv["N"],
+          qkv["M"] * qkv["K"] * 2 + qkv["N"] * qkv["K"] + qkv["N"] * 8 + qkv["M"] * qkv["N"] * 2,
+          launches=qcounts["w8a8"], rate=PEAK_INT8_OPS, shape="ViT-L 518^2 bs8 qkv",
+          shapes=shapes, launches_per_forward=4 * qmodel.cfg.encoder.depth,
+          library_note="the int8 route (ops/quant.int8_matmul): a row-quant pass, "
+                       "torch._int_mm (cuBLASLt int8) and the dequant; bf16_linear_ms per shape")
+    kernels.append(tail_v1)
     for kd in kernels:
         log(f"[timing] {kd['name']}: kernel {kd['ms']:.4f} ms, plain {kd['plain_ms']:.4f} ms, "
             f"library {kd['library_ms']}, bound {kd['bound_ms']:.4f} ms ({kd['bound_by']}), "
@@ -1215,9 +1432,45 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
                           "dtype": "bfloat16",
                           **{k: v for k, v in wtrain[res].items() if k != "counts"}}
                     for res in WINDOW_RES}
+
+    # end to end, path 5: the ViT-L 518^2 bs8 forward with each quant mode,
+    # and label_batches (preprocessing, the forward, the copy to the host)
+    from distill_any_depth_tpu_torch.cli.pseudo_label import label_batches
+
+    x = preprocess_on_device(torch.from_numpy(qims[:QUANT_BATCH]).cuda(), QUANT_RES, dtype=bf16)
+    qint8 = create_model(QUANT_ARCH, dtype=bf16, device="cuda", seed=0, quant="int8")
+    pseudo = {"arch": QUANT_ARCH, "res": QUANT_RES, "batch": QUANT_BATCH, "dtype": "bfloat16"}
+    with torch.no_grad():
+        for mode, m in (("none", qplain), ("int8", qint8), ("int8_pallas", qmodel)):
+            windows = [cuda_ms(lambda: m(x), iters=3) for _ in range(5)]
+            pseudo[f"forward_ms_{mode}"] = statistics.median(windows)
+            pseudo[f"forward_ms_windows_{mode}"] = windows
+            log(f"[timing] {QUANT_ARCH} {QUANT_RES}^2 bs{QUANT_BATCH} forward, quant {mode}: "
+                f"{pseudo[f'forward_ms_{mode}']:.3f} ms (windows {windows})")
+    del qint8
+    t0 = time.perf_counter()
+    for _ in range(3):
+        label_batches(qmodel, qims[:QUANT_BATCH], QUANT_RES, QUANT_BATCH)
+    pseudo["label_batches_images_per_s_int8_pallas"] = 3 * QUANT_BATCH / (time.perf_counter() - t0)
+    pseudo["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # end to end, path 2 with the int8_pallas teacher
+    xs = torch.from_numpy(train_images(TRAIN_BATCH, seed=3)).cuda().permute(0, 3, 1, 2)
+    torch.cuda.reset_peak_memory_stats()
+    step_windows = [cuda_ms(lambda: qtrainer.train_step(qtrainer.state, 0, xs, xs), iters=3,
+                            warmup=1) for _ in range(3)]
+    step_ms = statistics.median(step_windows)
+    int8_train = {"student": ARCH, "teacher": TEACHER, "teacher_quant": "int8_pallas",
+                  "res": RES, "batch": TRAIN_BATCH, "dtype": "bfloat16", "step_ms": step_ms,
+                  "step_ms_windows": step_windows, "steps_per_s": 1e3 / step_ms,
+                  "images_per_s": TRAIN_BATCH * 1e3 / step_ms,
+                  "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[timing] int8_pallas teacher step {step_ms:.1f} ms (windows {step_windows}); bf16 "
+        f"teacher step {train['step_ms']:.1f} ms")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"end_to_end": e2e, "train_step": train, "window": window,
-                      "window_train": window_train}), flush=True)
+                      "window_train": window_train, "pseudo_label": pseudo,
+                      "int8_teacher_train_step": int8_train}), flush=True)
 
 
 def main() -> None:
@@ -1234,6 +1487,7 @@ def main() -> None:
             "tail": phase_tail(gen), "select": phase_select(gen)}
     errs["attention_bias"], errs["attention_banded"] = phase_window_attention(gen)
     errs["attention_bias_bwd"], errs["attention_banded_bwd"] = phase_window_grad(gen)
+    errs["w8a8"] = phase_w8a8(gen)
     model = create_model(ARCH, dtype=torch.bfloat16, device="cuda", seed=0)
     images = synthetic_images(BATCH)
     counts = phase_main_path(model, images)
@@ -1242,8 +1496,10 @@ def main() -> None:
     wmodel, wcounts = phase_window_path(images)
     wtrain = phase_window_train()
     phase_window_train_vs_cpu()
+    qmodel, qplain, qcounts, qims = phase_pseudo_label()
+    qtrainer, qtrain_counts = phase_train("int8_pallas")
     phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts, wtrain,
-                 gen)
+                 qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, gen)
     log(f"[smoke] all phases passed in {time.time() - t0:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

@@ -12,9 +12,10 @@ Run: ``python -m distill_any_depth_tpu_torch.cli.infer --device cuda
 --arch_name depthanything-base --input IMAGES --output_dir OUT``; the
 windowed high-resolution teacher is ``--arch_name depthanything-base-window
 --processing_res 1036`` (518 runs the biased attention kernel, 1036 the
-banded one). Not
-ported yet: ``--quant`` (int8 GEMMs) and ``--fused_tail`` (the tail kernel
-always runs on the card), and multi-device sharding of the batch.
+banded one). ``--quant int8`` or ``int8_pallas`` runs the encoder GEMMs as
+dynamic W8A8 int8 (the latter through kernel 9 on the card). Not ported
+yet: ``--fused_tail`` (the tail kernel always runs on the card) and
+multi-device sharding of the batch.
 """
 from __future__ import annotations
 
@@ -43,6 +44,10 @@ def argument_parser() -> argparse.ArgumentParser:
                    help="square processing resolution; 0 = each image's native "
                         "resolution snapped to the multiple-of-14 grid")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--quant", default="none", choices=["none", "int8", "int8_pallas"],
+                   help="int8: the encoder GEMMs as dynamic W8A8 int8 (plain PyTorch around "
+                        "torch._int_mm); int8_pallas: the same through the W8A8 kernel, "
+                        "which quantizes activations inside the kernel")
     p.add_argument("--cmap", default="Spectral_r")
     p.add_argument("--host_preprocess", action="store_true",
                    help="resize + normalize on the host with cv2 instead of on the "
@@ -119,7 +124,8 @@ def main(args=None) -> list[str]:
         args = argument_parser().parse_args()
     logging.basicConfig(level=logging.INFO)
 
-    model = create_model(args.arch_name, dtype=getattr(torch, args.dtype), device=args.device)
+    model = create_model(args.arch_name, dtype=getattr(torch, args.dtype), device=args.device,
+                         quant=args.quant)
     if args.checkpoint:
         _load_checkpoint(model, args.checkpoint)
     else:

@@ -53,16 +53,25 @@ def _w8a8(m: int, k: int, n: int) -> tuple[float, float]:
     return 2.0 * m * k * n, m * k * 2 + k * n + n * 8 + m * n * 2
 
 
+def _w8a8_encoder(name: str, m: int, dim: int, depth: int) -> dict:
+    """Kernel 9 at each of a ViT's four block GEMMs (qkv, proj, fc1, fc2 at
+    ``m`` tokens) and over the whole encoder (4 * depth launches, the bound
+    of their summed work)."""
+    gemms = {"qkv": (dim, 3 * dim), "proj": (dim, dim), "fc1": (dim, 4 * dim),
+             "fc2": (4 * dim, dim)}
+    rows, ops, nbytes = {}, 0.0, 0.0
+    for gemm, (k, n) in gemms.items():
+        o, by = _w8a8(m, k, n)
+        rows[f"9 W8A8 GEMM, {name} {gemm}"] = _bound(o, by, rate=INT8_OPS)
+        ops, nbytes = ops + depth * o, nbytes + depth * by
+    rows[f"9 W8A8 GEMMs, {name}, whole encoder ({4 * depth})"] = _bound(ops, nbytes,
+                                                                       rate=INT8_OPS)
+    return rows
+
+
 def bounds() -> dict:
     n392, n518, n1036 = 28 * 28 + 1, 37 * 37, 74 * 74
     win = 49  # live keys per query row under the 7x7 clamped-centre window
-    m = 8 * n392  # ViT-B 392^2 bs8 tokens
-    gemms = {"qkv": (768, 2304), "proj": (768, 768), "fc1": (768, 3072), "fc2": (3072, 768)}
-    ops = nbytes = 0.0
-    for k, n in gemms.values():
-        o, by = _w8a8(m, k, n)
-        ops, nbytes = ops + 12 * o, nbytes + 12 * by
-    fc1 = _bound(*_w8a8(m, *gemms["fc1"]), rate=INT8_OPS)
     return {
         "1 packed attention fwd, ViT-B 392^2 bs8": _attention(8, n392, 12, n392, False),
         "2 DPT tail v2, C=128 392^2 bs8": _tail(8, 392, 128),
@@ -75,9 +84,8 @@ def bounds() -> dict:
         "7 banded attention fwd, window 1036^2 bs8": _attention(8, n1036, 12, win, False),
         "8 banded attention bwd, window student 1036^2 bs16": _attention(16, n1036, 12, win,
                                                                          True),
-        "9 W8A8 GEMM, ViT-B 392^2 bs8 fc1": fc1,
-        "9 W8A8 GEMMs, ViT-B 392^2 bs8, whole encoder (48)": _bound(ops, nbytes,
-                                                                    rate=INT8_OPS),
+        **_w8a8_encoder("ViT-L 518^2 bs8", 8 * (n518 + 1), 1024, 24),
+        **_w8a8_encoder("ViT-B 392^2 bs8", 8 * n392, 768, 12),
         "10 DPT tail v1, C=128 392^2 bs8": _tail(8, 392, 128),
     }
 

@@ -3,10 +3,12 @@
 Run on a machine with a CUDA card:
 
     python -m distill_any_depth_tpu_torch.cli.profile_infer \
-        [--arch_name depthanything-base] [--res 392] [--batch 8]
+        [--arch_name depthanything-base] [--res 392] [--batch 8] [--quant none]
 
 (the windowed teacher: ``--arch_name depthanything-base-window --res 518``
-runs the bias kernel, ``--res 1036`` the banded one).
+runs the bias kernel, ``--res 1036`` the banded one; path 5, the ViT-L
+pseudo-labelling forward: ``--arch_name depthanything-large --res 518
+--quant int8_pallas``, whose GEMMs are kernel 9).
 
 It measures the host time to enqueue a forward and the time the device
 still needs after that, then traces 10 forwards with ``torch.profiler`` and
@@ -43,6 +45,7 @@ CLASSES = (
     ("banded attention backward kernel", r"masked_(dkdv|dq)_kernel.*WindowMask"),
     ("attention backward kernel (packed; all deltas)", r"dkdv_kernel|dq_kernel|delta_kernel"),
     ("select kernel", r"kth_select_kernel"),
+    ("w8a8 kernel", r"w8a8_kernel"),
     ("tail kernel", r"tail_conv1_kernel|tail_head_kernel"),
     ("optimizer (fused Adam, norms)", r"fused_adam|FusedAdam|multi_tensor|foreach"),
     ("interpolate", r"upsample_|interp"),
@@ -51,6 +54,7 @@ CLASSES = (
     ("layer norm", r"layer_norm_kernel"),
     ("depthwise conv (PEG, ATen)", r"conv_depthwise2d"),
     ("conv (cudnn)", r"cudnn"),
+    ("int8 gemm (cublasLt, the int8 route)", r"imma|i8i8|s8s8|int8|i16832|i8816"),
     ("gemm (cublas)", r"nvjet|cublas|gemm"),
 )
 
@@ -101,12 +105,14 @@ def main(argv=None) -> dict:
     p.add_argument("--arch_name", default="depthanything-base")
     p.add_argument("--res", type=int, default=392)
     p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--quant", default="none", choices=["none", "int8", "int8_pallas"])
     p.add_argument("--out", default="chiprun_out/profile")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_infer needs a CUDA card")
 
-    model = create_model(args.arch_name, dtype=torch.bfloat16, device="cuda", seed=0)
+    model = create_model(args.arch_name, dtype=torch.bfloat16, device="cuda", seed=0,
+                         quant=args.quant)
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(args.batch, 3, args.res, args.res, generator=gen, device="cuda")
     with torch.no_grad():
@@ -129,7 +135,8 @@ def main(argv=None) -> dict:
                 model(x)
             torch.cuda.synchronize()
     os.makedirs(args.out, exist_ok=True)
-    trace_path = os.path.join(args.out, f"{args.arch_name}_{args.res}_bs{args.batch}.json")
+    trace_path = os.path.join(args.out,
+                              f"{args.arch_name}_{args.res}_bs{args.batch}_{args.quant}.json")
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
@@ -149,7 +156,7 @@ def main(argv=None) -> dict:
     per_fwd = ITERS * 1e3  # us -> ms per forward
     report = {
         "device": torch.cuda.get_device_name(0),
-        "arch": args.arch_name, "res": args.res, "batch": args.batch,
+        "arch": args.arch_name, "res": args.res, "batch": args.batch, "quant": args.quant,
         "host_enqueue_ms_per_forward": enqueue_ms,
         "device_drain_ms_after_enqueue": drain_ms,
         "traced_kernel_ms_per_forward": kernel_total / per_fwd,

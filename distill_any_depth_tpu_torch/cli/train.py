@@ -6,11 +6,13 @@ device: ``python -m distill_any_depth_tpu_torch.cli.train --device cuda
 (a ViT-L teacher and a ViT-B student at bs16 392^2 by default; ``--student_arch
 depthanything-base-window`` trains the windowed student, whose attention
 backward is kernel 6 at fewer than 3000 tokens, e.g. ``--image_size 518``,
-and kernel 8 above, e.g. ``--image_size 1036``). The flags of features not
-ported yet are accepted by name and refuse any value but their default:
-checkpoints (``--teacher_checkpoints``, ``--checkpoint_interval``,
-``--resume``), visualisation, the profiler, the dp/tp mesh, the int8
-teacher, image-folder data, LoRA/SSF adapters and device preprocessing.
+and kernel 8 above, e.g. ``--image_size 1036``). ``--teacher_quant int8``
+or ``int8_pallas`` runs the teachers' encoder GEMMs as dynamic W8A8 int8
+(the latter through kernel 9 on the card); the student trains unquantized.
+The flags of features not ported yet are accepted by name and refuse any
+value but their default: checkpoints (``--teacher_checkpoints``,
+``--checkpoint_interval``, ``--resume``), visualisation, the profiler, the
+dp/tp mesh, image-folder data, LoRA/SSF adapters and device preprocessing.
 """
 from __future__ import annotations
 
@@ -28,7 +30,6 @@ _NOT_PORTED = {
     "profile_dir": (None, "the profiler hook"),
     "dp": (1, "data parallelism"),
     "tp": (1, "tensor parallelism"),
-    "teacher_quant": ("none", "the int8 teacher"),
     "data_mode": ("nyu", "image-folder data"),
     "lora_rank": (0, "LoRA adapters"),
     "use_ssf": (False, "SSF adapters"),
@@ -68,6 +69,10 @@ def argument_parser() -> argparse.ArgumentParser:
     p.add_argument("--early_stopping", type=int, default=0)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--teacher_dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--teacher_quant", default="none", choices=["none", "int8", "int8_pallas"],
+                   help="int8: the teachers' encoder GEMMs as dynamic W8A8 int8 (plain "
+                        "PyTorch around torch._int_mm); int8_pallas: the same through the "
+                        "W8A8 kernel, which quantizes activations inside the kernel")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--debug", action="store_true")
     for flag, (default, what) in _NOT_PORTED.items():
@@ -123,6 +128,7 @@ def main(args=None) -> dict:
         output_dir=args.output_dir,
         dataset_dir=args.dataset_dir,
         teacher_dtype=args.teacher_dtype,
+        teacher_quant=args.teacher_quant,
     )
     return train_nyu(cfg, device=args.device)
 

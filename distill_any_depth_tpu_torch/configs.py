@@ -3,8 +3,8 @@ JAX package's configs (distill_any_depth_tpu/configs.py:14-281).
 
 Only the fields the ported paths read are kept; the presets' values and
 the defaults are identical, so a preset name or a default config means the
-same network and the same training in both packages. The TPU-only training
-fields (native loader, int8 teacher, adapters, the dp/tp mesh, remat,
+same network and the same training in both packages. The training fields
+of features not ported yet (native loader, adapters, the dp/tp mesh, remat,
 attention implementation, device preprocessing) are not fields here: the
 training CLI refuses their flags.
 """
@@ -156,6 +156,10 @@ class TrainConfig:
     output_dir: str = "output"
     dataset_dir: str = "data/nyu"
     teacher_dtype: str = "bfloat16"
+    # "int8" / "int8_pallas": the teachers' encoder GEMMs run as dynamic W8A8
+    # int8 (ops/quant; kernel 9 for "int8_pallas"). Teachers are
+    # inference-only inside the step; students always train unquantized.
+    teacher_quant: str = "none"
     # run the teacher forward as sequential chunks of this batch size (0 = off)
     teacher_chunk: int = 8
     # bf16 student compute; parameters and optimizer state stay fp32

@@ -166,16 +166,18 @@ class DepthModel(nn.Module):
     ``(depth, features)``: depth ``[B, H', W']`` (``[B, C, H', W']`` for a
     multi-channel head) ReLU'd as the reference does, and the last tap's
     tokens ``[B, N, C]``. ``fused_tail`` selects the DPT tail kernel for a
-    1-channel head (see the module docstring).
+    1-channel head (see the module docstring); ``quant`` ("none", "int8",
+    "int8_pallas") the encoder blocks' GEMMs (``models/vit``), for a model
+    that does not train.
     """
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
-                 fused_tail: bool = True):
+                 fused_tail: bool = True, quant: str = "none"):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         enc = cfg.encoder
-        self.pretrained = DinoViT(enc)
+        self.pretrained = DinoViT(enc, quant)
         self.depth_head = DPTHead(enc.embed_dim, cfg.features, cfg.out_channels,
                                   cfg.head_out_channels, cfg.use_clstoken,
                                   cfg.trailing_head_relu, enc.patch_size, fused_tail)

@@ -36,17 +36,21 @@ def create_model(
     device: str | torch.device = "cuda",
     seed: int = 0,
     fused_tail: bool = True,
+    quant: str = "none",
 ) -> DepthModel:
     """An eval-mode ``DepthModel`` with seeded random weights on ``device``.
     ``dtype`` is the compute dtype (parameters stay fp32): bf16 by default
     on a card, fp32 on the CPU. ``fused_tail=True`` (inference, teachers)
     runs a 1-channel DPT tail through its kernel; a model that trains (the
-    distillation student) passes ``False``, as the JAX package's student."""
+    distillation student) passes ``False``, as the JAX package's student.
+    ``quant="int8"`` or ``"int8_pallas"`` runs the encoder blocks' GEMMs as
+    dynamic W8A8 int8 (``ops/quant``; kernel 9 for "int8_pallas" on the
+    card): inference only, so a model that trains keeps "none"."""
     cfg = arch_name if isinstance(arch_name, ModelConfig) else model_config(arch_name)
     device = resolve_device(device)
     if dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    model = DepthModel(cfg, dtype, fused_tail)
+    model = DepthModel(cfg, dtype, fused_tail, quant)
     init_params(model, seed)
     return model.to(device).eval()
 

@@ -10,8 +10,11 @@ a state dict from ``utils/convert.params_from_jax`` loads with
 
 Parameters stay fp32; every layer casts its weights to the dtype of its
 input, as flax does with ``kernel.astype(dtype)``, so bf16 activations reach
-the attention kernels. Not ported yet: register tokens, LoRA/SSF adapters,
-int8 GEMMs, SwiGLU and ``tap_norm=False`` taps.
+the attention kernels. ``quant`` ("int8" or "int8_pallas") runs the
+blocks' qkv, proj, fc1 and fc2 as dynamic W8A8 int8 GEMMs
+(``ops/quant.QuantLinear``, inference only; the patch embedding and the PEG
+conv stay unquantized, as in the JAX package). Not ported yet: register
+tokens, LoRA/SSF adapters, SwiGLU and ``tap_norm=False`` taps.
 """
 from __future__ import annotations
 
@@ -25,14 +28,27 @@ from distill_any_depth_tpu_torch.ops.flash_attention import banded_eligible
 from distill_any_depth_tpu_torch.ops.resize import resize_matrix
 from distill_any_depth_tpu_torch.ops.window import local_window_bias
 
-__all__ = ["Linear", "LayerNorm", "Conv2d", "gelu", "PatchEmbed", "Mlp", "Attention", "Block",
-           "interp_pos_embed", "PosConv", "DinoViT"]
+__all__ = ["QUANT_MODES", "Linear", "LayerNorm", "Conv2d", "gelu", "PatchEmbed", "Mlp",
+           "Attention", "Block", "interp_pos_embed", "PosConv", "DinoViT"]
+
+QUANT_MODES = ("none", "int8", "int8_pallas")
 
 
 class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+def _linear(in_features: int, out_features: int, quant: str) -> Linear:
+    """``Linear``, or its dynamic-W8A8 drop-in when ``quant`` is "int8"
+    (the plain route) or "int8_pallas" (kernel 9); the same parameters
+    either way (the JAX package's ``_dense``)."""
+    if quant == "none":
+        return Linear(in_features, out_features)
+    from distill_any_depth_tpu_torch.ops.quant import QUANT_IMPLS, QuantLinear
+
+    return QuantLinear(in_features, out_features, impl=QUANT_IMPLS[quant])
 
 
 class LayerNorm(nn.LayerNorm):
@@ -66,21 +82,21 @@ class PatchEmbed(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, quant: str = "none"):
         super().__init__()
-        self.fc1 = Linear(dim, hidden)
-        self.fc2 = Linear(hidden, dim)
+        self.fc1 = _linear(dim, hidden, quant)
+        self.fc2 = _linear(hidden, dim, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu(self.fc1(x)))
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, quant: str = "none"):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = Linear(dim, 3 * dim)
-        self.proj = Linear(dim, dim)
+        self.qkv = _linear(dim, 3 * dim, quant)
+        self.proj = _linear(dim, dim, quant)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor | None = None,
                 band: tuple[int, int] | None = None) -> torch.Tensor:
@@ -100,13 +116,14 @@ class LayerScale(nn.Module):
 class Block(nn.Module):
     """Pre-norm transformer block with LayerScale (eval path)."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, init_values: float | None):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, init_values: float | None,
+                 quant: str = "none"):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads)
+        self.attn = Attention(dim, num_heads, quant)
         self.ls1 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
         self.norm2 = LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), quant)
         self.ls2 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor | None = None,
@@ -153,11 +170,14 @@ class DinoViT(nn.Module):
     for each index in ``cfg.out_indices`` the final-normed patch tokens
     ``[B, N, C]`` and the cls token ``[B, C]``. The windowed variant
     (``cfg.final_taps``) returns the final post-norm tokens four times, its
-    "cls token" being patch token 0 (it has no cls token).
+    "cls token" being patch token 0 (it has no cls token). ``quant``
+    selects the blocks' GEMMs (see the module docstring).
     """
 
-    def __init__(self, cfg: EncoderConfig):
+    def __init__(self, cfg: EncoderConfig, quant: str = "none"):
         super().__init__()
+        if quant not in QUANT_MODES:
+            raise ValueError(f"quant must be one of {QUANT_MODES}, not {quant!r}")
         self.cfg = cfg
         d = cfg.embed_dim
         n_base = (cfg.base_img_size // cfg.patch_size) ** 2
@@ -167,7 +187,8 @@ class DinoViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, n_base + n_cls, d))
         self.pos_conv = PosConv(d) if cfg.use_pos_conv else None
         self.blocks = nn.ModuleList(
-            Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.init_values) for _ in range(cfg.depth)
+            Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.init_values, quant)
+            for _ in range(cfg.depth)
         )
         self.norm = LayerNorm(d, eps=1e-6)
         self._pe_mats: dict = {}  # (gh, gw, device) -> pos-embed resampling matrices

@@ -32,6 +32,7 @@ SOURCES = {
     "flash_attention_banded_bwd": "flash_attention_banded_bwd.cu",
     "dpt_tail": "dpt_tail.cu",
     "kth_select": "kth_select.cu",
+    "w8a8_matmul": "w8a8_matmul.cu",
 }
 
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # used when nvcc is not on PATH

@@ -4,9 +4,11 @@ Counterpart of distill_any_depth_tpu/train/loop.py (``Trainer.__init__``,
 ``run``, ``validate``, ``train_nyu``): epochs, ``max_steps``, the history,
 log lines, validation, early stopping and ``history.json``. The loss stays
 on the device between log steps (a host read every step would stall the
-queue of launches). Not ported yet: checkpoints (best, final, periodic and
-emergency saves, resume), visualisation, the profiler hook, the device mesh,
-adapters, the native loader and the image-folder mode.
+queue of launches). ``cfg.teacher_quant`` builds the teachers with int8
+encoder GEMMs (``ops/quant``), as the JAX Trainer does. Not ported yet:
+checkpoints (best, final, periodic and emergency saves, resume),
+visualisation, the profiler hook, the device mesh, adapters, the native
+loader and the image-folder mode.
 """
 from __future__ import annotations
 
@@ -36,7 +38,8 @@ class Trainer:
     epochs. Weights are seeded random (student ``cfg.seed``, teacher i
     ``100 + i``). The student runs the plain DPT tail, the JAX package's
     student configuration (its weights train); the teachers, without
-    gradient, run the tail kernel."""
+    gradient, run the tail kernel and, with ``cfg.teacher_quant``, int8
+    encoder GEMMs."""
 
     def __init__(self, cfg: TrainConfig, device: str | torch.device = "cuda"):
         self.cfg = cfg
@@ -47,7 +50,7 @@ class Trainer:
         for i, name in enumerate(cfg.teachers):
             logger.warning("teacher %s: no checkpoint loader yet, random init", name)
             teacher = create_model(model_config(name), dtype=getattr(torch, cfg.teacher_dtype),
-                                   device=self.device, seed=100 + i)
+                                   device=self.device, seed=100 + i, quant=cfg.teacher_quant)
             self.teachers.append(teacher.requires_grad_(False))
         self.state = create_train_state(self.student, cfg.optimizer)
         self.teacher_gen = torch.Generator().manual_seed(cfg.seed)

@@ -14,6 +14,7 @@ from distill_any_depth_tpu.models.factory import create_model as jax_create_mode
 from distill_any_depth_tpu.utils.torch_interop import params_to_torch
 from distill_any_depth_tpu_torch.configs import MODELS
 from distill_any_depth_tpu_torch.models.factory import create_model
+from distill_any_depth_tpu_torch.ops.quant import QuantLinear
 from distill_any_depth_tpu_torch.utils.convert import params_from_jax
 
 
@@ -50,6 +51,26 @@ def test_params_from_jax_matches_params_to_torch(arch, head):
     assert not missing and not unexpected
     for key, value in model.state_dict().items():
         np.testing.assert_array_equal(value.numpy(), want[key], err_msg=key)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8_pallas"])
+def test_params_from_jax_serves_quantized_models(quant):
+    """``QuantDense`` declares ``nn.Dense``'s params, so ``params_from_jax``
+    needs nothing new: a JAX int8 model's params map to the same state dict
+    as the unquantized model's, which the port's int8 model loads with
+    ``strict=True``."""
+    jcfg, tcfg = _tiny(JAX_MODELS, "depthanything-large"), _tiny(MODELS, "depthanything-large")
+    want = params_from_jax(_jax_params(jax_create_model(jcfg), 56), tcfg)
+    got = params_from_jax(_jax_params(jax_create_model(jcfg, quant=quant), 56), tcfg)
+    assert sorted(got) == sorted(want)
+    for key, arr in want.items():
+        np.testing.assert_array_equal(got[key].numpy(), arr.numpy(), err_msg=key)
+    model = create_model(tcfg, device="cpu", quant=quant)
+    missing, unexpected = model.load_state_dict(got, strict=True)
+    assert not missing and not unexpected
+    block = model.pretrained.blocks[0]
+    assert all(isinstance(m, QuantLinear) for m in (block.attn.qkv, block.attn.proj,
+                                                    block.mlp.fc1, block.mlp.fc2))
 
 
 def test_unknown_param_raises():

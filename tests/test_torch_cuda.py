@@ -10,7 +10,9 @@ and their backwards: max |err| / (1 + |ref|); tail: max |err| / max
 and 8) are held against their plain versions on the same forward output
 and log-sum-exp, where the two round at the same places (bf16 differs by
 the flips of those roundings), and, through autograd, against autograd of
-the plain forward.
+the plain forward. The W8A8 GEMM (kernel 9) equals its plain version bit
+for bit: the same true divisions, an exact integer product, the same
+roundings in the dequant.
 """
 import dataclasses
 
@@ -37,6 +39,8 @@ from distill_any_depth_tpu_torch.ops.flash_attention import (
 )
 from distill_any_depth_tpu_torch.ops.window import local_window_bias, segment_bias
 from distill_any_depth_tpu_torch.ops.stats import _order_bits, kth_select, kth_select_reference
+from distill_any_depth_tpu_torch.ops.quant import quantize_weight
+from distill_any_depth_tpu_torch.ops.quant_matmul import w8a8_matmul, w8a8_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -318,3 +322,55 @@ def test_windowed_model_runs_masked_kernels(cuda_device, monkeypatch, res, kerne
     assert ran == ([0, 2, 0, 0, 0, 2, 0] if kernel == "bias" else [0, 0, 2, 0, 0, 0, 2])
     qkv = student.pretrained.blocks[0].attn.qkv.weight.grad
     assert qkv is not None and torch.isfinite(qkv).all() and qkv.abs().max() > 0
+
+
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1, 96, 200), (100, 96, 200), (300, 768, 2304),
+                                   (130, 4096, 1024)])
+def test_w8a8_kernel_matches_plain(cuda_device, m, k, n, dtype, with_bias):
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    x = (torch.randn(m, k, generator=gen, device=cuda_device) * 3).to(dtype)
+    x[0, :6] = torch.tensor([127.0, 0.5, -0.5, 2.5, -3.5, 1.5])  # scale 1: exact ties
+    if m > 1:
+        x[1] = 0  # an all-zero row
+    weight = torch.randn(n, k, generator=gen, device=cuda_device) * k ** -0.5
+    bias = torch.randn(n, generator=gen, device=cuda_device) if with_bias else None
+    before = w8a8_matmul.launches
+    got = w8a8_matmul(x, weight, bias)
+    assert w8a8_matmul.launches == before + 1
+    wq, ws = quantize_weight(weight)
+    ref = w8a8_reference(x, wq, ws, bias, dtype)
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(got, ref)
+
+
+def test_w8a8_kernel_refuses(cuda_device):
+    x = torch.randn(4, 100, device=cuda_device)
+    w = torch.randn(32, 100, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        w8a8_matmul(x, w)
+    with pytest.raises(TypeError):
+        w8a8_matmul(x[:, :96].half(), w[:, :96])
+    with pytest.raises(RuntimeError, match="forward-only"):
+        w8a8_matmul(x[:, :96], w[:, :96].requires_grad_())
+
+
+def test_quant_model_runs_w8a8_kernel(cuda_device):
+    """A tiny int8_pallas model in bf16 runs kernel 9 four times per block,
+    and its depth correlates with the unquantized model's."""
+    cfg = model_config("depthanything-base")
+    enc = dataclasses.replace(cfg.encoder, embed_dim=128, depth=2, num_heads=2,
+                              out_indices=(0, 0, 1, 1))
+    cfg = dataclasses.replace(cfg, encoder=enc, features=64, out_channels=(32, 64, 96, 128))
+    model = create_model(cfg, dtype=torch.bfloat16, device=cuda_device, quant="int8_pallas")
+    plain = create_model(cfg, dtype=torch.bfloat16, device=cuda_device)
+    x = torch.rand(2, 3, 98, 98, device=cuda_device)
+    before = w8a8_matmul.launches
+    with torch.no_grad():
+        depth, _ = model(x)
+        ref, _ = plain(x)
+    assert w8a8_matmul.launches - before == 8
+    assert torch.isfinite(depth).all()
+    corr = torch.corrcoef(torch.stack([depth.float().flatten(), ref.float().flatten()]))[0, 1]
+    assert corr > 0.99

@@ -26,7 +26,7 @@ def _imported_modules(path: Path) -> list[str]:
 def test_sources_found():
     assert len(SOURCES) > 10
     for source in ("flash_attention.cu", "flash_attention_bwd.cu", "dpt_tail.cu",
-                   "kth_select.cu", "attention_tiles.cuh"):
+                   "kth_select.cu", "w8a8_matmul.cu", "attention_tiles.cuh"):
         assert (PORT / "csrc" / source).exists(), source
 
 

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 from distill_any_depth_tpu.ops import resize as jresize
 from distill_any_depth_tpu.ops.attention import mha_reference
+from distill_any_depth_tpu.ops.dpt_tail import fused_dpt_tail as jax_fused_dpt_tail_v1
 from distill_any_depth_tpu.ops.dpt_tail import fused_dpt_tail_v2
 from distill_any_depth_tpu.ops.dpt_tail import tail_reference as jax_tail_reference
 from distill_any_depth_tpu.ops.flash_attention import mha_flash_packed as jax_mha_flash_packed
@@ -128,6 +129,24 @@ def test_tail_matches_jax(ht, wt, ci, cm, oh, ow, trailing):
         fused_dpt_tail(torch.from_numpy(t), (oh, ow), trailing_relu=trailing, **tp).numpy(),
         got.numpy())
     assert fused_dpt_tail.launches == before
+
+
+def test_v1_tail_served_by_kernel_2_entry():
+    """TPU kernel 10, the v1 tail ``fused_dpt_tail`` (superseded by v2, the
+    same function and contract), has no kernel of its own in the port: the
+    port's ``fused_dpt_tail`` serves it (kernel 2 on the card, the plain
+    version on the CPU). Held against the JAX v1 kernel in interpret mode
+    at the first shape of ``tests/test_dpt_tail.py``, fp32."""
+    ht, wt, ci, cm, oh, ow, trailing = 8, 8, 128, 64, 28, 28, True
+    rng = np.random.RandomState(1)
+    p = {k: v.astype(np.float32) for k, v in _tail_params(rng, ci, cm).items()}
+    t = (rng.randn(2, ht, wt, ci) * 0.5).astype(np.float32)
+    want = jax_fused_dpt_tail_v1(jnp.asarray(t), (oh, ow), trailing_relu=trailing,
+                                 interpret=True, **{k: jnp.asarray(v) for k, v in p.items()})
+    got = fused_dpt_tail(torch.from_numpy(t), (oh, ow), trailing_relu=trailing,
+                         **{k: torch.from_numpy(v) for k, v in p.items()})
+    assert got.shape == (2, oh, ow)
+    _close(got.numpy(), want, TAIL_TOL)
 
 
 def test_cpu_wrappers_count_no_launch():

@@ -12,9 +12,13 @@
   ``test_train_trajectory_matches_jax``).
 - The optimizer (clip, guard, L2 decay, Adam, schedule) against optax on
   a gradient sequence with a non-finite step.
+- The same trajectory with an int8 teacher (``teacher_quant="int8"``)
+  against the JAX step with ``create_model(quant="int8")``, and the
+  teacher-free loss components of an int8-teacher step equal to those of
+  the unquantized-teacher step.
 - ``cli.train`` over ``data/smoke`` for 2 steps, with the ViT-B and the
-  windowed student, and its refusal of the flags of features not ported
-  yet.
+  windowed student and with ``--teacher_quant int8_pallas``, and its
+  refusal of the flags of features not ported yet.
 """
 import dataclasses
 import json
@@ -61,12 +65,12 @@ def _tiny(models, role: str):
                                **extra)
 
 
-def _pair(role: str, seed: int):
+def _pair(role: str, seed: int, quant: str = "none"):
     jcfg, tcfg = _tiny(JAX_MODELS, role), _tiny(MODELS, role)
-    jmodel = jax_create_model(jcfg, attn_impl="reference")
+    jmodel = jax_create_model(jcfg, attn_impl="reference", quant=quant)
     params = jax.jit(jmodel.init)(jax.random.PRNGKey(seed), jnp.zeros((1, SIZE, SIZE, 3)))
     params = jax.tree_util.tree_map(np.asarray, params["params"])
-    model = create_model(tcfg, device="cpu", fused_tail=False)
+    model = create_model(tcfg, device="cpu", fused_tail=False, quant=quant)
     model.load_state_dict(params_from_jax(params, tcfg), strict=True)
     return jmodel, params, model
 
@@ -93,8 +97,15 @@ def test_train_trajectory_matches_jax(views_shared):
     the parameters by about its learning rate: Adam moves an element by
     up to about lr, and the mean move read 0.64-0.80 lr; the limits are
     0.2 lr and lr (and no move at step 0, whose warmup lr is 0)."""
+    _trajectory(views_shared, "none", LOSS_RTOL, GRAD_NORM_RTOL, PARAM_MEAN_DIST)
+
+
+def _trajectory(views_shared: bool, teacher_quant: str, loss_rtol: float, grad_norm_rtol: float,
+                param_mean_dist: float) -> None:
+    """``test_train_trajectory_matches_jax``'s steps with the teacher built
+    with ``teacher_quant`` on both sides."""
     jstudent, sp, student = _pair("student", 0)
-    jteacher, tp, teacher = _pair("teacher", 1)
+    jteacher, tp, teacher = _pair("teacher", 1, teacher_quant)
     teacher.requires_grad_(False)
     opt = dict(lr=LR, weight_decay=1e-5, warmup_steps=1, schedule="cosine", total_steps=10,
                max_grad_norm=1.0)
@@ -125,17 +136,54 @@ def test_train_trajectory_matches_jax(views_shared):
         if not views_shared:
             assert float(mj["lg"]) > 1e-3  # a non-vacuous LG component
         for key in ("sc", "lg", "feat", "grad", "hdn", "total"):
-            np.testing.assert_allclose(float(mt[key]), float(mj[key]), rtol=LOSS_RTOL,
+            np.testing.assert_allclose(float(mt[key]), float(mj[key]), rtol=loss_rtol,
                                        atol=1e-7, err_msg=f"step {i} loss {key}")
         np.testing.assert_allclose(float(mt["grad_norm"]), float(mj["grad_norm"]),
-                                   rtol=GRAD_NORM_RTOL, err_msg=f"step {i} gradient norm")
+                                   rtol=grad_norm_rtol, err_msg=f"step {i} gradient norm")
         after = _student_flat(student)
         lr, moved = float(schedule(i)), np.mean(np.abs(after - before))
         assert (moved == 0.0) if lr == 0 else (0.2 * lr < moved < lr), (i, lr, moved)
         before = after
     theirs = _flat(jax.tree_util.tree_map(np.asarray, state_j.params), _tiny(MODELS, "student"))
-    assert np.mean(np.abs(before - theirs)) < PARAM_MEAN_DIST
+    assert np.mean(np.abs(before - theirs)) < param_mean_dist
     assert int(state_t.step) == STEPS and int(state_t.applied) == STEPS
+
+
+def test_int8_teacher_trajectory_matches_jax():
+    """The 3-step trajectory with an int8 teacher on both sides (shared
+    views, the teacher in chunks of 2). The teacher's activations differ
+    by an ulp between the frameworks as in the unquantized trajectory, and
+    about 1 in 10^5 of its int8 values then sits on the other side of a
+    round-half-even tie: each such flip moves a GEMM output by one scale
+    step, and the teacher's features (about 1.3e-2 apart at step 2) and the
+    teacher-fed losses follow. Readings: loss components 1.5e-4 relative
+    (feat, step 2), gradient norm 1.3e-5, final parameters 2.5e-8 mean
+    distance; the limits are about 3x those."""
+    _trajectory(True, "int8", 5e-4, 5e-5, 8e-8)
+
+
+def test_int8_teacher_leaves_teacher_free_components():
+    """As ``tests/test_quant.py``: an int8-teacher step against an
+    unquantized-teacher step from the same student and batch. The
+    teacher-free components (lg, grad) are equal; the others move by less
+    than the JAX package's documented 2% pseudo-label shift."""
+    _, _, teacher = _pair("teacher", 1)
+    _, _, qteacher = _pair("teacher", 1, "int8")
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, 3, SIZE, SIZE).astype(np.float32))
+    metrics = []
+    for t in (qteacher, teacher):
+        _, _, student = _pair("student", 0)
+        state = create_train_state(student, OptimizerConfig(lr=1e-4, warmup_steps=0,
+                                                            schedule="none", total_steps=10))
+        step = make_train_step(student, [t.requires_grad_(False)],
+                               LossConfig(use_hdn=True, hdn_variant="dr"))
+        metrics.append({k: float(v) for k, v in step(state, 0, x, x).items()})
+    quant, plain = metrics
+    assert np.isfinite(quant["total"])
+    for key in ("total", "sc", "hdn", "feat"):
+        assert abs(quant[key] - plain[key]) / (abs(plain[key]) + 1e-9) < 0.02, key
+    for key in ("lg", "grad"):
+        assert quant[key] == plain[key], key
 
 
 @pytest.mark.parametrize("schedule,warmup", [("cosine", 0), ("cosine", 2), ("step", 0),
@@ -191,12 +239,25 @@ def test_cli_trains_on_smoke_data(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--resume", "run"], ["--lora_rank", "4"],
-                                  ["--teacher_quant", "int8"], ["--data_mode", "images"],
-                                  ["--checkpoint_interval", "10"], ["--device_preprocess"]],
+                                  ["--data_mode", "images"], ["--checkpoint_interval", "10"],
+                                  ["--device_preprocess"]],
                          ids=lambda f: f[0])
 def test_cli_refuses_features_not_ported(flag, tmp_path):
     with pytest.raises(NotImplementedError, match=flag[0]):
         train_cli.main(["--output_dir", str(tmp_path), *flag])
+
+
+def test_cli_trains_with_int8_teacher_on_smoke_data(tmp_path, monkeypatch):
+    """``--teacher_quant int8_pallas``: the teacher's encoder GEMMs through
+    the W8A8 wrapper (its plain version on the CPU; kernel 9 on the card)."""
+    monkeypatch.chdir(ROOT)
+    history = train_cli.main([
+        "--device", "cpu", "--dataset_dir", "data/smoke", "--output_dir", str(tmp_path),
+        "--student_arch", "depthanything-small", "--teacher_models", "depthanything-small",
+        "--batch_size", "2", "--num_iterations", "2", "--image_size", "56", "--use_hdn_loss",
+        "--teacher_dtype", "float32", "--teacher_quant", "int8_pallas", "--log_interval", "1",
+    ])
+    assert len(history["lr"]) == 2 and np.isfinite(history["train_loss"]).all()
 
 
 def test_cli_trains_windowed_student_on_smoke_data(tmp_path, monkeypatch):
