@@ -8,7 +8,8 @@ Phases, each of which fails the run if it fails:
 1. build every CUDA kernel from ``distill_any_depth_tpu_torch/csrc``;
 2. hold the packed attention kernel (kernel 1) and its backward (kernel 3)
    against their plain versions (autograd of the plain attention for the
-   backward);
+   backward), across the tile edges (N = 128, 129), and kernel 3 against
+   itself: two calls give d(qkv) equal bit for bit;
 3. hold the DPT-head tail kernel (kernel 2) against its plain version;
 4. hold the order-statistic select (kernel 4) against its plain version,
    bit for bit;
@@ -58,7 +59,9 @@ Phases, each of which fails the run if it fails:
    3 ``Trainer`` steps at bs16 392^2 with kernel 9's launches per step,
    then two steps of ``cli.train --teacher_quant int8_pallas``;
 16. time each kernel, its plain version and its PyTorch library yardstick
-   with CUDA events (kernel 9 also beside bf16 ``F.linear``), the
+   with CUDA events (kernels 1 and 3 and their SDPA yardsticks also by the
+   profiler's device time, with the SDPA backend's kernel names; kernel 9
+   also beside bf16 ``F.linear``), the
    end-to-end forwards (the ViT-L 518^2 forward with each quant mode) and
    the bs16 train steps (bf16 and int8 teacher).
 
@@ -92,6 +95,7 @@ from distill_any_depth_tpu_torch.ops.dpt_tail import fused_dpt_tail, tail_refere
 from distill_any_depth_tpu_torch.ops.flash_attention import (  # noqa: E402
     _banded_forward,
     _bias_forward,
+    _forward,
     banded_attention_backward,
     banded_attention_backward_reference,
     banded_eligible,
@@ -223,6 +227,23 @@ def bound(flops: float, nbytes: float, rate: float = PEAK_BF16_FLOPS) -> tuple[f
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def device_ms(fn, iters: int = 20) -> tuple[float, list[str]]:
+    """Device time (ms) per call of ``fn`` from the profiler's CUDA trace
+    (the sum of the self times of the kernels and memsets it launched, over
+    ``iters`` calls), and their names: the host's enqueue time, which event
+    times of back-to-back calls include where the host sets the pace, is
+    left out."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in events) / iters / 1e3,
+            sorted(e.key for e in events))
+
+
 # ---------------------------------------------------------------- phase 1
 def phase_build() -> None:
     t0 = time.time()
@@ -307,12 +328,30 @@ def phase_attention(gen) -> float:
     err = attention_case("slice shape", 8, 785, 12, torch.bfloat16, BF16_ATTN_TOL, gen)
     attention_case("teacher shape", 8, 785, 16, torch.bfloat16, BF16_ATTN_TOL, gen)
     attention_case("ragged N", 2, 197, 12, torch.bfloat16, BF16_ATTN_TOL, gen)
+    # the bf16 forward's 128-row q tiles and 128-key stages: one full tile,
+    # and one more row and key
+    attention_case("N = 128", 2, 128, 12, torch.bfloat16, BF16_ATTN_TOL, gen)
+    attention_case("N = 129", 2, 129, 12, torch.bfloat16, BF16_ATTN_TOL, gen)
     # fp32: only the summation order differs
     attention_case("fp32", 2, 197, 12, torch.float32, 1e-5, gen)
     attention_case("logits < -60 fp32", 2, 197, 4, torch.float32, 1e-5, gen, negative=True)
     attention_case("logits < -60 bf16", 2, 197, 4, torch.bfloat16, BF16_ATTN_TOL, gen,
                    negative=True)
     return err
+
+
+def attention_determinism(gen) -> None:
+    """Kernel 3 writes every gradient once, without atomics: two calls on the
+    same inputs at the student's training shape give d(qkv) equal bit for
+    bit."""
+    b, n, h = TRAIN_BATCH, 785, 12
+    qkv = attention_inputs(b, n, h, torch.bfloat16, gen)
+    g = torch.randn(b, n, h * 64, generator=gen, device="cuda").to(torch.bfloat16)
+    out, lse = _forward(qkv, h, with_lse=True)
+    first = packed_attention_backward(qkv, out, lse, g, h)
+    same = torch.equal(first, packed_attention_backward(qkv, out, lse, g, h))
+    log(f"[attention grad] determinism: B={b} N={n} H={h} bf16, two calls bit-equal: {same}")
+    check(same, "attention backward: two calls on the same inputs differ")
 
 
 def phase_attention_grad(gen) -> float:
@@ -323,6 +362,9 @@ def phase_attention_grad(gen) -> float:
     err = attention_grad_case("slice shape", TRAIN_BATCH, 785, 12, torch.bfloat16,
                               BF16_GRAD_TOL, gen)
     attention_grad_case("ragged N", 2, 197, 12, torch.bfloat16, BF16_GRAD_TOL, gen)
+    attention_grad_case("N = 128", 2, 128, 12, torch.bfloat16, BF16_GRAD_TOL, gen)
+    attention_grad_case("N = 129", 2, 129, 12, torch.bfloat16, BF16_GRAD_TOL, gen)
+    attention_determinism(gen)
     # fp32: summation order only (readings 5.7e-7, and 7.0e-6 below -60)
     attention_grad_case("fp32", 2, 197, 12, torch.float32, 1e-5, gen)
     attention_grad_case("logits < -60 fp32", 2, 197, 4, torch.float32, 2e-5, gen,
@@ -534,6 +576,23 @@ def phase_window_attention(gen) -> tuple[float, float]:
         banded_case("edge grid", 2, gh, gw, window, 4, bf16, BF16_ATTN_TOL, gen)
         banded_case("edge grid", 2, gh, gw, window, 4, f32, 1e-5, gen)
     return err5, err7
+
+
+def device_ms(fn, iters: int = 20) -> tuple[float, list[str]]:
+    """Device time (ms) per call of ``fn`` from the profiler's CUDA trace
+    (the sum of the self times of the kernels and memsets it launched, over
+    ``iters`` calls), and their names: the host's enqueue time, which event
+    times of back-to-back calls include where the host sets the pace, is
+    left out."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in events) / iters / 1e3,
+            sorted(e.key for e in events))
 
 
 # ---------------------------------------------------------------- phase 10
@@ -854,6 +913,23 @@ def phase_window_path(images) -> tuple[torch.nn.Module, dict]:
     return model, counts
 
 
+def device_ms(fn, iters: int = 20) -> tuple[float, list[str]]:
+    """Device time (ms) per call of ``fn`` from the profiler's CUDA trace
+    (the sum of the self times of the kernels and memsets it launched, over
+    ``iters`` calls), and their names: the host's enqueue time, which event
+    times of back-to-back calls include where the host sets the pace, is
+    left out."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in events) / iters / 1e3,
+            sorted(e.key for e in events))
+
+
 # ---------------------------------------------------------------- phase 11
 def expected_window_step_counts(res: int, batch: int, chunk: int = 8) -> dict:
     """Per step of the windowed student under the ViT-L teacher: kernel 1 in
@@ -951,6 +1027,23 @@ def phase_window_train() -> dict:
     return results
 
 
+def device_ms(fn, iters: int = 20) -> tuple[float, list[str]]:
+    """Device time (ms) per call of ``fn`` from the profiler's CUDA trace
+    (the sum of the self times of the kernels and memsets it launched, over
+    ``iters`` calls), and their names: the host's enqueue time, which event
+    times of back-to-back calls include where the host sets the pace, is
+    left out."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in events) / iters / 1e3,
+            sorted(e.key for e in events))
+
+
 # ---------------------------------------------------------------- phase 12
 def step_vs_cpu(tag: str, cfg: TrainConfig, x: np.ndarray, tol: dict, want=None) -> dict:
     """One fp32 step of ``cfg`` on the card (kernels on their fp32 paths, no
@@ -1026,6 +1119,23 @@ def phase_window_train_vs_cpu() -> dict:
     return readings
 
 
+def device_ms(fn, iters: int = 20) -> tuple[float, list[str]]:
+    """Device time (ms) per call of ``fn`` from the profiler's CUDA trace
+    (the sum of the self times of the kernels and memsets it launched, over
+    ``iters`` calls), and their names: the host's enqueue time, which event
+    times of back-to-back calls include where the host sets the pace, is
+    left out."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in events) / iters / 1e3,
+            sorted(e.key for e in events))
+
+
 # ---------------------------------------------------------------- phase 13
 def w8a8_inputs(m, k, n, dtype, gen, with_bias=True):
     """x ``[M, K]`` whose row 0 has amax 127 (scale exactly 1) and holds the
@@ -1077,6 +1187,23 @@ def phase_w8a8(gen) -> float:
             for with_bias in (True, False):
                 w8a8_case("edge", m, 96, 200, dtype, with_bias, gen)
     return err
+
+
+def device_ms(fn, iters: int = 20) -> tuple[float, list[str]]:
+    """Device time (ms) per call of ``fn`` from the profiler's CUDA trace
+    (the sum of the self times of the kernels and memsets it launched, over
+    ``iters`` calls), and their names: the host's enqueue time, which event
+    times of back-to-back calls include where the host sets the pace, is
+    left out."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in events) / iters / 1e3,
+            sorted(e.key for e in events))
 
 
 # ---------------------------------------------------------------- phase 14
@@ -1154,6 +1281,23 @@ def phase_pseudo_label():
     return model, plain, counts, ims
 
 
+def device_ms(fn, iters: int = 20) -> tuple[float, list[str]]:
+    """Device time (ms) per call of ``fn`` from the profiler's CUDA trace
+    (the sum of the self times of the kernels and memsets it launched, over
+    ``iters`` calls), and their names: the host's enqueue time, which event
+    times of back-to-back calls include where the host sets the pace, is
+    left out."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in events) / iters / 1e3,
+            sorted(e.key for e in events))
+
+
 # ---------------------------------------------------------------- phase 16
 def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts,
                  wtrain, qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, gen) -> None:
@@ -1176,41 +1320,42 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
                         "bound_by": b_by, "library_ms": lib, "launches_by_path": by_path,
                         **extra})
 
-    # kernel 1 at the inference shape (ViT-B bs8) and at the teacher's (ViT-L bs8 chunk)
+    # kernel 1 at the inference shape (ViT-B bs8), at the teacher's (ViT-L bs8
+    # chunk) and at the ViT-L teacher's N at 1036^2 (the windowed student's
+    # path 4), each beside SDPA on the same q, k, v; event times of
+    # back-to-back calls and the profiler's device times
     n, d = (RES // 14) ** 2 + 1, 64
-    attn = {}
-    for tag, b, h in (("student", BATCH, 12), ("teacher", 8, 16)):
-        c = h * d
-        qkv = torch.randn(b, n, 3 * c, generator=gen, device="cuda").to(torch.bfloat16)
-        q, k, v = (x.contiguous() for x in qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4))
-        attn[tag] = dict(
-            ms=cuda_ms(lambda: mha_flash_packed(qkv, h), iters=50),
-            plain=cuda_ms(lambda: mha_packed_reference(qkv, h)),
-            lib=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50),
-            bound=bound(4.0 * b * h * n * n * d, 4 * b * n * c * 2))
-    # and at the ViT-L teacher's N at 1036^2 (the windowed student's path 4):
-    # its time in the bs8 chunk, its error at bs1 (the plain version's fp32
-    # scores at bs8 would take 15 GB)
     n1036 = (WINDOW_RES[1] // 14) ** 2 + 1
-    qkv = torch.randn(8, n1036, 3 * 1024, generator=gen, device="cuda").to(torch.bfloat16)
-    t1036 = cuda_ms(lambda: mha_flash_packed(qkv, 16), iters=10)
-    err1036 = reading_of(mha_flash_packed(qkv[:1], 16), mha_packed_reference(qkv[:1], 16))
-    log(f"[timing] kernel 1 at the teacher's 1036^2 shape (B=8, N={n1036}, H=16): "
-        f"{t1036:.4f} ms; max|err|/(1+|ref|) at B=1 {err1036:.3e} (tol {BF16_ATTN_TOL})")
-    check(err1036 <= BF16_ATTN_TOL, "kernel 1 at N = 5477 outside tolerance")
-    del qkv
+    attn = {}
+    for tag, b, nn, h in (("student", BATCH, n, 12), ("teacher", 8, n, 16),
+                          ("teacher_1036", 8, n1036, 16)):
+        c = h * d
+        qkv = torch.randn(b, nn, 3 * c, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = (x.contiguous() for x in qkv.view(b, nn, 3, h, d).permute(2, 0, 3, 1, 4))
+        iters = 50 if nn == n else 10
+        lib_dev, lib_kernels = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        attn[tag] = dict(
+            B=b, N=nn, H=h, ms=cuda_ms(lambda: mha_flash_packed(qkv, h), iters=iters),
+            device_ms=device_ms(lambda: mha_flash_packed(qkv, h))[0],
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=iters),
+            library_device_ms=lib_dev, library_kernels=lib_kernels,
+            bound_ms=bound(4.0 * b * h * nn * nn * d, 4 * b * nn * c * 2)[0])
+        if nn == n:
+            attn[tag]["plain_ms"] = cuda_ms(lambda: mha_packed_reference(qkv, h))
+        else:
+            # its error at bs1: the plain version's fp32 scores at bs8 would take 15 GB
+            attn[tag]["max_err_b1"] = reading_of(mha_flash_packed(qkv[:1], h),
+                                                 mha_packed_reference(qkv[:1], h))
+            check(attn[tag]["max_err_b1"] <= BF16_ATTN_TOL, "kernel 1 at N = 5477 outside tolerance")
+        log(f"[timing] kernel 1 {tag}: {json.dumps(attn[tag])}")
+        del qkv, q, k, v
     a = attn["student"]
     entry("packed_attention_fwd", "attention", "flash_attention.cu",
-          "ops/flash_attention.py:537", errs["attention"], a["ms"], a["plain"], a["lib"],
-          4.0 * BATCH * 12 * n * n * d, 4 * BATCH * n * 12 * d * 2,
-          teacher_shape={"B": 8, "N": n, "H": 16, "ms": attn["teacher"]["ms"],
-                         "plain_ms": attn["teacher"]["plain"],
-                         "library_ms": attn["teacher"]["lib"],
-                         "bound_ms": attn["teacher"]["bound"][0]},
-          teacher_1036_shape={"B": 8, "N": n1036, "H": 16, "ms": t1036,
-                              "bound_ms": bound(4.0 * 8 * 16 * n1036 ** 2 * d,
-                                                4 * 8 * n1036 * 1024 * 2)[0],
-                              "max_err_b1": err1036})
+          "ops/flash_attention.py:537", errs["attention"], a["ms"], a["plain_ms"],
+          a["library_ms"], 4.0 * BATCH * 12 * n * n * d, 4 * BATCH * n * 12 * d * 2,
+          device_ms=a["device_ms"], library_device_ms=a["library_device_ms"],
+          library_kernels=a["library_kernels"], teacher_shape=attn["teacher"],
+          teacher_1036_shape=attn["teacher_1036"])
 
     # kernel 2 at the inference shape
     t, w = tail_inputs(BATCH, RES // 14 * 4, RES // 14 * 4, 128, torch.bfloat16, gen)
@@ -1232,8 +1377,6 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
     c = h * d
     qkv = torch.randn(b, n, 3 * c, generator=gen, device="cuda").to(torch.bfloat16)
     g = torch.randn(b, n, c, generator=gen, device="cuda").to(torch.bfloat16)
-    from distill_any_depth_tpu_torch.ops.flash_attention import _forward
-
     out, lse = _forward(qkv, h, with_lse=True)
     xr = qkv.clone().requires_grad_()
     out_ref = mha_packed_reference(xr, h)
@@ -1241,15 +1384,22 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
     q, k, v = (x.detach().contiguous().requires_grad_()
                for x in qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4))
     go = g.view(b, n, h, d).transpose(1, 2).contiguous()
-    sdpa_fb = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(q, k, v),
-                                                  (q, k, v), go), iters=50)
+    def sdpa_fb():
+        return torch.autograd.grad(F.scaled_dot_product_attention(q, k, v), (q, k, v), go)
+
+    sdpa_fb_ms = cuda_ms(sdpa_fb, iters=50)
+    fb_dev, fb_kernels = device_ms(sdpa_fb)
     with torch.no_grad():
-        sdpa_f = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50)
+        sdpa_f_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50)
+        f_dev = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))[0]
     entry("packed_attention_bwd", "attention_bwd", "flash_attention_bwd.cu",
           "ops/flash_attention.py:731", errs["attention_bwd"],
           cuda_ms(lambda: packed_attention_backward(qkv, out, lse, g, h), iters=50), plain,
-          sdpa_fb - sdpa_f, 10.0 * b * h * n * n * d, (3 * c + c + c + 3 * c) * b * n * 2,
-          launches=train_counts["attention_bwd"])
+          sdpa_fb_ms - sdpa_f_ms, 10.0 * b * h * n * n * d, (3 * c + c + c + 3 * c) * b * n * 2,
+          launches=train_counts["attention_bwd"],
+          device_ms=device_ms(lambda: packed_attention_backward(qkv, out, lse, g, h))[0],
+          library_device_ms=fb_dev - f_dev, library_kernels=fb_kernels,
+          library_note="SDPA forward + backward less forward (events and device times)")
 
     # kernel 4 at the HDN loss's shape
     u, kk = select_inputs(gen)

@@ -95,19 +95,6 @@ def predict(model, images_u8: Sequence[np.ndarray], processing_res: int,
     return _forward_batches(model, xs, max(batch_size, 1))
 
 
-def _load_checkpoint(model, path: str) -> None:
-    from safetensors.torch import load_file
-
-    state = load_file(path)
-    state = {("pretrained." + k[len("backbone."):] if k.startswith("backbone.") else k): v
-             for k, v in state.items()}
-    missing, unexpected = model.load_state_dict(state, strict=False)
-    if missing:
-        raise KeyError(f"checkpoint lacks {len(missing)} keys: {missing[:8]}")
-    if unexpected:  # e.g. mask_token, refinenet4.resConfUnit1: unused by the forward
-        logging.info("ignoring %d unused checkpoint keys: %s", len(unexpected), unexpected[:8])
-
-
 def main(args=None) -> list[str]:
     import cv2
     from PIL import Image
@@ -116,6 +103,7 @@ def main(args=None) -> list[str]:
         Compose, NormalizeImage, PrepareForNet, Resize, standard_transform,
     )
     from distill_any_depth_tpu_torch.models.factory import create_model
+    from distill_any_depth_tpu_torch.utils.checkpoint import load_state_dict_file
     from distill_any_depth_tpu_torch.utils.image_util import (
         chw2hwc, colorize_depth_maps, normalize_disparity,
     )
@@ -127,7 +115,7 @@ def main(args=None) -> list[str]:
     model = create_model(args.arch_name, dtype=getattr(torch, args.dtype), device=args.device,
                          quant=args.quant)
     if args.checkpoint:
-        _load_checkpoint(model, args.checkpoint)
+        load_state_dict_file(model, args.checkpoint)
     else:
         logging.warning("no checkpoint: using random init (smoke-test mode)")
 

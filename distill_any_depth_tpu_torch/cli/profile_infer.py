@@ -38,12 +38,12 @@ ITERS, TOP = 10, 25  # forwards traced, kernels listed
 # cuDNN's (convs and their layout transposes) carry ``cudnn``, and cuBLAS's
 # GEMMs are ``nvjet_*`` or ``*_cublas``.
 CLASSES = (
-    ("attention kernel", r"packed_attn_kernel"),
+    ("attention kernel", r"packed_attn_(wgmma|fp32)"),
     ("bias attention kernel", r"masked_attn_kernel.*BiasMask|tile_live_kernel"),
     ("banded attention kernel", r"masked_attn_kernel.*WindowMask"),
     ("bias attention backward kernel", r"masked_(dkdv|dq)_kernel.*BiasMask"),
     ("banded attention backward kernel", r"masked_(dkdv|dq)_kernel.*WindowMask"),
-    ("attention backward kernel (packed; all deltas)", r"dkdv_kernel|dq_kernel|delta_kernel"),
+    ("attention backward kernel (packed; all deltas)", r"(dkdv|dq)_(wgmma|fp32)|delta_kernel"),
     ("select kernel", r"kth_select_kernel"),
     ("w8a8 kernel", r"w8a8_kernel"),
     ("tail kernel", r"tail_conv1_kernel|tail_head_kernel"),

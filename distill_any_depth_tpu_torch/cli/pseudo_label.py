@@ -79,9 +79,9 @@ def label_batches(model, images_u8: np.ndarray, target: int, batch_size: int = 8
 def main(args=None) -> list[str]:
     import cv2
 
-    from distill_any_depth_tpu_torch.cli.infer import _load_checkpoint
     from distill_any_depth_tpu_torch.models.factory import create_model
     from distill_any_depth_tpu_torch.ops.preprocess import snap_to_bucket
+    from distill_any_depth_tpu_torch.utils.checkpoint import load_state_dict_file
 
     if args is None or isinstance(args, list):
         args = argument_parser().parse_args(args)
@@ -90,7 +90,7 @@ def main(args=None) -> list[str]:
     model = create_model(args.arch_name, dtype=getattr(torch, args.dtype), device=args.device,
                          quant=args.quant)
     if args.checkpoint:
-        _load_checkpoint(model, args.checkpoint)
+        load_state_dict_file(model, args.checkpoint)
     else:
         logging.warning("no checkpoint: random init (smoke-test mode)")
     target = snap_to_bucket(args.processing_res)

@@ -53,7 +53,6 @@ class Trainer:
                                    device=self.device, seed=100 + i, quant=cfg.teacher_quant)
             self.teachers.append(teacher.requires_grad_(False))
         self.state = create_train_state(self.student, cfg.optimizer)
-        self.teacher_gen = torch.Generator().manual_seed(cfg.seed)
         # the steps are built on the first batch: whether it carries one view
         # or two decides whether the second student forward is skipped
         self.train_step = None
@@ -65,10 +64,17 @@ class Trainer:
         self.train_step = make_train_step(*args, **kw)
         self.eval_loss = make_eval_loss_fn(*args, **kw)
 
-    def _teacher_idx(self) -> int:
+    def _teacher_idx(self, seed: int, counter: int) -> int:
+        """The teacher of a train step (``seed = cfg.seed``, ``counter`` the
+        step before the update) or of validation batch ``counter`` (``seed =
+        cfg.seed + 1``): a function of ``(seed, counter)`` alone, as the JAX
+        step's ``fold_in(PRNGKey(seed), counter)``, though not its bits. The
+        pair is the 128-bit key of a Philox generator, so distinct pairs
+        never share a stream."""
         if len(self.teachers) == 1:
             return 0
-        return int(torch.randint(len(self.teachers), (), generator=self.teacher_gen))
+        key = (seed % 2 ** 64) << 64 | counter % 2 ** 64
+        return int(np.random.Generator(np.random.Philox(key=key)).integers(len(self.teachers)))
 
     def _views(self, batch: dict):
         """Global and local views ``[B, 3, H, W]`` on the device: NYU batches
@@ -105,7 +111,7 @@ class Trainer:
                 if self.train_step is None:
                     self._build_steps("global_image" not in batch)
                 g, l = self._views(batch)
-                metrics = self.train_step(self.state, self._teacher_idx(), g, l)
+                metrics = self.train_step(self.state, self._teacher_idx(cfg.seed, step), g, l)
                 step += 1
                 total = metrics["total"]
                 epoch_loss = total if epoch_loss is None else epoch_loss + total
@@ -145,10 +151,10 @@ class Trainer:
     def validate(self, batches: Iterable[dict]) -> dict:
         sums: dict[str, torch.Tensor] = {}
         n = 0
-        for batch in batches:
+        for i, batch in enumerate(batches):
             if self.eval_loss is None:
                 self._build_steps("global_image" not in batch)
-            comps = self.eval_loss(self._teacher_idx(), *self._views(batch))
+            comps = self.eval_loss(self._teacher_idx(self.cfg.seed + 1, i), *self._views(batch))
             for k, v in comps.items():
                 sums[k] = sums[k] + v if k in sums else v
             n += 1

@@ -1,0 +1,50 @@
+"""Time the port's main-path steps of the source tree at a given root, to
+compare two commits on one card in one call.
+
+    python scripts/port_ab.py ROOT
+
+imports ``distill_any_depth_tpu_torch`` from ROOT (build its kernels there
+first, as the package does at first use) and prints one JSON line: the
+bs16 392^2 ViT-L -> ViT-B bf16 train step with the bf16 and with the
+``int8_pallas`` teacher (median of 5 windows of 3 steps on a device-resident
+batch, CUDA events) and the ViT-B 392^2 bs8 bf16 forward (median of 5
+windows of 10). Unpack the parent with ``git archive`` into a git-ignored
+directory and run parent, change, change, parent in one call.
+"""
+import json
+import statistics
+import sys
+
+root = sys.argv[1]
+sys.path.insert(0, root)
+
+import torch  # noqa: E402
+
+from distill_any_depth_tpu_torch.cli.profile_infer import cuda_ms  # noqa: E402
+from distill_any_depth_tpu_torch.configs import TrainConfig, model_config  # noqa: E402
+from distill_any_depth_tpu_torch.models.factory import create_model  # noqa: E402
+from distill_any_depth_tpu_torch.ops import _build  # noqa: E402
+from distill_any_depth_tpu_torch.train.loop import Trainer  # noqa: E402
+
+_build.build_all()
+out = {"root": root, "device": torch.cuda.get_device_name(0)}
+x = torch.rand(16, 3, 392, 392, generator=torch.Generator().manual_seed(0)).cuda()
+for quant in ("none", "int8_pallas"):
+    cfg = TrainConfig(student=model_config("depthanything-base"), teachers=("depthanything-large",),
+                      batch_size=16, image_size=392, teacher_quant=quant,
+                      output_dir="build/port_ab", log_interval=10 ** 6)
+    trainer = Trainer(cfg, "cuda")
+    trainer._build_steps(views_shared=True)
+    windows = [cuda_ms(lambda: trainer.train_step(trainer.state, 0, x, x), iters=3, warmup=1)
+               for _ in range(5)]
+    out[f"step_ms_{quant}"] = statistics.median(windows)
+    out[f"step_windows_{quant}"] = windows
+    del trainer
+    torch.cuda.empty_cache()
+model = create_model("depthanything-base", dtype=torch.bfloat16, device="cuda", seed=0)
+xb = x[:8].to(torch.bfloat16)
+with torch.no_grad():
+    windows = [cuda_ms(lambda: model(xb), iters=10) for _ in range(5)]
+out["forward_ms"] = statistics.median(windows)
+out["forward_windows"] = windows
+print(json.dumps(out), flush=True)

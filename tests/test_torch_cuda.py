@@ -25,6 +25,7 @@ from distill_any_depth_tpu_torch.ops.dpt_tail import fused_dpt_tail, tail_refere
 from distill_any_depth_tpu_torch.ops.flash_attention import (
     _banded_forward,
     _bias_forward,
+    _forward,
     banded_attention_backward,
     banded_attention_backward_reference,
     bias_attention_backward,
@@ -54,8 +55,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# N across the tile edges of both kernels' paths: 64-row tiles (fp32 and the
+# backward's streamed tiles), 128-row q tiles and 128-key stages (the bf16
+# forward), and the ViT-B/L 392^2 token count 785 = 6 * 128 + 17
+ATTENTION_NS = [1, 63, 64, 65, 127, 128, 129, 197, 785]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 6e-3)])
-@pytest.mark.parametrize("n", [1, 63, 64, 65, 197])
+@pytest.mark.parametrize("n", ATTENTION_NS)
 def test_attention_kernel_matches_plain(cuda_device, n, dtype, tol):
     gen = torch.Generator(device=cuda_device).manual_seed(n)
     qkv = torch.randn(2, n, 3 * 128, generator=gen, device=cuda_device).to(dtype)
@@ -80,7 +87,7 @@ def test_attention_kernel_refuses(cuda_device):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.5e-2)])
-@pytest.mark.parametrize("n", [1, 63, 64, 65, 197])
+@pytest.mark.parametrize("n", ATTENTION_NS)
 def test_attention_backward_matches_autograd_of_plain(cuda_device, n, dtype, tol):
     gen = torch.Generator(device=cuda_device).manual_seed(n)
     qkv = torch.randn(2, n, 3 * 128, generator=gen, device=cuda_device).to(dtype)
@@ -91,6 +98,18 @@ def test_attention_backward_matches_autograd_of_plain(cuda_device, n, dtype, tol
     assert x.grad.dtype == dtype and torch.isfinite(x.grad).all()
     assert ((x.grad.float() - xr.grad.float()).abs()
             <= tol * (1 + xr.grad.float().abs())).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_is_deterministic(cuda_device, dtype):
+    """Kernel 3 writes every gradient once, without atomics: two calls on
+    the same inputs give d(qkv) equal bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    qkv = torch.randn(2, 785, 3 * 128, generator=gen, device=cuda_device).to(dtype)
+    g = torch.randn(2, 785, 128, generator=gen, device=cuda_device).to(dtype)
+    out, lse = _forward(qkv, 2, with_lse=True)
+    first = packed_attention_backward(qkv, out, lse, g, 2)
+    assert torch.equal(first, packed_attention_backward(qkv, out, lse, g, 2))
 
 
 @pytest.mark.parametrize("n", [1, 1000, 153664])

@@ -16,6 +16,9 @@
   against the JAX step with ``create_model(quant="int8")``, and the
   teacher-free loss components of an int8-teacher step equal to those of
   the unquantized-teacher step.
+- The teacher draws of a ``Trainer`` with two teachers: a train step's
+  draw depends only on ``(seed, step)`` and a validation batch's only on
+  ``(seed + 1, batch index)``, as the JAX step's ``fold_in`` keys.
 - ``cli.train`` over ``data/smoke`` for 2 steps, with the ViT-B and the
   windowed student and with ``--teacher_quant int8_pallas``, and its
   refusal of the flags of features not ported yet.
@@ -40,13 +43,14 @@ from distill_any_depth_tpu.train.state import make_lr_schedule as jax_make_lr_sc
 from distill_any_depth_tpu.train.state import make_optimizer as jax_make_optimizer
 from distill_any_depth_tpu.train.step import make_train_step as jax_make_train_step
 from distill_any_depth_tpu_torch.cli import train as train_cli
-from distill_any_depth_tpu_torch.configs import MODELS, LossConfig, OptimizerConfig
+from distill_any_depth_tpu_torch.configs import MODELS, LossConfig, OptimizerConfig, TrainConfig
 from distill_any_depth_tpu_torch.models.factory import create_model
 from distill_any_depth_tpu_torch.train.state import (
     apply_gradients,
     create_train_state,
     make_lr_schedule,
 )
+from distill_any_depth_tpu_torch.train.loop import Trainer
 from distill_any_depth_tpu_torch.train.step import make_train_step
 from distill_any_depth_tpu_torch.utils.convert import params_from_jax
 
@@ -222,6 +226,64 @@ def test_optimizer_matches_optax(schedule, warmup):
         OptimizerConfig(**cfg))
     for count in range(12):
         np.testing.assert_allclose(float(tsched(count)), float(jsched(count)), rtol=1e-6)
+
+
+def _recording_trainer(tmp_path, draws: dict) -> Trainer:
+    """A ``Trainer`` with two ``depthanything-small`` teachers at 56^2 in
+    fp32 whose steps append ``(step, teacher)`` to ``draws["train"]`` and
+    whose validation batches append their teacher to ``draws["val"]``."""
+    cfg = TrainConfig(student=MODELS["depthanything-small"],
+                      teachers=("depthanything-small", "depthanything-small"), batch_size=2,
+                      image_size=SIZE, num_epochs=2, seed=7, output_dir=str(tmp_path),
+                      teacher_dtype="float32", student_compute_dtype="float32", teacher_chunk=0,
+                      log_interval=100)
+    trainer = Trainer(cfg, device="cpu")
+    trainer._build_steps(views_shared=True)
+    train_step, eval_loss = trainer.train_step, trainer.eval_loss
+
+    def record_train(state, teacher_idx, g, l):
+        draws["train"].append((int(state.step), teacher_idx))
+        return train_step(state, teacher_idx, g, l)
+
+    def record_val(teacher_idx, g, l):
+        draws["val"].append(teacher_idx)
+        return eval_loss(teacher_idx, g, l)
+
+    trainer.train_step, trainer.eval_loss = record_train, record_val
+    return trainer
+
+
+def _fixed_batches() -> list[dict]:
+    rng = np.random.RandomState(0)
+    return [{"image": rng.rand(2, SIZE, SIZE, 3).astype(np.float32)} for _ in range(4)]
+
+
+def test_teacher_draws_depend_on_step_and_batch_alone(tmp_path):
+    """F1: two validation passes give equal totals and equal draws; the
+    train draws of steps 0-5 are the same with and without a validation
+    pass between epochs (4 batches an epoch); a second ``Trainer`` whose
+    step is set to 3 draws what the first drew at step 3."""
+    batches = _fixed_batches()
+    draws = {"train": [], "val": []}
+    trainer = _recording_trainer(tmp_path / "a", draws)
+    first, second = trainer.validate(batches), trainer.validate(batches)
+    assert first == second and np.isfinite(first["total"])
+    assert draws["val"][:4] == draws["val"][4:]
+    assert set(draws["val"]) == {0, 1}  # the seed draws both teachers: not vacuous
+    trainer.run(lambda epoch: batches, val_batches=lambda: batches, max_steps=6)
+    with_val = draws["train"]
+    assert [s for s, _ in with_val] == list(range(6)) and len(draws["val"]) == 12
+
+    quiet = {"train": [], "val": []}
+    _recording_trainer(tmp_path / "b", quiet).run(lambda epoch: batches, max_steps=6)
+    assert quiet["train"] == with_val and not quiet["val"]
+    assert {t for _, t in with_val} == {0, 1}
+
+    late = {"train": [], "val": []}
+    trainer = _recording_trainer(tmp_path / "c", late)
+    trainer.state.step.fill_(3)
+    trainer.run(lambda epoch: batches[:1], max_steps=4)
+    assert late["train"] == [with_val[3]]
 
 
 def test_cli_trains_on_smoke_data(tmp_path, monkeypatch):
