@@ -35,7 +35,9 @@ Phases, each of which fails the run if it fails:
    (kernel 8) against their plain versions on the same forward output and
    log-sum-exp, the autograd path (kernels 5 + 6, 7 + 8) against autograd
    of the plain forwards, and kernel 8 against kernel 6 with the window
-   bias, at the windowed student's shapes and at edge grids;
+   bias, at the windowed student's shapes and at edge grids; at the 1036^2
+   grid, kernels 6 and 8 against themselves: two calls give d(qkv) equal
+   bit for bit;
 11. main path 4: ``train.loop.Trainer`` with the windowed student
    ``depthanything-base-window`` and the ViT-L teacher at bs16 bf16, 3
    steps at 518^2 (kernels 5 + 6) and 3 at 1036^2 (kernels 7 + 8): launch
@@ -46,9 +48,10 @@ Phases, each of which fails the run if it fails:
    teacher) on the card against the CPU: bs2 at 518^2 (kernel 6) and bs1
    at 784^2 (a 56 x 56 grid, kernel 8);
 13. hold the W8A8 GEMM (kernel 9) against its plain version, bit for bit:
-   bf16 and fp32, with and without bias, at the ViT-L 518^2 bs8 and ViT-B
-   392^2 bs8 encoder GEMM shapes and at edge shapes, on rows holding exact
-   rounding ties and all-zero rows;
+   bf16 and fp32, with and without bias, at the ViT-L 518^2 bs8, ViT-L
+   392^2 bs8 (the int8 teacher) and ViT-B 392^2 bs8 encoder GEMM shapes and
+   at edge shapes (M in {1, 100, 129, 257}, N in {200, 264}, K in {96,
+   4096}), on rows holding exact rounding ties and all-zero rows;
 14. main path 5: ``cli.pseudo_label.label_batches`` with
    ``depthanything-large`` at 518^2, bs8, bf16, ``quant="int8_pallas"``
    over 10 images (the second batch padded): launch counts per forward,
@@ -60,7 +63,8 @@ Phases, each of which fails the run if it fails:
    then two steps of ``cli.train --teacher_quant int8_pallas``;
 16. time each kernel, its plain version and its PyTorch library yardstick
    with CUDA events (kernels 1 and 3 and their SDPA yardsticks also by the
-   profiler's device time, with the SDPA backend's kernel names; kernel 9
+   profiler's device time, with the SDPA backend's kernel names; kernels
+   6, 8 and 9 also by the device time of each kernel a call starts; kernel 9
    also beside bf16 ``F.linear``), the
    end-to-end forwards (the ViT-L 518^2 forward with each quant mode) and
    the bs16 train steps (bf16 and int8 teacher).
@@ -136,9 +140,11 @@ HDN_ROWS = 7 * TRAIN_BATCH  # the dr/3 HDN contexts folded with the batch
 # main path 5: ViT-L pseudo-labelling at 518^2 bs8 with int8 encoder GEMMs
 QUANT_ARCH, QUANT_RES, QUANT_BATCH, QUANT_IMAGES = "depthanything-large", 518, 8, 10
 # kernel 9's shapes: (M, the (K, N) of qkv, proj, fc1, fc2) of each encoder
+VIT_L_GEMMS = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))
 W8A8_SHAPES = {
-    "ViT-L 518^2 bs8": (8 * ((518 // 14) ** 2 + 1), ((1024, 3072), (1024, 1024), (1024, 4096),
-                                                     (4096, 1024))),
+    "ViT-L 518^2 bs8": (8 * ((518 // 14) ** 2 + 1), VIT_L_GEMMS),
+    # the int8 teacher's bs8 chunks of the 392^2 distillation step
+    "ViT-L 392^2 bs8": (8 * ((392 // 14) ** 2 + 1), VIT_L_GEMMS),
     "ViT-B 392^2 bs8": (8 * ((392 // 14) ** 2 + 1), ((768, 2304), (768, 768), (768, 3072),
                                                      (3072, 768))),
 }
@@ -233,15 +239,21 @@ def device_ms(fn, iters: int = 20) -> tuple[float, list[str]]:
     ``iters`` calls), and their names: the host's enqueue time, which event
     times of back-to-back calls include where the host sets the pace, is
     left out."""
+    split = device_split(fn, iters)
+    return sum(split.values()), sorted(split)
+
+
+def device_split(fn, iters: int = 20) -> dict:
+    """Device time (ms) per call of ``fn`` by kernel name, from the
+    profiler's CUDA trace over ``iters`` calls."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    return (sum(e.self_device_time_total for e in events) / iters / 1e3,
-            sorted(e.key for e in events))
+    return {e.key: e.self_device_time_total / iters / 1e3 for e in prof.key_averages()
+            if e.self_device_time_total > 0}
 
 
 # ---------------------------------------------------------------- phase 1
@@ -578,23 +590,6 @@ def phase_window_attention(gen) -> tuple[float, float]:
     return err5, err7
 
 
-def device_ms(fn, iters: int = 20) -> tuple[float, list[str]]:
-    """Device time (ms) per call of ``fn`` from the profiler's CUDA trace
-    (the sum of the self times of the kernels and memsets it launched, over
-    ``iters`` calls), and their names: the host's enqueue time, which event
-    times of back-to-back calls include where the host sets the pace, is
-    left out."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    return (sum(e.self_device_time_total for e in events) / iters / 1e3,
-            sorted(e.key for e in events))
-
-
 # ---------------------------------------------------------------- phase 10
 def masked_grad_inputs(b, n, h, dtype, gen, negative=False):
     """q, k, v viewed in one packed qkv (every logit below -60 if asked) and
@@ -617,10 +612,20 @@ def bias_grad_case(name, b, n, h, dtype, bias, tol, gen, negative=False, l2_tol=
                 tol, l2_tol=l2_tol, tag="masked grad")
 
 
+def deterministic(name, call) -> None:
+    """Two calls of a backward give d(qkv) equal bit for bit."""
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"[masked grad] {name}: two calls {'equal bit for bit, ok' if same else 'differ, FAIL'}")
+    check(same, f"{name} is not deterministic")
+
+
 def banded_grad_case(name, b, gh, gw, window, h, dtype, tol, gen, negative=False,
                      l2_tol=None) -> float:
     """Kernel 8 against its plain version from kernel 7's out and lse, and
-    kernel 6 with the window bias bit for bit."""
+    kernel 6 with the window bias bit for bit; at the slice grid, kernels 6
+    and 8 each twice, bit for bit."""
     band = (gw, window)
     q, k, v, g = masked_grad_inputs(b, gh * gw, h, dtype, gen, negative)
     out, lse = _banded_forward(q, k, v, band, with_lse=True)
@@ -631,6 +636,11 @@ def banded_grad_case(name, b, gh, gw, window, h, dtype, tol, gen, negative=False
     wb = local_window_bias(gh, gw, window, 0, "cuda", dtype)
     refs = {"plain": banded_attention_backward_reference(q, k, v, band, out, lse, g),
             "kernel 6": bias_attention_backward(q, k, v, wb, out, lse, g)}
+    if name == "slice grid":
+        deterministic(f"kernel 8 B={b} grid {gh}x{gw} {str(dtype)[6:]}",
+                      lambda: banded_attention_backward(q, k, v, band, out, lse, g))
+        deterministic(f"kernel 6 with the window bias B={b} grid {gh}x{gw} {str(dtype)[6:]}",
+                      lambda: bias_attention_backward(q, k, v, wb, out, lse, g))
     return held(f"banded grad {name}: B={b} grid {gh}x{gw} window {window} H={h} "
                 f"{str(dtype)[6:]}", got, refs, tol, exact=("kernel 6",), l2_tol=l2_tol,
                 tag="masked grad")
@@ -913,23 +923,6 @@ def phase_window_path(images) -> tuple[torch.nn.Module, dict]:
     return model, counts
 
 
-def device_ms(fn, iters: int = 20) -> tuple[float, list[str]]:
-    """Device time (ms) per call of ``fn`` from the profiler's CUDA trace
-    (the sum of the self times of the kernels and memsets it launched, over
-    ``iters`` calls), and their names: the host's enqueue time, which event
-    times of back-to-back calls include where the host sets the pace, is
-    left out."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    return (sum(e.self_device_time_total for e in events) / iters / 1e3,
-            sorted(e.key for e in events))
-
-
 # ---------------------------------------------------------------- phase 11
 def expected_window_step_counts(res: int, batch: int, chunk: int = 8) -> dict:
     """Per step of the windowed student under the ViT-L teacher: kernel 1 in
@@ -1027,23 +1020,6 @@ def phase_window_train() -> dict:
     return results
 
 
-def device_ms(fn, iters: int = 20) -> tuple[float, list[str]]:
-    """Device time (ms) per call of ``fn`` from the profiler's CUDA trace
-    (the sum of the self times of the kernels and memsets it launched, over
-    ``iters`` calls), and their names: the host's enqueue time, which event
-    times of back-to-back calls include where the host sets the pace, is
-    left out."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    return (sum(e.self_device_time_total for e in events) / iters / 1e3,
-            sorted(e.key for e in events))
-
-
 # ---------------------------------------------------------------- phase 12
 def step_vs_cpu(tag: str, cfg: TrainConfig, x: np.ndarray, tol: dict, want=None) -> dict:
     """One fp32 step of ``cfg`` on the card (kernels on their fp32 paths, no
@@ -1119,23 +1095,6 @@ def phase_window_train_vs_cpu() -> dict:
     return readings
 
 
-def device_ms(fn, iters: int = 20) -> tuple[float, list[str]]:
-    """Device time (ms) per call of ``fn`` from the profiler's CUDA trace
-    (the sum of the self times of the kernels and memsets it launched, over
-    ``iters`` calls), and their names: the host's enqueue time, which event
-    times of back-to-back calls include where the host sets the pace, is
-    left out."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    return (sum(e.self_device_time_total for e in events) / iters / 1e3,
-            sorted(e.key for e in events))
-
-
 # ---------------------------------------------------------------- phase 13
 def w8a8_inputs(m, k, n, dtype, gen, with_bias=True):
     """x ``[M, K]`` whose row 0 has amax 127 (scale exactly 1) and holds the
@@ -1173,37 +1132,23 @@ def w8a8_case(name, m, k, n, dtype, with_bias, gen) -> float:
 
 
 def phase_w8a8(gen) -> float:
-    """Kernel 9 at every encoder GEMM shape of paths 5 and 1 and at edge
-    shapes (a single row; M, K, N off every tile); returns the max abs
-    error at the slice shapes."""
+    """Kernel 9 at every encoder GEMM shape of paths 5 and 1 and of the int8
+    teacher, and at edge shapes (a single row; M, K, N off the 128 x 256
+    output tiles and the 128-byte K chunks); returns the max abs error at
+    the slice shapes."""
     err = 0.0
     for label, (m, gemms) in W8A8_SHAPES.items():
         for gemm, (k, n) in zip(GEMMS, gemms):
             for dtype in (torch.bfloat16, torch.float32):
                 for with_bias in (True, False):
                     err = max(err, w8a8_case(f"{label} {gemm}", m, k, n, dtype, with_bias, gen))
-    for m in (1, 100):
-        for dtype in (torch.bfloat16, torch.float32):
-            for with_bias in (True, False):
-                w8a8_case("edge", m, 96, 200, dtype, with_bias, gen)
+    for m in (1, 100, 129, 257):
+        for n in (200, 264):
+            for k in (96, 4096):
+                for dtype in (torch.bfloat16, torch.float32):
+                    for with_bias in (True, False):
+                        w8a8_case("edge", m, k, n, dtype, with_bias, gen)
     return err
-
-
-def device_ms(fn, iters: int = 20) -> tuple[float, list[str]]:
-    """Device time (ms) per call of ``fn`` from the profiler's CUDA trace
-    (the sum of the self times of the kernels and memsets it launched, over
-    ``iters`` calls), and their names: the host's enqueue time, which event
-    times of back-to-back calls include where the host sets the pace, is
-    left out."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    return (sum(e.self_device_time_total for e in events) / iters / 1e3,
-            sorted(e.key for e in events))
 
 
 # ---------------------------------------------------------------- phase 14
@@ -1279,23 +1224,6 @@ def phase_pseudo_label():
         check(d.shape == (QUANT_RES, QUANT_RES) and d.dtype == np.float32
               and bool(np.isfinite(d).all()), f"cli.pseudo_label: bad map {path}")
     return model, plain, counts, ims
-
-
-def device_ms(fn, iters: int = 20) -> tuple[float, list[str]]:
-    """Device time (ms) per call of ``fn`` from the profiler's CUDA trace
-    (the sum of the self times of the kernels and memsets it launched, over
-    ``iters`` calls), and their names: the host's enqueue time, which event
-    times of back-to-back calls include where the host sets the pace, is
-    left out."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    return (sum(e.self_device_time_total for e in events) / iters / 1e3,
-            sorted(e.key for e in events))
 
 
 # ---------------------------------------------------------------- phase 16
@@ -1475,7 +1403,9 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
                           iters=3),
                   lib, 10.0 * b * h * d * live, nbytes + wb.numel() * 2,
                   launches=wtrain[res]["counts"][key], shape=shape,
-                  dense_gflop=10.0 * b * h * d * n * n / 1e9)
+                  dense_gflop=10.0 * b * h * d * n * n / 1e9,
+                  device_split=device_split(
+                      lambda: bias_attention_backward(q, k, v, wb, out, lse, go, marks), 5))
         else:
             out, lse = _banded_forward(q, k, v, band, with_lse=True)
             entry("banded_attention_bwd", key, "flash_attention_banded_bwd.cu",
@@ -1485,10 +1415,13 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
                                                                       go), iters=3),
                   lib, 10.0 * b * h * d * live, nbytes,
                   launches=wtrain[res]["counts"][key], shape=shape,
-                  band_gflop=10.0 * b * h * d * n * 7 * g / 1e9)
+                  band_gflop=10.0 * b * h * d * n * 7 * g / 1e9,
+                  device_split=device_split(
+                      lambda: banded_attention_backward(q, k, v, band, out, lse, go), 5))
         del q, k, v, go, sd, gsd, wb, out, lse
         torch.cuda.empty_cache()
-    # kernel 9 at every encoder GEMM of paths 5 and 1 (bf16, with bias), beside
+    # kernel 9 at every encoder GEMM of paths 5 and 1 and of the int8 teacher
+    # (bf16, with bias), beside
     # its plain version, the int8 route (row quant + torch._int_mm + dequant;
     # the library yardstick), torch._int_mm alone and bf16 F.linear
     shapes = []
@@ -1507,7 +1440,9 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
                 "int8_route_ms": cuda_ms(lambda: int8_matmul(x, w, b, quantized=q), iters=20),
                 "int_mm_ms": cuda_ms(lambda: torch._int_mm(xq, q[0].t()), iters=20),
                 "bf16_linear_ms": cuda_ms(lambda: F.linear(x, w16, b16), iters=20),
-                "bound_ms": b_ms, "bound_by": b_by})
+                "bound_ms": b_ms, "bound_by": b_by,
+                # the quantize pass and the GEMM apart, by the profiler's device time
+                "device_split": device_split(lambda: w8a8_matmul(x, w, b, quantized=q), 10)})
             log(f"[timing] w8a8 {label} {gemm}: {json.dumps(shapes[-1])}")
             del x, w, b, q, xq, w16, b16
     qkv = shapes[0]

@@ -48,8 +48,9 @@ def _tail(b: int, res: int, c: int) -> dict:
 
 
 def _w8a8(m: int, k: int, n: int) -> tuple[float, float]:
-    """x [M, K] bf16 quantized in-kernel, w [K, N] int8 with per-column fp32
-    scales, fp32 bias, out [M, N] bf16."""
+    """x [M, K] bf16 read once, w [K, N] int8 with per-column fp32 scales,
+    fp32 bias, out [M, N] bf16 written once: the function's bytes, whatever
+    the kernels move between their launches."""
     return 2.0 * m * k * n, m * k * 2 + k * n + n * 8 + m * n * 2
 
 
@@ -85,6 +86,8 @@ def bounds() -> dict:
         "8 banded attention bwd, window student 1036^2 bs16": _attention(16, n1036, 12, win,
                                                                          True),
         **_w8a8_encoder("ViT-L 518^2 bs8", 8 * (n518 + 1), 1024, 24),
+        # the int8 teacher of the distillation step: ViT-L in bs8 chunks at 392^2
+        **_w8a8_encoder("ViT-L 392^2 bs8", 8 * n392, 1024, 24),
         **_w8a8_encoder("ViT-B 392^2 bs8", 8 * n392, 768, 12),
         "10 DPT tail v1, C=128 392^2 bs8": _tail(8, 392, 128),
     }

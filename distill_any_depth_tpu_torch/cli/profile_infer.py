@@ -41,11 +41,13 @@ CLASSES = (
     ("attention kernel", r"packed_attn_(wgmma|fp32)"),
     ("bias attention kernel", r"masked_attn_kernel.*BiasMask|tile_live_kernel"),
     ("banded attention kernel", r"masked_attn_kernel.*WindowMask"),
-    ("bias attention backward kernel", r"masked_(dkdv|dq)_kernel.*BiasMask"),
-    ("banded attention backward kernel", r"masked_(dkdv|dq)_kernel.*WindowMask"),
+    ("bias attention backward kernel",
+     r"(masked_(dkdv|dq)_kernel|(dkdv|dq)_wgmma)<.*BiasMask|bias_f32_kernel"),
+    ("banded attention backward kernel",
+     r"(masked_(dkdv|dq)_kernel|(dkdv|dq)_wgmma)<.*WindowMask"),
     ("attention backward kernel (packed; all deltas)", r"(dkdv|dq)_(wgmma|fp32)|delta_kernel"),
     ("select kernel", r"kth_select_kernel"),
-    ("w8a8 kernel", r"w8a8_kernel"),
+    ("w8a8 kernel (quantize pass, GEMM)", r"quantize_rows|gemm_wgmma|w8a8_kernel"),
     ("tail kernel", r"tail_conv1_kernel|tail_head_kernel"),
     ("optimizer (fused Adam, norms)", r"fused_adam|FusedAdam|multi_tensor|foreach"),
     ("interpolate", r"upsample_|interp"),

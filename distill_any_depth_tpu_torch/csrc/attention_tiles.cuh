@@ -145,15 +145,6 @@ __device__ __forceinline__ void mma_nn(float (&acc)[8][4], const uint32_t (&pf)[
   }
 }
 
-// Round an fp32 accumulator to bf16 pairs (the A operand of mma_nn).
-__device__ __forceinline__ void to_bf16(uint32_t (&pf)[8][2], const float (&p)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    pf[j][0] = pack_bf16(p[j][0], p[j][1]);
-    pf[j][1] = pack_bf16(p[j][2], p[j][3]);
-  }
-}
-
 // nt, fp32: acc += A . B^T, A = this warp's 16 rows of an smem tile.
 __device__ __forceinline__ void fma_nt(float (&acc)[8][4], const float* a_tile, const float* b) {
   constexpr int kRow = row_elems<float>();
@@ -203,14 +194,6 @@ __device__ __forceinline__ void fma_nn(float (&acc)[8][4], const float (&p)[8][4
     }
   }
   __syncwarp();
-}
-
-// p rounded to T (a no-op for fp32): the backward rounds P and P (dP - delta)
-// to the input type before their products.
-template <typename T>
-__device__ __forceinline__ float round_to(float p) {
-  if constexpr (sizeof(T) == 2) return __bfloat162float(__float2bfloat16_rn(p));
-  return p;
 }
 
 // delta[b, h, i] = sum_d g . out over the row's 64 columns, fp32, from out

@@ -12,15 +12,18 @@
 // rows c0..c1, widened to the grid's first (last) rows below (above) the
 // clip. The body is masked_attention_bwd.cuh's, the mask
 // attention_masks.cuh's WindowMask, so with the window bias the result
-// equals flash_attention_bias_bwd.cu's bit for bit (both passes visit the
-// same live tiles in the same order with the same arithmetic).
+// equals flash_attention_bias_bwd.cu's bit for bit (both passes add the
+// same live tiles in the same order with the same arithmetic; a dead tile
+// adds exact zeros). In bf16 the window term is computed in registers from
+// the grid coordinates of each score's row and column.
 //
 // Bound at the windowed ViT-B student's 1036^2 bs16 training shape (B=16,
 // N=5476, H=12, D=64, window 7, bf16): qkv, out and g read once and d(qkv)
 // written once, 1077 MB (321 us at 3.35 TB/s), against the five products of
 // the live (query, key) pairs, 49 per row: 33.0 GFLOP (33.4 us at 989
-// TFLOP/s). Bound by bytes. Whole 64 x 64 tiles of the band are computed:
-// 8-10 of 86 key tiles per q tile.
+// TFLOP/s). Bound by bytes. Whole tiles of the band are computed: in bf16,
+// 128 owned rows against 64-row streamed tiles, 9-10 live tiles of 86 per
+// block.
 
 #include "masked_attention_bwd.cuh"
 
@@ -47,11 +50,12 @@ extern "C" int dad_banded_attention_bwd(const void* q, const void* k, const void
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == 0)
-    return launch_masked_bwd<__nv_bfloat16>(q, k, v, out, g, l, dl, dq, dk, dv, stride,
+    return launch_masked_bwd<__nv_bfloat16>(q, k, v, out, g, l, dl, nullptr, dq, dk, dv, stride,
                                             batch_stride, dstride, dbatch_stride, batch, n,
                                             heads, scale, m, st);
   if (dtype == 1)
-    return launch_masked_bwd<float>(q, k, v, out, g, l, dl, dq, dk, dv, stride, batch_stride,
-                                    dstride, dbatch_stride, batch, n, heads, scale, m, st);
+    return launch_masked_bwd<float>(q, k, v, out, g, l, dl, nullptr, dq, dk, dv, stride,
+                                    batch_stride, dstride, dbatch_stride, batch, n, heads, scale,
+                                    m, st);
   return -1;
 }

@@ -1,6 +1,7 @@
-// Hopper building blocks of the bf16 packed attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu), for sm_90a: mbarriers, TMA
-// tile loads, 128-byte-swizzled wgmma descriptors, wgmma products and
+// Hopper building blocks of the bf16 attention kernels (flash_attention.cu,
+// flash_attention_bwd.cu, masked_attention_bwd.cuh) and of the int8 W8A8
+// GEMM (w8a8_matmul.cu), for sm_90a: mbarriers, TMA tile loads,
+// 128-byte-swizzled wgmma descriptors, bf16 and int8 wgmma products and
 // warpgroup register rebalancing.
 //
 // Tiles are 64 rows of one head's 64 bf16 columns: one row is 128 bytes, the
@@ -14,7 +15,9 @@
 //     P.V-like products): SBO = 1024 bytes between 8-row groups along the
 //     contraction, one 64-column atom across; k-step kk starts 2048 * kk
 //     bytes in.
-// Accumulators of wgmma m64nNk16 keep the mma.sync layout per warp: warp w of
+// The int8 GEMM's tiles are rows of 128 int8 values: the same 128-byte rows
+// and atoms, K-major, a k32 step 32 bytes in.
+// Accumulators of wgmma m64nNk16 (and m64nNk32 s32) keep the mma.sync layout per warp: warp w of
 // the warpgroup owns rows 16w..16w+15, and d[4j + e] holds row
 // 16w + lane/4 (+8 for e >= 2), column 8j + 2 (lane % 4) + (e & 1).
 #pragma once
@@ -83,6 +86,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// ---- TMA: the box of a 2-D map at (col, row)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
 // ---- warpgroup register rebalancing
 template <int kRegs>
 __device__ __forceinline__ void setmaxnreg_dec() {
@@ -122,6 +135,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[kN]) {
 }
 template <int kN>
 __device__ __forceinline__ void fence_regs(uint32_t (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int kN>
+__device__ __forceinline__ void fence_regs(int32_t (&d)[kN]) {
 #pragma unroll
   for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
@@ -171,11 +189,64 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
-// ---- host: the TMA map of a [batch, rows, cols] bf16 tensor with a box of
-// one head's 64 columns by 64 rows, 128-byte swizzle; rows past `rows` of a
-// batch read as zeros. The encoder is a driver function, reached through
-// the runtime so that the library links no libcuda.
-inline int make_map_3d(CUtensorMap* map, const void* base, int batch, int rows, int cols) {
+// d[64 x kN] (+)= A . B^T in int32, A [64 x 32] and B [kN x 32] int8, both
+// K-major in shared memory (swizzled descriptors: a k-step of 32 int8 values
+// is 32 bytes, as a bf16 k16 step). d holds kN / 2 registers in the layout
+// above.
+template <int kN>
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[kN / 2], uint64_t a, uint64_t b,
+                                         int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int32_t (&d)[64], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<256>(int32_t (&d)[128], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// ---- host: TMA maps with a 128-byte swizzle. The encoder is a driver
+// function, reached through the runtime so that the library links no
+// libcuda. Elements past a dimension read as zeros.
+inline int tensor_map_encoder(PFN_cuTensorMapEncodeTiled_v12000* out) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -186,8 +257,19 @@ inline int make_map_3d(CUtensorMap* map, const void* base, int batch, int rows, 
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorNotSupported;
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
+  *out = encode;
+  return 0;
+}
+
+// A [batch, rows, cols] bf16 tensor whose rows are `row_stride` and batches
+// `batch_stride` elements apart (both multiples of 8), with a box of one
+// head's 64 columns by 64 rows; rows past `rows` of a batch read as zeros.
+inline int make_map_3d_strided(CUtensorMap* map, const void* base, int batch, int rows, int cols,
+                               long long row_stride, long long batch_stride) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode;
+  if (int err = tensor_map_encoder(&encode)) return err;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_stride * 2, (cuuint64_t)batch_stride * 2};
   const cuuint32_t box[3] = {64, 64, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
@@ -195,6 +277,45 @@ inline int make_map_3d(CUtensorMap* map, const void* base, int batch, int rows, 
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A contiguous [batch, rows, cols] bf16 tensor, as make_map_3d_strided.
+inline int make_map_3d(CUtensorMap* map, const void* base, int batch, int rows, int cols) {
+  return make_map_3d_strided(map, base, batch, rows, cols, cols, (long long)rows * cols);
+}
+
+// A row-major [rows, cols] matrix of `type` (`elem` bytes; rows 16-byte
+// multiples) with a box of `box_cols` columns (128 bytes: one swizzle row)
+// by `box_rows` rows (at most 256).
+inline int make_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem,
+                       int rows, int cols, int box_cols, int box_rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode;
+  if (int err = tensor_map_encoder(&encode)) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  CUresult res = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// An int8 [rows, cols] matrix in boxes of 128 columns by `box_rows` rows.
+inline int make_map_2d_s8(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  return make_map_2d(map, base, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rows, cols, 128, box_rows);
+}
+
+// An fp32 [rows, cols] matrix in boxes of 32 columns by 64 rows (8 KB).
+inline int make_map_2d_f32(CUtensorMap* map, const void* base, int rows, int cols) {
+  return make_map_2d(map, base, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, rows, cols, 32, 64);
+}
+
+// Element (r, c) of a 128-byte-swizzled fp32 box of 64 rows x 32 columns at
+// a 1024-byte aligned address: the 16-byte chunk c / 4 of row r sits at
+// chunk (c / 4) ^ (r % 8).
+__device__ __forceinline__ float swizzled_f32(const float* box, int r, int c) {
+  return box[r * 32 + ((((c >> 2) ^ (r & 7)) << 2) | (c & 3))];
 }
 
 }  // namespace dad_hopper

@@ -472,8 +472,12 @@ def _bias_backward(q, k, v, bias, out, lse, g, live, dqkv) -> None:
             live, mark = torch.empty(nt * nt, dtype=torch.uint8, device=q.device), 1
     ptrs, strides = _dst(dqkv)
     delta = torch.empty_like(lse)
+    terms = None  # the bf16 kernels' fp32 copy of the bias, padded to 128 rows and keys
+    if q.dtype == torch.bfloat16:
+        tn = -(-n // 128) * 128
+        terms = torch.empty((tn, tn), dtype=torch.float32, device=q.device)
     _launch("biased attention backward", "flash_attention_bias_bwd", "dad_bias_attention_bwd",
-            q.device, [q, k, v, out, g, lse, delta, bias, live, *ptrs],
+            q.device, [q, k, v, out, g, lse, delta, bias, live, terms, *ptrs],
             [b, n, h, d, q.stride(1), q.stride(0), *strides, _DTYPES[q.dtype], bias_dtype, mark],
             "iiiilllliii")
     bias_attention_backward.launches += 1
@@ -501,7 +505,9 @@ def bias_attention_backward(q, k, v, bias, out, lse, g, live=None):
     version for CPU tensors; for CUDA tensors the kernels, which write the
     three into one packed ``[B, N, 3, H, D]`` buffer (the results are views
     of it). ``live``: kernel 5's tile marks, written here when not given.
-    One call counts as one launch, though it starts three or four kernels."""
+    One call counts as one launch, though it starts three to five kernels (the
+    tile marks if not given, the bf16 path's padded fp32 copy of the bias terms,
+    delta, the dK/dV pass, the dQ pass)."""
     if q.device.type == "cpu":
         return bias_attention_backward_reference(q, k, v, bias, out, lse, g)
     b, n, h, d = q.shape

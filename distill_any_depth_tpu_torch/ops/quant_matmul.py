@@ -1,11 +1,14 @@
-"""Kernel 9: the W8A8 GEMM that quantizes its activations inside the
-kernel, and its plain version.
+"""Kernel 9: the W8A8 GEMM with dynamic per-row activation quantization,
+and its plain version.
 
 Counterpart of distill_any_depth_tpu/ops/quant_matmul.py (``w8a8_matmul``,
 TPU kernel ``_w8a8_2d``): ``x @ weight.T (+ bias)`` with x quantized per row
-to int8 inside the kernel (it never reaches device memory as int8), the
-weight per output channel, an int32 product and an fp32 dequant epilogue
-``((acc * row_scale) * col_scale) + bias``, cast once to the output dtype.
+to int8, the weight per output channel, an int32 product and an fp32
+dequant epilogue ``((acc * row_scale) * col_scale) + bias``, cast once to
+the output dtype. On the card one call starts two kernels: a pass that
+quantizes each row of x once into an int8 workspace (with its row scales),
+then the int8 GEMM on ``wgmma`` with TMA loads and the epilogue; it counts
+as one launch.
 The numerics are those of ``ops/quant.int8_matmul`` except where the bias
 is added (there after the cast, in the output dtype), as in the JAX package.
 
@@ -82,12 +85,15 @@ def w8a8_matmul(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None
     for name, a in (("x", x2), ("wq", wq), ("ws", ws), ("bias", b)):
         if a is not None and (a.device != x.device or a.data_ptr() % 16):
             raise ValueError(f"W8A8 kernel: {name} must be 16-byte aligned on {x.device}")
-    out = torch.empty((x2.shape[0], n), dtype=out_dtype, device=x.device)
+    m = x2.shape[0]
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)  # the kernels' workspace
+    xs = torch.empty((m,), dtype=torch.float32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.dad_w8a8_matmul(x2.data_ptr(), wq.data_ptr(), ws.data_ptr(),
                                   None if b is None else b.data_ptr(), out.data_ptr(),
-                                  x2.shape[0], n, k, _DTYPES[x.dtype],
+                                  xq.data_ptr(), xs.data_ptr(), m, n, k, _DTYPES[x.dtype],
                                   torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"W8A8 kernel launch failed (error {err})")
@@ -102,6 +108,6 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("w8a8_matmul")
     if lib.dad_w8a8_matmul.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dad_w8a8_matmul.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.dad_w8a8_matmul.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
         lib.dad_w8a8_matmul.restype = i
     return lib

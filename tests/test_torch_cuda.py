@@ -309,6 +309,27 @@ def test_banded_backward_matches_plain_and_bias_backward(cuda_device, gh, gw, wi
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("kernel", ["bias", "banded"])
+def test_masked_backward_is_deterministic(cuda_device, kernel):
+    """Kernels 6 and 8 write every gradient once, without atomics: two calls
+    on the same inputs give d(qkv) equal bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    gh = gw = 37
+    n = gh * gw
+    q, k, v = _masked_qkv(2, n, 4, torch.bfloat16, gen)
+    g = torch.randn(2, n, 4, 64, generator=gen, device=cuda_device).to(torch.bfloat16)
+    if kernel == "bias":
+        wb = local_window_bias(gh, gw, 7, 0, cuda_device, torch.bfloat16)
+        out, lse, live = _bias_forward(q, k, v, wb, with_lse=True)
+        first, second = (bias_attention_backward(q, k, v, wb, out, lse, g, live) for _ in range(2))
+    else:
+        out, lse = _banded_forward(q, k, v, (gw, 7), with_lse=True)
+        first, second = (banded_attention_backward(q, k, v, (gw, 7), out, lse, g)
+                         for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("res,kernel", [(126, "bias"), (70, "banded")])
 def test_windowed_model_runs_masked_kernels(cuda_device, monkeypatch, res, kernel):
     """A tiny windowed model in bf16 runs one launch of its attention kernel
@@ -362,6 +383,40 @@ def test_w8a8_kernel_matches_plain(cuda_device, m, k, n, dtype, with_bias):
     ref = w8a8_reference(x, wq, ws, bias, dtype)
     assert got.dtype == dtype and got.shape == (m, n)
     assert torch.equal(got, ref)
+
+
+# kernel 9 off its tiles: 128 x 256 output tiles, 128-byte K chunks
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [96, 4096])
+@pytest.mark.parametrize("n", [200, 264, 520])
+@pytest.mark.parametrize("m", [1, 100, 129, 257])
+def test_w8a8_kernel_edges_match_plain(cuda_device, m, n, k, dtype, with_bias):
+    test_w8a8_kernel_matches_plain(cuda_device, m, k, n, dtype, with_bias)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_kernel_quantizes_near_ties_exactly(cuda_device, dtype):
+    """Rows whose quotients x / s fall on half-integers (exactly, at
+    power-of-two scales; fp32 also a few ulps off, at random scales): the
+    kernel's quantization, a product checked against the ties, equals the
+    plain version's true division bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    m, k, n = 96, 256, 264
+    half = torch.randint(-127, 127, (m, k), generator=gen, device=cuda_device) + 0.5
+    if dtype == torch.bfloat16:
+        scale = 2.0 ** torch.randint(-8, 4, (m, 1), generator=gen, device=cuda_device)
+        x = half * scale
+    else:
+        scale = torch.rand(m, 1, generator=gen, device=cuda_device) * 0.1 + 1e-3
+        ulps = torch.randint(-3, 4, (m, k), generator=gen, device=cuda_device)
+        x = half * scale * (1 + ulps * 2.0 ** -23)
+    x[:, 0] = 127 * scale[:, 0]  # the row's amax: its scale is `scale`
+    x = x.to(dtype)
+    weight = torch.randn(n, k, generator=gen, device=cuda_device) * k ** -0.5
+    got = w8a8_matmul(x, weight)
+    wq, ws = quantize_weight(weight)
+    assert torch.equal(got, w8a8_reference(x, wq, ws, None, dtype))
 
 
 def test_w8a8_kernel_refuses(cuda_device):

@@ -231,3 +231,24 @@ def test_kernel_bounds_cover_every_tpu_kernel():
     for name, row in table.items():
         if "dense_gop" in row:
             assert row["gop"] <= row["dense_gop"], name
+
+
+@pytest.mark.parametrize("shape,m", [("ViT-L 518^2 bs8", 10960), ("ViT-L 392^2 bs8", 6280),
+                                     ("ViT-B 392^2 bs8", 6280)])
+def test_kernel_bounds_w8a8_shapes(shape, m):
+    """Kernel 9's bound at each of the four encoder GEMMs of the three shapes
+    the paths run; at ViT-L 518^2 qkv it is the 34.8 us of the kernel's
+    header (69.0 GOP at 1979 TOP/s int8, above its 92 MB at 3.35 TB/s)."""
+    from distill_any_depth_tpu_torch.cli import kernel_bounds
+
+    table = kernel_bounds.bounds()
+    dim = 768 if "ViT-B" in shape else 1024
+    for gemm, (k, n) in {"qkv": (dim, 3 * dim), "proj": (dim, dim), "fc1": (dim, 4 * dim),
+                         "fc2": (4 * dim, dim)}.items():
+        row = table[f"9 W8A8 GEMM, {shape} {gemm}"]
+        assert row["gop"] == pytest.approx(2 * m * k * n / 1e9)
+        assert row["mb"] == pytest.approx((m * k * 2 + k * n + n * 8 + m * n * 2) / 1e6)
+    if shape == "ViT-L 518^2 bs8":
+        qkv = table["9 W8A8 GEMM, ViT-L 518^2 bs8 qkv"]
+        assert qkv["bound_by"] == "operations"
+        assert round(qkv["bound_ms"] * 1e3, 1) == 34.8
