@@ -15,8 +15,10 @@ Phases, each of which fails the run if it fails:
    bit for bit;
 5. hold the biased attention kernel (kernel 5) and the banded window
    attention kernel (kernel 7) against their plain versions, and kernel 7
-   against kernel 5 with the window bias, at the windowed model's shapes
-   and at edge grids;
+   against kernel 5 with the window bias bit for bit, at the windowed
+   model's shapes, at edge grids and with every logit below -60 (kernel 5
+   with the window bias); at the path-3 shapes, each kernel against itself:
+   two calls give out and lse equal bit for bit;
 6. main path 1: ``cli.infer.predict`` with ``depthanything-base`` at 392^2,
    bs8, bf16 and seeded random weights; check its output and the kernels'
    launch counts, and hold one image against the port's CPU fp32 forward of
@@ -62,10 +64,11 @@ Phases, each of which fails the run if it fails:
    3 ``Trainer`` steps at bs16 392^2 with kernel 9's launches per step,
    then two steps of ``cli.train --teacher_quant int8_pallas``;
 16. time each kernel, its plain version and its PyTorch library yardstick
-   with CUDA events (kernels 1 and 3 and their SDPA yardsticks also by the
-   profiler's device time, with the SDPA backend's kernel names; kernels
-   6, 8 and 9 also by the device time of each kernel a call starts; kernel 9
-   also beside bf16 ``F.linear``), the
+   with CUDA events (kernels 1, 3, 5 and 7 and their SDPA yardsticks also
+   by the profiler's device time, with the SDPA backend's kernel names,
+   kernels 5 and 7 also at path 4's bs16 with the log-sum-exp; kernels 5-9
+   also by the device time of each kernel a call starts; kernel 9 also
+   beside bf16 ``F.linear``), the
    end-to-end forwards (the ViT-L 518^2 forward with each quant mode) and
    the bs16 train steps (bf16 and int8 teacher).
 
@@ -486,11 +489,11 @@ def phase_select(gen) -> int:
 
 
 # ---------------------------------------------------------------- phase 5
-def masked_inputs(b, n, h, dtype, gen):
+def masked_inputs(b, n, h, dtype, gen, negative=False):
     """q, k, v ``[B, N, H, 64]`` viewed in place in one packed qkv, as the
-    encoder hands them to the biased and banded kernels."""
-    qkv = torch.randn(b, n, 3 * h * 64, generator=gen, device="cuda").to(dtype)
-    return qkv.view(b, n, 3, h, 64).unbind(2)
+    encoder hands them to the biased and banded kernels (every logit below
+    -60 if asked)."""
+    return attention_inputs(b, n, h, dtype, gen, negative).view(b, n, 3, h, 64).unbind(2)
 
 
 def held(name, got, refs: dict, tol, exact=(), l2_tol=None, tag="masked attention") -> float:
@@ -531,8 +534,8 @@ def held(name, got, refs: dict, tol, exact=(), l2_tol=None, tag="masked attentio
     return abs_err
 
 
-def bias_case(name, b, n, h, dtype, bias, tol, gen) -> float:
-    q, k, v = masked_inputs(b, n, h, dtype, gen)
+def bias_case(name, b, n, h, dtype, bias, tol, gen, negative=False) -> float:
+    q, k, v = masked_inputs(b, n, h, dtype, gen, negative)
     before = mha_flash_bias.launches
     got = mha_flash_bias(q, k, v, bias)
     check(mha_flash_bias.launches == before + 1, f"bias {name}: the kernel did not run")
@@ -541,11 +544,12 @@ def bias_case(name, b, n, h, dtype, bias, tol, gen) -> float:
                 {"plain": mha_bias_reference(q, k, v, bias)}, tol)
 
 
-def banded_case(name, b, gh, gw, window, h, dtype, tol, gen, dense_plain=False) -> float:
+def banded_case(name, b, gh, gw, window, h, dtype, tol, gen, dense_plain=False,
+                negative=False) -> float:
     """Kernel 7 against its plain version, and kernel 5 with the window bias
     bit for bit (the two visit the same live tiles with the same arithmetic);
     if asked, against the dense plain version with that bias too."""
-    q, k, v = masked_inputs(b, gh * gw, h, dtype, gen)
+    q, k, v = masked_inputs(b, gh * gw, h, dtype, gen, negative)
     before = mha_flash_banded.launches
     got = mha_flash_banded(q, k, v, (gw, window))
     check(mha_flash_banded.launches == before + 1, f"banded {name}: the kernel did not run")
@@ -587,6 +591,32 @@ def phase_window_attention(gen) -> tuple[float, float]:
     for gh, gw, window in ((50, 110, 7), (3, 1000, 7), (9, 9, 3), (3, 5, 7), (13, 29, 5)):
         banded_case("edge grid", 2, gh, gw, window, 4, bf16, BF16_ATTN_TOL, gen)
         banded_case("edge grid", 2, gh, gw, window, 4, f32, 1e-5, gen)
+
+    # every logit below -60 (phase 2's inputs): the exponentials of scores
+    # far below 0, taken against the running max
+    g = WINDOW_RES[0] // 14
+    wb = local_window_bias(g, g, 7, 0, "cuda", f32)
+    bias_case("logits < -60, window", 2, g * g, 4, f32, wb, 1e-5, gen, negative=True)
+    bias_case("logits < -60, window", 2, g * g, 4, bf16, wb.to(bf16), BF16_ATTN_TOL, gen,
+              negative=True)
+    g = WINDOW_RES[1] // 14
+    banded_case("logits < -60", 2, g, g, 7, 4, f32, 1e-5, gen, negative=True)
+    banded_case("logits < -60", 2, g, g, 7, 4, bf16, BF16_ATTN_TOL, gen, negative=True)
+
+    # two calls at path 3's shapes, with the row log-sum-exp: out and lse
+    # equal bit for bit
+    for res in WINDOW_RES:
+        g = res // 14
+        q, k, v = masked_inputs(BATCH, g * g, 12, bf16, gen)
+        if res == WINDOW_RES[0]:
+            wb = local_window_bias(g, g, 7, 0, "cuda", bf16)
+            deterministic(f"kernel 5 with the window bias B={BATCH} grid {g}x{g} bf16",
+                          lambda: _bias_forward(q, k, v, wb, with_lse=True)[:2],
+                          tag="masked attention")
+        else:
+            deterministic(f"kernel 7 B={BATCH} grid {g}x{g} bf16",
+                          lambda: _banded_forward(q, k, v, (g, 7), with_lse=True),
+                          tag="masked attention")
     return err5, err7
 
 
@@ -602,9 +632,9 @@ def masked_grad_inputs(b, n, h, dtype, gen, negative=False):
 def bias_grad_case(name, b, n, h, dtype, bias, tol, gen, negative=False, l2_tol=None) -> float:
     """Kernel 6 against its plain version from kernel 5's out and lse."""
     q, k, v, g = masked_grad_inputs(b, n, h, dtype, gen, negative)
-    out, lse, live = _bias_forward(q, k, v, bias, with_lse=True)
+    out, lse, live, terms = _bias_forward(q, k, v, bias, with_lse=True)
     before = bias_attention_backward.launches
-    got = bias_attention_backward(q, k, v, bias, out, lse, g, live)
+    got = bias_attention_backward(q, k, v, bias, out, lse, g, live, terms)
     check(bias_attention_backward.launches == before + 1, f"bias grad {name}: no kernel launch")
     btype = "none" if bias is None else str(bias.dtype)[6:]
     return held(f"bias grad {name}: B={b} N={n} H={h} {str(dtype)[6:]} bias {btype}", got,
@@ -612,12 +642,13 @@ def bias_grad_case(name, b, n, h, dtype, bias, tol, gen, negative=False, l2_tol=
                 tol, l2_tol=l2_tol, tag="masked grad")
 
 
-def deterministic(name, call) -> None:
-    """Two calls of a backward give d(qkv) equal bit for bit."""
+def deterministic(name, call, tag="masked grad") -> None:
+    """Two calls give their outputs (a tuple: d(qkv), or out and lse) equal
+    bit for bit."""
     first, second = call(), call()
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(first, second))
-    log(f"[masked grad] {name}: two calls {'equal bit for bit, ok' if same else 'differ, FAIL'}")
+    log(f"[{tag}] {name}: two calls {'equal bit for bit, ok' if same else 'differ, FAIL'}")
     check(same, f"{name} is not deterministic")
 
 
@@ -1341,40 +1372,74 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
           library_note="torch.kthvalue over int64 order bits, one k for every row: the "
                        "value, not the first index")
 
-    # kernels 5 and 7 at the windowed teacher's bs8 shapes: 518^2 with the
-    # window bias, 1036^2 banded. The bound counts the products of the live
-    # (query, key) pairs, which this run's window mask sets; "dense_gflop" and
-    # "band_gflop" are what the kernels' loops could visit.
+    # kernels 5 and 7 at the windowed teacher's bs8 shapes (518^2 with the
+    # window bias, 1036^2 banded) and at the windowed student's bs16 with the
+    # log-sum-exp, as path 4 runs them: CUDA events and the profiler's device
+    # time by kernel (the bias kernel's first pass apart), beside SDPA with
+    # the additive mask (events and device time). The bound counts the
+    # products of the live (query, key) pairs, which this run's window mask
+    # sets; "dense_gflop" and "band_gflop" are what the kernels' loops could
+    # visit.
     h = 12
     c = h * d
     bf16 = torch.bfloat16
     for key, res in zip(("attention_bias", "attention_banded"), WINDOW_RES):
         g = res // 14
-        n = g * g
-        q, k, v = masked_inputs(BATCH, n, h, bf16, gen)
+        n, band = g * g, (g, 7)
         wb = local_window_bias(g, g, 7, 0, "cuda", bf16)
         live = int(torch.isfinite(wb).sum())
-        sd = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(*sd, attn_mask=wb), iters=20)
-        nbytes = 4 * BATCH * n * c * 2
+        rows = {}
+        for b, with_lse in ((BATCH, False), (WINDOW_TRAIN_BATCH[res], True)):
+            q, k, v = masked_inputs(b, n, h, bf16, gen)
+            if key == "attention_bias":
+                def fwd():
+                    return _bias_forward(q, k, v, wb, with_lse)
+            else:
+                def fwd():
+                    return _banded_forward(q, k, v, band, with_lse)
+            sd = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+
+            def sdpa():
+                return F.scaled_dot_product_attention(*sd, attn_mask=wb)
+
+            lib_dev, lib_kernels = device_ms(sdpa)
+            nbytes = 4 * b * n * c * 2 + (b * h * n * 4 if with_lse else 0)
+            if key == "attention_bias":
+                nbytes += wb.numel() * 2
+            split = device_split(fwd)
+            rows[b] = dict(B=b, N=n, H=h, res=res, with_lse=with_lse,
+                           ms=cuda_ms(fwd, iters=50), device_ms=sum(split.values()),
+                           device_split=split, library_ms=cuda_ms(sdpa, iters=20),
+                           library_device_ms=lib_dev, library_kernels=lib_kernels,
+                           bound_ms=bound(4.0 * b * h * d * live, nbytes)[0])
+            log(f"[timing] kernel {5 if key == 'attention_bias' else 7} {res}^2 bs{b}: "
+                f"{json.dumps(rows[b])}")
+            if b == BATCH:
+                plain = cuda_ms((lambda: mha_bias_reference(q, k, v, wb))
+                                if key == "attention_bias"
+                                else (lambda: mha_banded_reference(q, k, v, band)), iters=5)
+            del q, k, v, sd
+        a = rows[BATCH]
+        extra = dict(device_ms=a["device_ms"], device_split=a["device_split"],
+                     library_device_ms=a["library_device_ms"],
+                     library_kernels=a["library_kernels"],
+                     train_shape=rows[WINDOW_TRAIN_BATCH[res]],
+                     shape={"B": BATCH, "N": n, "H": h, "res": res},
+                     library_note="SDPA with the additive window mask")
         if key == "attention_bias":
             entry("bias_attention_fwd", key, "flash_attention_bias.cu",
-                  "ops/flash_attention.py:410", errs[key],
-                  cuda_ms(lambda: mha_flash_bias(q, k, v, wb), iters=50),
-                  cuda_ms(lambda: mha_bias_reference(q, k, v, wb), iters=5), lib,
-                  4.0 * BATCH * h * d * live, nbytes + wb.numel() * 2,
-                  launches=wcounts[res][key], shape={"B": BATCH, "N": n, "H": h, "res": res},
-                  dense_gflop=4.0 * BATCH * h * d * n * n / 1e9)
+                  "ops/flash_attention.py:410", errs[key], a["ms"], plain, a["library_ms"],
+                  4.0 * BATCH * h * d * live, 4 * BATCH * n * c * 2 + wb.numel() * 2,
+                  launches=wcounts[res][key], dense_gflop=4.0 * BATCH * h * d * n * n / 1e9,
+                  **extra)
         else:
-            band = (g, 7)
             entry("banded_attention_fwd", key, "flash_attention_banded.cu",
-                  "ops/flash_attention.py:330", errs[key],
-                  cuda_ms(lambda: mha_flash_banded(q, k, v, band), iters=50),
-                  cuda_ms(lambda: mha_banded_reference(q, k, v, band), iters=5), lib,
-                  4.0 * BATCH * h * d * live, nbytes,
-                  launches=wcounts[res][key], shape={"B": BATCH, "N": n, "H": h, "res": res},
-                  band_gflop=4.0 * BATCH * h * d * n * 7 * g / 1e9)
-        del q, k, v, sd, wb
+                  "ops/flash_attention.py:330", errs[key], a["ms"], plain, a["library_ms"],
+                  4.0 * BATCH * h * d * live, 4 * BATCH * n * c * 2,
+                  launches=wcounts[res][key], band_gflop=4.0 * BATCH * h * d * n * 7 * g / 1e9,
+                  **extra)
+        del wb
+        torch.cuda.empty_cache()
 
     # kernels 6 and 8 at the windowed student's bs16 training shapes, from
     # kernel 5's and 7's out, lse (and tile marks); the library yardstick is
@@ -1395,17 +1460,19 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
         nbytes = 8 * b * n * c * 2
         shape = {"B": b, "N": n, "H": h, "res": res}
         if key == "attention_bias_bwd":
-            out, lse, marks = _bias_forward(q, k, v, wb, with_lse=True)
+            out, lse, marks, terms = _bias_forward(q, k, v, wb, with_lse=True)
             entry("bias_attention_bwd", key, "flash_attention_bias_bwd.cu",
                   "ops/flash_attention.py:973", errs[key],
-                  cuda_ms(lambda: bias_attention_backward(q, k, v, wb, out, lse, go, marks)),
+                  cuda_ms(lambda: bias_attention_backward(q, k, v, wb, out, lse, go, marks,
+                                                          terms)),
                   cuda_ms(lambda: bias_attention_backward_reference(q, k, v, wb, out, lse, go),
                           iters=3),
                   lib, 10.0 * b * h * d * live, nbytes + wb.numel() * 2,
                   launches=wtrain[res]["counts"][key], shape=shape,
                   dense_gflop=10.0 * b * h * d * n * n / 1e9,
                   device_split=device_split(
-                      lambda: bias_attention_backward(q, k, v, wb, out, lse, go, marks), 5))
+                      lambda: bias_attention_backward(q, k, v, wb, out, lse, go, marks, terms),
+                      5))
         else:
             out, lse = _banded_forward(q, k, v, band, with_lse=True)
             entry("banded_attention_bwd", key, "flash_attention_banded_bwd.cu",

@@ -39,10 +39,11 @@ ITERS, TOP = 10, 25  # forwards traced, kernels listed
 # GEMMs are ``nvjet_*`` or ``*_cublas``.
 CLASSES = (
     ("attention kernel", r"packed_attn_(wgmma|fp32)"),
-    ("bias attention kernel", r"masked_attn_kernel.*BiasMask|tile_live_kernel"),
-    ("banded attention kernel", r"masked_attn_kernel.*WindowMask"),
-    ("bias attention backward kernel",
-     r"(masked_(dkdv|dq)_kernel|(dkdv|dq)_wgmma)<.*BiasMask|bias_f32_kernel"),
+    # the bias's tile marks and fp32 terms: kernel 5's first pass (kernel 6's
+    # too when called without them, as the training path never does)
+    ("bias attention kernel", r"masked_attn_(wgmma|fp32)<.*BiasMask|bias_prep_kernel"),
+    ("banded attention kernel", r"masked_attn_(wgmma|fp32)<.*WindowMask"),
+    ("bias attention backward kernel", r"(masked_(dkdv|dq)_kernel|(dkdv|dq)_wgmma)<.*BiasMask"),
     ("banded attention backward kernel",
      r"(masked_(dkdv|dq)_kernel|(dkdv|dq)_wgmma)<.*WindowMask"),
     ("attention backward kernel (packed; all deltas)", r"(dkdv|dq)_(wgmma|fp32)|delta_kernel"),

@@ -27,15 +27,19 @@
 //                                 `at`, and -inf for a key >= N;
 //   int2 inv_tiles(int k0)        the first and last q tile (inclusive)
 //                                 that may see the key tile at k0.
-// The bf16 backward on wgmma (masked_attention_bwd.cuh) reads the terms from
-// registers or from a stage its producer loads by TMA, and never loads a
-// dead tile:
+// The bf16 forward and backward on wgmma (masked_attention.cuh,
+// masked_attention_bwd.cuh) read the terms from registers or from a stage
+// their producer loads by TMA, and never load a dead tile:
 //   kTmaTerms, kStageFloats       whether the terms arrive by TMA, and the
 //                                 floats of one stage of them;
 //   bool any_live(q_lo, q_hi, k_lo, k_hi)  called by a whole warp, the same
 //                                 answer on every lane: whether rows
 //                                 [q_lo, q_hi) and keys [k_lo, k_hi) (both
 //                                 within N) hold a live pair;
+//   add_terms(s[32], scale, Row[2], k0, rl, terms)   forward: s = s * scale
+//                                 + term for a thread's accumulator, rows rl
+//                                 and rl + 8 of the block, columns k0 + 8j +
+//                                 2 (lane % 4) + e of the stage's keys;
 //   kcols(base, KCol[16]), qterm(Row, KCol, rl, kl, terms)   dQ pass: the
 //                                 state of a thread's 16 key columns base +
 //                                 8j + e, and the term of block row rl and
@@ -53,55 +57,50 @@ namespace dad_attn {
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// One block per (key tile, q tile): live[q tile * nk + key tile] = whether
-// the tile of the bias holds a finite entry (rows and keys < N).
+// Rows (and columns) of the terms that the bf16 kernels read by TMA: N
+// rounded up to the 128 rows of their blocks, so that no box leaves the
+// array.
+__host__ __device__ constexpr int term_rows(int n) { return (n + 127) / 128 * 128; }
+
+// One block per 64 x 64 tile of the [tn, tn] terms, tn = term_rows(N). If
+// asked, terms = the bias (0 without one) at rows and keys < N and -inf past
+// N, fp32: what the bf16 kernels read by TMA (an odd N's bias rows are no
+// TMA stride). If asked, live[q tile * nk + key tile] = whether the tile
+// holds a finite entry, for the nk x nk tiles within N.
 template <typename TB>
 __global__ void __launch_bounds__(256)
-    tile_live_kernel(const TB* __restrict__ bias, int n, int nk, unsigned char* __restrict__ live) {
+    bias_prep_kernel(const TB* __restrict__ bias, int n, int nk, int tn,
+                     unsigned char* __restrict__ live, float* __restrict__ terms) {
   const int k0 = blockIdx.x * kTile, q0 = blockIdx.y * kTile;
   bool any = false;
   for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
-    int row = q0 + i / kTile, key = k0 + i % kTile;
-    if (row < n && key < n) any |= to_float(bias[(long)row * n + key]) != -INFINITY;
+    const int row = q0 + i / kTile, key = k0 + i % kTile;
+    float x = -INFINITY;
+    if (row < n && key < n) x = bias == nullptr ? 0.f : to_float(bias[(long)row * n + key]);
+    if (terms != nullptr) terms[(long)row * tn + key] = x;
+    any |= x != -INFINITY;
   }
   any = __syncthreads_or(any);
-  if (threadIdx.x == 0) live[blockIdx.y * nk + blockIdx.x] = any;
+  if (live != nullptr && threadIdx.x == 0 && blockIdx.x < nk && blockIdx.y < nk)
+    live[blockIdx.y * nk + blockIdx.x] = any;
 }
 
+// The tile marks (live, or null) and the fp32 terms (terms, or null) of the
+// bias, in one launch.
 template <typename TB>
-cudaError_t mark_live_tiles(const TB* bias, int n, unsigned char* live, cudaStream_t st) {
-  const int nk = (n + kTile - 1) / kTile;
-  tile_live_kernel<TB><<<dim3(nk, nk), 256, 0, st>>>(bias, n, nk, live);
+cudaError_t bias_prep(const TB* bias, int n, unsigned char* live, float* terms, cudaStream_t st) {
+  const int nk = (n + kTile - 1) / kTile, tn = term_rows(n);
+  const int tiles = terms != nullptr ? tn / kTile : nk;
+  bias_prep_kernel<TB><<<dim3(tiles, tiles), 256, 0, st>>>(bias, n, nk, tn, live, terms);
   return cudaGetLastError();
 }
 
-// out [np, np] fp32 = the bias (0 without one) for rows and keys < N, -inf
-// past N: the terms of the bf16 backward, read by TMA.
-template <typename TB>
-__global__ void __launch_bounds__(256)
-    bias_f32_kernel(const TB* __restrict__ bias, int n, int np, float* __restrict__ out) {
-  const long i = (long)blockIdx.x * 256 + threadIdx.x;
-  if (i >= (long)np * np) return;
-  const int row = (int)(i / np), key = (int)(i % np);
-  float x = -INFINITY;
-  if (row < n && key < n)
-    x = bias == nullptr ? 0.f : to_float(bias[(long)row * n + key]);
-  out[i] = x;
-}
-
-template <typename TB>
-cudaError_t bias_f32(const TB* bias, int n, int np, float* out, cudaStream_t st) {
-  const unsigned blocks = (unsigned)(((long)np * np + 255) / 256);
-  bias_f32_kernel<TB><<<blocks, 256, 0, st>>>(bias, n, np, out);
-  return cudaGetLastError();
-}
-
-// An additive [N, N] bias (or none: every key < N is live), staged per tile
-// as fp32 in shared memory with coalesced loads: consecutive threads read
+// An additive [N, N] bias (or none: every key < N is live). The fp32
+// kernels stage it per tile as fp32 in shared memory with coalesced loads: consecutive threads read
 // consecutive keys of a row (the rows of an odd N are not 4-byte aligned, so
 // the loads are scalar). Row stride kBs = 68 floats keeps the accumulator-
 // order reads to 2-way bank conflicts, and the transposed reads of the
-// dK/dV pass (rows = keys) conflict-free. `live` holds tile_live_kernel's
+// dK/dV pass (rows = keys) conflict-free. `live` holds bias_prep_kernel's
 // marks (null without a bias).
 template <typename TB>
 struct BiasMask {
@@ -137,11 +136,11 @@ struct BiasMask {
   __device__ int2 tiles(int) const { return make_int2(0, (n - 1) / kTile); }
   __device__ int2 inv_tiles(int) const { return make_int2(0, (n - 1) / kTile); }
 
-  // ---- the wgmma backward: the terms arrive by TMA from bias_f32_kernel's
-  // copy, as 128-byte-swizzled fp32 boxes of 64 rows x 32 columns: the dQ
-  // pass's stage holds rows [q0, q0+128) x keys [k0, k0+64) (boxes 2 * (r /
-  // 64) + c / 32), the dK/dV pass's rows [q0, q0+64) x keys [k0, k0+128)
-  // (boxes c / 32).
+  // ---- the wgmma kernels: the terms arrive by TMA from bias_prep_kernel's
+  // copy, as 128-byte-swizzled fp32 boxes of 64 rows x 32 columns: the
+  // forward's and the dQ pass's stage holds rows [q0, q0+128) x keys [k0,
+  // k0+64) (boxes 2 * (r / 64) + c / 32), the dK/dV pass's rows [q0, q0+64)
+  // x keys [k0, k0+128) (boxes c / 32).
   static constexpr bool kTmaTerms = true;
   static constexpr int kStageFloats = 2 * kTile * kTile;
   struct KCol {};
@@ -155,6 +154,25 @@ struct BiasMask {
   }
   __device__ void kcols(int, KCol (&)[16]) const {}
   __device__ void qcols(int, QCol (&)[16]) const {}
+  // two neighbouring keys' terms in one 8-byte load: keys 2c, 2c + 1 share
+  // a 16-byte chunk of the swizzled box
+  __device__ void add_terms(float (&s)[32], float scale, const Row (&)[2], int, int rl,
+                            const float* t) const {
+    const int cq = threadIdx.x & 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rl + 8 * r;
+      const float* box = t + (row >> 6) * 2 * 2048 + (row & 63) * 32;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {  // keys 8j + 2cq, + 1: box j / 4, chunk 2 (j % 4) + cq / 2
+        const int chunk = (2 * (j & 3) + (cq >> 1)) ^ (row & 7);
+        const float2 x = *reinterpret_cast<const float2*>(box + (j >> 2) * 2048 + chunk * 4 +
+                                                          2 * (cq & 1));
+        s[4 * j + 2 * r] = fmaf(s[4 * j + 2 * r], scale, x.x);
+        s[4 * j + 2 * r + 1] = fmaf(s[4 * j + 2 * r + 1], scale, x.y);
+      }
+    }
+  }
   __device__ float qterm(const Row&, const KCol&, int rl, int kl, const float* t) const {
     return dad_hopper::swizzled_f32(t + ((rl >> 6) * 2 + (kl >> 5)) * 2048, rl & 63, kl & 31);
   }
@@ -166,26 +184,41 @@ struct BiasMask {
 // The window mask of a row-major (gh, gw) grid with no prefix tokens:
 // query (y, x) sees the keys of the window x window block around its
 // centre, the centre clamped to [half, max(g - 1 - half, half)] on each
-// axis (ops/window.py's corner completion). Each tile stages its 64 keys'
-// grid coordinates (forward, dQ) or its 64 queries' clamped centres (dK/dV),
-// one division each, so that the per-score test is two compares. A key or
+// axis (ops/window.py's corner completion). The fp32 kernels stage per tile
+// its 64 keys' grid coordinates (forward, dQ) or its 64 queries' clamped
+// centres (dK/dV), one division each, so that the per-score test is two
+// compares; the bf16 kernels step the coordinates in registers. A key or
 // query past N gets a coordinate no window reaches.
 struct WindowMask {
   static constexpr size_t kScratch = (size_t)kTile * sizeof(int2);
   static constexpr int kFar = 1 << 20;
   int n, gh, gw, half;
+  // a query's window: the keys of grid rows [ylo, ylo + yspan] and columns
+  // [xlo, xlo + 2 half] (see); ylo = kFar for a query past N, which sees none
   struct Row {
-    int cy, cx;
-    bool ok;
+    int ylo, yspan, xlo;
   };
   struct Key {
     int ky, kx;
   };
   __device__ static int clampi(int x, int lo, int hi) { return x < lo ? lo : (x > hi ? hi : x); }
-  __device__ Row row(int r) const {
+  // a query's clamped window centre (y, x)
+  __device__ int2 centre(int r) const {
     int y = r / gw, x = r - y * gw;
-    return {clampi(y, half, max(gh - 1 - half, half)), clampi(x, half, max(gw - 1 - half, half)),
-            r < n};
+    return make_int2(clampi(y, half, max(gh - 1 - half, half)),
+                     clampi(x, half, max(gw - 1 - half, half)));
+  }
+  __device__ Row row(int r) const {
+    if (r >= n) return {kFar, 0, kFar};
+    const int2 c = centre(r);
+    return {c.x - half, min(c.x + half, gh - 1) - (c.x - half), c.y - half};
+  }
+  // whether the row sees the key at grid cell (ky, kx): two unsigned range
+  // tests, no branch; a key past N (ky >= gh, or -kFar) is outside every
+  // row's span
+  __device__ bool sees(const Row& r, int ky, int kx) const {
+    return ((unsigned)(ky - r.ylo) <= (unsigned)r.yspan) &
+           ((unsigned)(kx - r.xlo) <= (unsigned)(2 * half));
   }
   __device__ Key key(int kidx) const {
     if (kidx >= n) return {-kFar, -kFar};
@@ -201,14 +234,13 @@ struct WindowMask {
   }
   __device__ void stage_t(unsigned char* sm, int q0, int) const {
     if (threadIdx.x < kTile) {
-      Row r = row(q0 + threadIdx.x);
-      reinterpret_cast<int2*>(sm)[threadIdx.x] = r.ok ? make_int2(r.cy, r.cx)
-                                                      : make_int2(kFar, kFar);
+      const int q = q0 + threadIdx.x;
+      reinterpret_cast<int2*>(sm)[threadIdx.x] = q < n ? centre(q) : make_int2(kFar, kFar);
     }
   }
   __device__ float at(const unsigned char* sm, const Row& r, int, int kl) const {
     int2 k = reinterpret_cast<const int2*>(sm)[kl];
-    return r.ok && abs(r.cy - k.x) <= half && abs(r.cx - k.y) <= half ? 0.f : -INFINITY;
+    return sees(r, k.x, k.y) ? 0.f : -INFINITY;
   }
   __device__ float at_t(const unsigned char* sm, const Key& k, int, int ql) const {
     int2 c = reinterpret_cast<const int2*>(sm)[ql];
@@ -234,7 +266,7 @@ struct WindowMask {
     return make_int2(r_lo * gw / kTile, ((r_hi + 1) * gw - 1) / kTile);
   }
 
-  // ---- the wgmma backward: terms 0 or -inf computed in registers from the
+  // ---- the wgmma kernels: terms 0 or -inf computed in registers from the
   // grid coordinates of the accumulator's rows and columns, nothing staged.
   static constexpr bool kTmaTerms = false;
   static constexpr int kStageFloats = 0;
@@ -282,6 +314,18 @@ struct WindowMask {
       c[i] = key < n ? KCol{y, x} : KCol{-kFar, -kFar};
     });
   }
+  // the forward: the walk's grid cells need no test of their own for a key
+  // past N, whose row is at least gh
+  __device__ void add_terms(float (&s)[32], float scale, const Row (&rows)[2], int k0, int,
+                            const float*) const {
+    walk16(k0 + 2 * (threadIdx.x & 3), [&](int i, int, int y, int x) {
+      const int j = i >> 1, e = i & 1;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        s[4 * j + 2 * r + e] =
+            fmaf(s[4 * j + 2 * r + e], scale, sees(rows[r], y, x) ? 0.f : -INFINITY);
+    });
+  }
   __device__ void qcols(int base, QCol (&c)[16]) const {
     const int top_y = max(gh - 1 - half, half), top_x = max(gw - 1 - half, half);
     walk16(base, [&](int i, int q, int y, int x) {
@@ -292,7 +336,7 @@ struct WindowMask {
   // branches)
   __device__ bool near(int d) const { return (unsigned)(d + half) <= (unsigned)(2 * half); }
   __device__ float qterm(const Row& r, const KCol& k, int, int, const float*) const {
-    return r.ok & near(r.cy - k.ky) & near(r.cx - k.kx) ? 0.f : -INFINITY;
+    return sees(r, k.ky, k.kx) ? 0.f : -INFINITY;
   }
   __device__ float kterm(const Key& k, const QCol& c, int, int, const float*) const {
     return near(c.cy - k.ky) & near(c.cx - k.kx) ? 0.f : -INFINITY;
@@ -303,9 +347,9 @@ struct WindowMask {
     bool any = false;
     for (int q = q_lo + (threadIdx.x & 31); q < q_hi && !any; q += 32) {
       const Row r = row(q);
-      const int x0 = max(r.cx - half, 0), x1 = min(r.cx + half, gw - 1);
-      for (int y = max(r.cy - half, 0); y <= min(r.cy + half, gh - 1); ++y)
-        any |= y * gw + x0 < k_hi && y * gw + x1 >= k_lo;
+      const int x1 = min(r.xlo + 2 * half, gw - 1);
+      for (int y = r.ylo; y <= r.ylo + r.yspan; ++y)
+        any |= y * gw + r.xlo < k_hi && y * gw + x1 >= k_lo;
     }
     return __any_sync(0xffffffffu, any);
   }

@@ -1,14 +1,14 @@
-// Tile helpers shared by every attention kernel of csrc/ (packed, biased and
-// banded; forward and backward), for sm_90a.
+// Tile helpers of the fp32 attention kernels of csrc/ (packed, biased and
+// banded; forward and backward) and the backwards' delta pass, for sm_90a.
+// The bf16 kernels run on wgmma (hopper_tiles.cuh).
 //
 // Tiles are 64 rows of one head's 64 columns, staged in shared memory with a
-// 16-byte row pad. A block has 4 warps; warp w owns rows [16w, 16w + 16) of
-// the tile its products write. Accumulators use the mma.sync m16n8k16 layout:
-// acc[j][e] holds row g (+8 for e >= 2) and column 8j + 2t + (e & 1), with
-// g = lane / 4 and t = lane % 4.
+// 16-byte row pad (cp.async). A block has 4 warps; warp w owns rows [16w,
+// 16w + 16) of the tile its products write. Accumulators use the mma.sync
+// m16n8k16 layout: acc[j][e] holds row g (+8 for e >= 2) and column 8j + 2t +
+// (e & 1), with g = lane / 4 and t = lane % 4.
 //
-// Two products cover every attention matmul, in bf16 on the tensor cores and
-// in fp32 as scalar FMAs over the same accumulator ownership:
+// Two products, as scalar FMAs, cover every attention matmul:
 //   nt: acc[16 x 64] += A[16 x 64] . B[64 x 64]^T  (A: this warp's 16 rows)
 //   nn: acc[16 x 64] += P[16 x 64] . B[64 x 64]    (P: an accumulator)
 #pragma once
@@ -41,33 +41,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c[16x8] += a[16x16] * b[16x8], bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ void zero(float (&acc)[8][4]) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -91,58 +64,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* base, int r0, int n, 
     cp_async16(dst + r * kRow + c * (16 / (int)sizeof(T)), src, ok ? 16 : 0);
   }
   asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// bf16 A fragments of this warp's 16 rows of a tile: 4 k-steps of 16 columns.
-__device__ __forceinline__ void load_a_frags(uint32_t (&af)[4][4], const __nv_bfloat16* tile) {
-  constexpr int kRow = row_elems<__nv_bfloat16>();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    int r = warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-    int col = kk * 16 + 8 * (lane >> 4);
-    ldsm_x4(af[kk], tile + r * kRow + col);
-  }
-}
-
-// nt, bf16: acc += A . B^T with A as fragments, B a 64-row smem tile.
-__device__ __forceinline__ void mma_nt(float (&acc)[8][4], const uint32_t (&af)[4][4],
-                                       const __nv_bfloat16* b) {
-  constexpr int kRow = row_elems<__nv_bfloat16>();
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t bfr[4];
-      int row = np * 16 + (lane & 7) + 8 * (lane >> 4);
-      int col = kk * 16 + 8 * ((lane >> 3) & 1);
-      ldsm_x4(bfr, b + row * kRow + col);
-      mma_bf16(acc[2 * np], af[kk], bfr[0], bfr[1]);
-      mma_bf16(acc[2 * np + 1], af[kk], bfr[2], bfr[3]);
-    }
-  }
-}
-
-// nn, bf16: acc += P . B with P given as bf16 pairs in accumulator order
-// (pf[j][0] = row g columns 8j+2t, 8j+2t+1; pf[j][1] = the same of row g+8).
-__device__ __forceinline__ void mma_nn(float (&acc)[8][4], const uint32_t (&pf)[8][2],
-                                       const __nv_bfloat16* b) {
-  constexpr int kRow = row_elems<__nv_bfloat16>();
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0], pf[2 * kk + 1][1]};
-#pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
-      uint32_t bfr[4];
-      int row = kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-      int col = dp * 16 + 8 * (lane >> 4);
-      ldsm_x4_trans(bfr, b + row * kRow + col);
-      mma_bf16(acc[2 * dp], a, bfr[0], bfr[1]);
-      mma_bf16(acc[2 * dp + 1], a, bfr[2], bfr[3]);
-    }
-  }
 }
 
 // nt, fp32: acc += A . B^T, A = this warp's 16 rows of an smem tile.

@@ -10,11 +10,14 @@
 // local_window_bias(gh, gw, window, n_prefix=0).
 //
 // The mask is computed from (gh, gw, window) here and never read: at 1036^2
-// (a 74 x 74 grid) an [N, N] fp32 bias would be 120 MB. Each 64-row q tile,
-// covering grid rows r0..r1, visits only the key tiles of token rows
-// [clip(r0) - half, clip(r1) + half] (_band_bounds_traced), 8 to 10 of the
-// 86 at 1036^2. The kernel body is masked_attention.cuh's, the mask
-// attention_masks.cuh's WindowMask.
+// (a 74 x 74 grid) an [N, N] fp32 bias would be 120 MB. Each 64-row q tile
+// (in bf16, each half of a block's 128 rows), covering grid rows r0..r1,
+// visits only the key tiles of token rows [clip(r0) - half, clip(r1) +
+// half] (_band_bounds_traced), 8 to 10 of the 86 at 1036^2, and skips those
+// its rows do not see. The kernel body is
+// masked_attention.cuh's, the mask attention_masks.cuh's WindowMask: in bf16
+// the window term is computed in registers from the grid coordinates of
+// each score's row and column.
 //
 // Bound at the windowed ViT-B 1036^2 bs8 shape (B=8, N=5476, H=12, D=64,
 // window 7, bf16): a band of 7 grid rows x 74 = 518 keys per query gives
@@ -41,10 +44,10 @@ extern "C" int dad_banded_attention(const void* q, const void* k, const void* v,
   WindowMask m{n, gh, gw, window / 2};
   float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return launch_masked<__nv_bfloat16>(q, k, v, out, l, stride, batch_stride, batch, n, heads,
-                                        scale, m, st);
+    return launch_masked<__nv_bfloat16>(q, k, v, nullptr, out, l, stride, batch_stride, batch, n,
+                                        heads, scale, m, st);
   if (dtype == 1)
-    return launch_masked<float>(q, k, v, out, l, stride, batch_stride, batch, n, heads, scale,
-                                m, st);
+    return launch_masked<float>(q, k, v, nullptr, out, l, stride, batch_stride, batch, n, heads,
+                                scale, m, st);
   return -1;
 }

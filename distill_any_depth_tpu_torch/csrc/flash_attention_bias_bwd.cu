@@ -20,11 +20,11 @@
 // per (q tile, key tile), written by flash_attention_bias.cu's first pass
 // and kept by the caller for the backward): under the window mask at 518^2
 // a 64-row q tile sees 6-7 of 22 key tiles, a key tile is seen by as many q
-// tiles. Without the marks (a call with mark = 1) the first launch writes
-// them here. The bf16 passes (wgmma, masked_attention_bwd.cuh) read the
-// bias by TMA from an fp32 copy padded to N' = N rounded up to 128 (-inf
-// past N), which a launch before them writes into the
-// caller's scratch: an odd N's bias rows are no valid TMA stride.
+// tiles. The bf16 passes (wgmma, masked_attention_bwd.cuh) read the bias by
+// TMA from the fp32 copy padded to N' = N rounded up to 128 (-inf past N)
+// that the bf16 forward wrote too: an odd N's bias rows are no valid TMA
+// stride. A call without the marks (mark = 1) or without the copy (copy =
+// 1) has a first launch write them here.
 
 #include "masked_attention_bwd.cuh"
 
@@ -35,17 +35,16 @@ using namespace dad_attn;
 template <typename T, typename TB>
 int launch_biased_bwd(const void* q, const void* k, const void* v, const void* out,
                       const void* g, const float* lse, float* delta, const void* bias,
-                      unsigned char* live, int mark, float* terms, void* dq, void* dk, void* dv,
-                      long stride, long batch_stride, long dstride, long dbatch_stride,
+                      unsigned char* live, int mark, float* terms, int copy, void* dq, void* dk,
+                      void* dv, long stride, long batch_stride, long dstride, long dbatch_stride,
                       int batch, int n, int heads, float scale, cudaStream_t st) {
   const int nk = (n + kTile - 1) / kTile;
   BiasMask<TB> m{static_cast<const TB*>(bias), bias ? live : nullptr, n, nk};
-  if (bias != nullptr && mark) {
-    cudaError_t err = mark_live_tiles<TB>(m.bias, n, live, st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (std::is_same<T, __nv_bfloat16>::value) {  // the wgmma passes read the terms by TMA
-    cudaError_t err = bias_f32<TB>(m.bias, n, dad_masked_wg::term_rows(n), terms, st);
+  // the wgmma passes read the terms by TMA
+  copy = copy && std::is_same<T, __nv_bfloat16>::value;
+  mark = mark && bias != nullptr;
+  if (mark || copy) {
+    cudaError_t err = bias_prep<TB>(m.bias, n, mark ? live : nullptr, copy ? terms : nullptr, st);
     if (err != cudaSuccess) return (int)err;
   }
   return launch_masked_bwd<T>(q, k, v, out, g, lse, delta, terms, dq, dk, dv, stride,
@@ -56,17 +55,17 @@ int launch_biased_bwd(const void* q, const void* k, const void* v, const void* o
 template <typename T>
 int launch_typed(const void* q, const void* k, const void* v, const void* out, const void* g,
                  const float* lse, float* delta, const void* bias, int bias_dtype,
-                 unsigned char* live, int mark, float* terms, void* dq, void* dk, void* dv,
-                 long stride, long batch_stride, long dstride, long dbatch_stride, int batch,
-                 int n, int heads, float scale, cudaStream_t st) {
+                 unsigned char* live, int mark, float* terms, int copy, void* dq, void* dk,
+                 void* dv, long stride, long batch_stride, long dstride, long dbatch_stride,
+                 int batch, int n, int heads, float scale, cudaStream_t st) {
   if (bias_dtype == 0)
     return launch_biased_bwd<T, __nv_bfloat16>(q, k, v, out, g, lse, delta, bias, live, mark,
-                                               terms, dq, dk, dv, stride, batch_stride, dstride,
-                                               dbatch_stride, batch, n, heads, scale, st);
+                                               terms, copy, dq, dk, dv, stride, batch_stride,
+                                               dstride, dbatch_stride, batch, n, heads, scale, st);
   // an fp32 bias, or none
-  return launch_biased_bwd<T, float>(q, k, v, out, g, lse, delta, bias, live, mark, terms, dq,
-                                     dk, dv, stride, batch_stride, dstride, dbatch_stride, batch,
-                                     n, heads, scale, st);
+  return launch_biased_bwd<T, float>(q, k, v, out, g, lse, delta, bias, live, mark, terms, copy,
+                                     dq, dk, dv, stride, batch_stride, dstride, dbatch_stride,
+                                     batch, n, heads, scale, st);
 }
 
 }  // namespace
@@ -75,8 +74,9 @@ int launch_typed(const void* q, const void* k, const void* v, const void* out, c
 // `batch_stride` apart; out, g: [B, N, H*64] contiguous; lse: [B, H, N] fp32
 // from the forward; delta: fp32 scratch of B*H*N floats; bias: [N, N]
 // contiguous, or null; live: the forward's ceil(N/64)^2 tile marks (null
-// without a bias), written first if mark != 0; terms: fp32 scratch of N'^2
-// floats, N' = N rounded up to 128 (bfloat16 only; null for float32); dq,
+// without a bias), written first if mark != 0; terms: the bf16 forward's
+// fp32 [N', N'] copy of the bias, N' = N rounded up to 128, written first
+// if copy != 0 (bfloat16 only; null for float32); dq,
 // dk, dv: [B, N, H, 64] with rows `dstride` elements apart and batches
 // `dbatch_stride` apart.
 // dtype: 0 = bfloat16, 1 = float32 (q, k, v, out, g, dq, dk, dv);
@@ -88,7 +88,8 @@ extern "C" int dad_bias_attention_bwd(const void* q, const void* k, const void* 
                                       void* dq, void* dk, void* dv, int batch, int n, int heads,
                                       int head_dim, long long stride, long long batch_stride,
                                       long long dstride, long long dbatch_stride, int dtype,
-                                      int bias_dtype, int mark, float scale, void* stream) {
+                                      int bias_dtype, int mark, int copy, float scale,
+                                      void* stream) {
   if (head_dim != kD || n <= 0 || batch <= 0 || heads <= 0 || heads > 65535 || batch > 65535)
     return -1;
   if ((bias == nullptr) != (bias_dtype == -1) || bias_dtype < -1 || bias_dtype > 1) return -1;
@@ -101,11 +102,11 @@ extern "C" int dad_bias_attention_bwd(const void* q, const void* k, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_typed<__nv_bfloat16>(q, k, v, out, g, l, dl, bias, bias_dtype, marks, mark, t,
-                                       dq, dk, dv, stride, batch_stride, dstride, dbatch_stride,
-                                       batch, n, heads, scale, st);
+                                       copy, dq, dk, dv, stride, batch_stride, dstride,
+                                       dbatch_stride, batch, n, heads, scale, st);
   if (dtype == 1)
-    return launch_typed<float>(q, k, v, out, g, l, dl, bias, bias_dtype, marks, mark, t, dq, dk,
-                               dv, stride, batch_stride, dstride, dbatch_stride, batch, n, heads,
-                               scale, st);
+    return launch_typed<float>(q, k, v, out, g, l, dl, bias, bias_dtype, marks, mark, t, copy, dq,
+                               dk, dv, stride, batch_stride, dstride, dbatch_stride, batch, n,
+                               heads, scale, st);
   return -1;
 }

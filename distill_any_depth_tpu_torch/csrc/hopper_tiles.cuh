@@ -1,5 +1,6 @@
 // Hopper building blocks of the bf16 attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu, masked_attention_bwd.cuh) and of the int8 W8A8
+// flash_attention_bwd.cu, masked_attention.cuh, masked_attention_bwd.cuh)
+// and of the int8 W8A8
 // GEMM (w8a8_matmul.cu), for sm_90a: mbarriers, TMA tile loads,
 // 128-byte-swizzled wgmma descriptors, bf16 and int8 wgmma products and
 // warpgroup register rebalancing.
@@ -151,6 +152,12 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
+
+// e^x for an argument formed in natural units, as the plain versions form it
+// (folding log2 e into an earlier scale and offset rounds large terms
+// differently and flips bf16 roundings of the result): 2^(x log2 e) on the
+// special-function unit.
+__device__ __forceinline__ float exp_nat(float x) { return exp2_ftz(x * 1.4426950408889634f); }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

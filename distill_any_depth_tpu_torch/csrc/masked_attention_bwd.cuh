@@ -280,10 +280,6 @@ constexpr int kStages = 3;
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kBox = 64 * kD;              // elements of one TMA box (8 KB)
 
-// Rows (and columns) of the terms a Mask::kTmaTerms policy reads: N rounded
-// up to the 128 owned rows of a block, so that no box leaves the array.
-__host__ __device__ constexpr int term_rows(int n) { return (n + kBM - 1) / kBM * kBM; }
-
 // Shared memory: two owned operands of kBM rows, kStages stages of two
 // streamed tiles and of the mask's terms (1024-byte aligned TMA boxes), the
 // barriers, each stage's lse and delta rows (pass 2) and streamed tile index.
@@ -335,14 +331,6 @@ __device__ __forceinline__ void store_acc(bf16* base, const float (&acc)[32], in
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// exp(x) for x = s * D^-1/2 + term - lse, formed in natural units as the
-// plain version forms it (the log2 e folded into the scale and lse instead
-// rounds the large terms differently and flips more bf16 roundings of p);
-// then 2^(x log2 e) on the special-function unit.
-__device__ __forceinline__ float exp_arg(float x) {
-  return exp2_ftz(x * 1.4426950408889634f);
 }
 
 // The streamed tile of sequence position i, once its stage is in; -1 past
@@ -468,8 +456,8 @@ __device__ __forceinline__ void dq_elementwise(const float (&s)[32], const float
       const int rl = rows.rl + 8 * r;
       const float t0 = mask.qterm(rows.row[r], cols[2 * j], rl, kl, terms);
       const float t1 = mask.qterm(rows.row[r], cols[2 * j + 1], rl, kl + 1, terms);
-      const float p0 = round_bf16(exp_arg(s[4 * j + 2 * r] * scale + t0 - rows.lse[r]));
-      const float p1 = round_bf16(exp_arg(s[4 * j + 2 * r + 1] * scale + t1 - rows.lse[r]));
+      const float p0 = round_bf16(exp_nat(s[4 * j + 2 * r] * scale + t0 - rows.lse[r]));
+      const float p1 = round_bf16(exp_nat(s[4 * j + 2 * r + 1] * scale + t1 - rows.lse[r]));
       tf[2 * j + r] = pack_bf16(p0 * (dp[4 * j + 2 * r] - rows.delta[r]),
                                 p1 * (dp[4 * j + 2 * r + 1] - rows.delta[r]));
     }
@@ -528,8 +516,8 @@ __device__ __forceinline__ void dkdv_elementwise(const float (&s)[32], const flo
       const float t0 = mask.kterm(keys[r], cols[2 * j], kl, ql, terms);
       const float t1 = mask.kterm(keys[r], cols[2 * j + 1], kl, ql + 1, terms);
       const __nv_bfloat162 p =
-          __floats2bfloat162_rn(exp_arg(s[4 * j + 2 * r] * scale + t0 - l0),
-                                exp_arg(s[4 * j + 2 * r + 1] * scale + t1 - l1));
+          __floats2bfloat162_rn(exp_nat(s[4 * j + 2 * r] * scale + t0 - l0),
+                                exp_nat(s[4 * j + 2 * r + 1] * scale + t1 - l1));
       pf[2 * j + r] = *reinterpret_cast<const uint32_t*>(&p);
       tf[2 * j + r] = pack_bf16(__low2float(p) * (dp[4 * j + 2 * r] - d0),
                                 __high2float(p) * (dp[4 * j + 2 * r + 1] - d1));
@@ -716,7 +704,8 @@ int launch(const void* q, const void* k, const void* v, const void* g, const flo
   if (!err) err = make_map_3d_strided(&k_map, k, batch, n, c, stride, batch_stride);
   if (!err) err = make_map_3d_strided(&v_map, v, batch, n, c, stride, batch_stride);
   if (!err) err = make_map_3d(&g_map, g, batch, n, c);
-  if (!err && Mask::kTmaTerms) err = make_map_2d_f32(&t_map, terms, term_rows(n), term_rows(n));
+  if (!err && Mask::kTmaTerms)
+    err = make_map_2d_f32(&t_map, terms, dad_attn::term_rows(n), dad_attn::term_rows(n));
   if (err) return err;
   const size_t smem = Smem<Mask>::kBytes;
   const dim3 grid((n + kBM - 1) / kBM, heads, batch);

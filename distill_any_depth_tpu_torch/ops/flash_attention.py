@@ -397,27 +397,38 @@ def _checked_bias(bias: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return bias.contiguous()
 
 
+def _term_rows(n: int) -> int:
+    """Rows and columns of the bias terms that the bf16 kernels read: N
+    rounded up to 128 (their blocks' rows)."""
+    return -(-n // 128) * 128
+
+
 def _bias_forward(q, k, v, bias, with_lse: bool):
     """Kernel 5 on CUDA tensors: ``out [B, N, H, D]``, the row log-sum-exp
-    ``[B, H, N]`` fp32 if asked, and the (q tile, key tile) live marks of
-    the bias that its first pass writes (None without a bias), which the
-    backward reads again. With a bias one call launches two kernels and
-    counts as one launch."""
+    ``[B, H, N]`` fp32 if asked, the (q tile, key tile) live marks of the
+    bias (None without a bias) and, in bf16, the bias's padded fp32 terms
+    ``[N', N']`` (N' = N rounded up to 128, -inf past N; None in fp32). Its
+    first pass writes the marks and the terms, and the backward reads both
+    again. With a bias or in bf16 one call launches two kernels and counts
+    as one launch."""
     _check_heads("biased attention", q, k, v)
     b, n, h, d = q.shape
-    live, bias_dtype = None, -1
+    live, bias_dtype, terms = None, -1, None
     if bias is not None:
         bias = _checked_bias(bias, q)
         nt = -(-n // _TILE)
         live = torch.empty(nt * nt, dtype=torch.uint8, device=q.device)
         bias_dtype = _DTYPES[bias.dtype]
+    if q.dtype == torch.bfloat16:
+        tn = _term_rows(n)
+        terms = torch.empty((tn, tn), dtype=torch.float32, device=q.device)
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
     _launch("biased attention", "flash_attention_bias", "dad_bias_attention", q.device,
-            [q, k, v, bias, live, out, lse], [b, n, h, d, q.stride(1), q.stride(0),
-                                              _DTYPES[q.dtype], bias_dtype], "iiiillii")
+            [q, k, v, bias, live, terms, out, lse],
+            [b, n, h, d, q.stride(1), q.stride(0), _DTYPES[q.dtype], bias_dtype], "iiiillii")
     mha_flash_bias.launches += 1
-    return out, lse, live
+    return out, lse, live, terms
 
 
 def _banded_forward(q, k, v, band, with_lse: bool):
@@ -457,29 +468,34 @@ def _dst(dqkv: torch.Tensor) -> tuple[list, list]:
     return list(dqkv.unbind(2)), [dqkv.stride(1), dqkv.stride(0)]
 
 
-def _bias_backward(q, k, v, bias, out, lse, g, live, dqkv) -> None:
-    """Kernel 6 into the packed ``dqkv [B, N, 3, H, D]``; ``live`` None
-    marks the tiles first."""
+def _bias_backward(q, k, v, bias, out, lse, g, live, terms, dqkv) -> None:
+    """Kernel 6 into the packed ``dqkv [B, N, 3, H, D]``: ``live`` None
+    marks the tiles first, ``terms`` None (bf16) writes the padded fp32
+    copy of the bias first."""
     _check_heads("biased attention backward", q, k, v)
     g = _grad_operands(q, out, lse, g)
     b, n, h, d = q.shape
-    bias_dtype, mark = -1, 0
+    bias_dtype, mark, copy = -1, 0, 0
     if bias is not None:
         bias = _checked_bias(bias, q)
         bias_dtype = _DTYPES[bias.dtype]
         if live is None:
             nt = -(-n // _TILE)
             live, mark = torch.empty(nt * nt, dtype=torch.uint8, device=q.device), 1
+    if q.dtype != torch.bfloat16:
+        terms = None  # the fp32 kernels stage the bias itself
+    elif terms is None:
+        tn = _term_rows(n)
+        terms, copy = torch.empty((tn, tn), dtype=torch.float32, device=q.device), 1
+    elif terms.shape != (_term_rows(n),) * 2 or terms.dtype != torch.float32 \
+            or terms.device != q.device or not terms.is_contiguous():
+        raise ValueError(f"biased attention backward: terms {tuple(terms.shape)} {terms.dtype}")
     ptrs, strides = _dst(dqkv)
     delta = torch.empty_like(lse)
-    terms = None  # the bf16 kernels' fp32 copy of the bias, padded to 128 rows and keys
-    if q.dtype == torch.bfloat16:
-        tn = -(-n // 128) * 128
-        terms = torch.empty((tn, tn), dtype=torch.float32, device=q.device)
     _launch("biased attention backward", "flash_attention_bias_bwd", "dad_bias_attention_bwd",
             q.device, [q, k, v, out, g, lse, delta, bias, live, terms, *ptrs],
-            [b, n, h, d, q.stride(1), q.stride(0), *strides, _DTYPES[q.dtype], bias_dtype, mark],
-            "iiiilllliii")
+            [b, n, h, d, q.stride(1), q.stride(0), *strides, _DTYPES[q.dtype], bias_dtype, mark,
+             copy], "iiiilllliiii")
     bias_attention_backward.launches += 1
 
 
@@ -498,21 +514,21 @@ def _banded_backward(q, k, v, band, out, lse, g, dqkv) -> None:
     banded_attention_backward.launches += 1
 
 
-def bias_attention_backward(q, k, v, bias, out, lse, g, live=None):
+def bias_attention_backward(q, k, v, bias, out, lse, g, live=None, terms=None):
     """Kernel 6: ``(dq, dk, dv)`` of ``mha_flash_bias`` (q, k, v ``[B, N, H,
     D]``, a constant ``[N, N]`` bias or None) from the forward's ``out``,
     its row log-sum-exp ``lse [B, H, N]`` and the cotangent ``g``: the plain
     version for CPU tensors; for CUDA tensors the kernels, which write the
     three into one packed ``[B, N, 3, H, D]`` buffer (the results are views
-    of it). ``live``: kernel 5's tile marks, written here when not given.
-    One call counts as one launch, though it starts three to five kernels (the
-    tile marks if not given, the bf16 path's padded fp32 copy of the bias terms,
-    delta, the dK/dV pass, the dQ pass)."""
+    of it). ``live`` and ``terms``: kernel 5's tile marks and (bf16) padded
+    fp32 bias terms, written here when not given. One call counts as one
+    launch, though it starts three or four kernels (the marks and terms if
+    either is not given, delta, the dK/dV pass, the dQ pass)."""
     if q.device.type == "cpu":
         return bias_attention_backward_reference(q, k, v, bias, out, lse, g)
     b, n, h, d = q.shape
     dqkv = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
-    _bias_backward(q, k, v, bias, out, lse, g, live, dqkv)
+    _bias_backward(q, k, v, bias, out, lse, g, live, terms, dqkv)
     return dqkv.unbind(2)
 
 
@@ -538,30 +554,31 @@ banded_attention_backward.launches = 0
 class _MaskedAttention(torch.autograd.Function):
     """On q, k, v viewed in the packed ``qkv [B, N, 3*H*D]``: kernel 5 (no
     ``band``) or kernel 7 forward with the row log-sum-exp, returning ``out
-    [B, N, H, D]``, and kernel 6 or 8
-    backward writing ``d(qkv)`` in the packed layout. Kernel 5's tile marks
-    are kept for kernel 6. The bias is a constant: it gets no gradient."""
+    [B, N, H, D]``, and kernel 6 or 8 backward writing ``d(qkv)`` in the
+    packed layout. Kernel 5's tile marks and padded fp32 bias terms are kept
+    for kernel 6, which so writes no copy of its own. The bias is a
+    constant: it gets no gradient."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads, bias, band):
         q, k, v = _split(qkv, num_heads)
         if band is None:
-            out, lse, live = _bias_forward(q, k, v, bias, with_lse=True)
+            out, lse, live, terms = _bias_forward(q, k, v, bias, with_lse=True)
         else:
-            (out, lse), bias, live = _banded_forward(q, k, v, band, with_lse=True), None, None
-        ctx.save_for_backward(qkv, out, lse, bias, live)
+            (out, lse), bias, live, terms = _banded_forward(q, k, v, band, True), None, None, None
+        ctx.save_for_backward(qkv, out, lse, bias, live, terms)
         ctx.num_heads, ctx.band = num_heads, band
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        qkv, out, lse, bias, live = ctx.saved_tensors
+        qkv, out, lse, bias, live, terms = ctx.saved_tensors
         q, k, v = _split(qkv, ctx.num_heads)
         dqkv = torch.empty_like(qkv)
         dst = dqkv.view(q.shape[0], q.shape[1], 3, q.shape[2], q.shape[3])
         if ctx.band is None:
-            _bias_backward(q, k, v, bias, out, lse, g, live, dst)
+            _bias_backward(q, k, v, bias, out, lse, g, live, terms, dst)
         else:
             _banded_backward(q, k, v, ctx.band, out, lse, g, dst)
         return dqkv, None, None, None
@@ -596,9 +613,9 @@ def mha_flash_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     by batch and heads (or none): kernel 5 for CUDA tensors, returning
     ``[B, N, H, D]`` contiguous, with kernel 6 as its backward when q, k or
     v requires a gradient (a bias that requires one takes the plain
-    version); the plain version for CPU tensors. With a bias, one call
-    launches two kernels (the tile marks, then attention) and counts as one
-    launch."""
+    version); the plain version for CPU tensors. With a bias or in bf16,
+    one call launches two kernels (the tile marks and the terms, then
+    attention) and counts as one launch."""
     if q.device.type == "cpu" or _trains(bias):
         return mha_bias_reference(q, k, v, bias)
     if q.device.type != "cuda":

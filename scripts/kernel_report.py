@@ -1,23 +1,27 @@
 """What the port's CUDA kernels compiled to, and the device time of each
-launch of kernels 6, 8 and 9 at their main paths' shapes.
+launch of kernels 5-9 at their main paths' shapes.
 
     python scripts/kernel_report.py [ROOT] [--libs a,b] [--iters N]
 
 Imports ``distill_any_depth_tpu_torch`` from ROOT (default: this checkout)
-and builds the libraries ``--libs`` (default: the masked backwards and the
-W8A8 GEMM) there. For each kernel function it prints ptxas's registers,
+and builds the libraries ``--libs`` (default: the masked forwards and
+backwards and the W8A8 GEMM) there. For each kernel function it prints ptxas's registers,
 spills and shared memory, its SASS instruction count (``cuobjdump -sass``)
 and the count of the opcodes that say how its products and loads run:
 ``HGMMA``/``IGMMA`` (warpgroup MMA), ``HMMA``/``IMMA`` (``mma.sync``),
 ``LDSM`` (ldmatrix), ``UTMALDG`` (TMA loads), ``SYNCS`` (mbarrier), ``BAR``,
 ``BRA``, ``MUFU``, ``LDG``, ``LDS``, ``STS``, ``STG``, ``LDGSTS``
-(cp.async). Then it traces (CUDA activity only) kernel 8 at the windowed
-student's 1036^2 bs16 shape (also on separate contiguous q, k, v, and
-kernel 6 with the window bias on the same tiles), kernel 6 at its 518^2
-bs16 shape with the window bias and kernel 9 at the four ViT-L GEMMs at M =
-10960 (518^2 bs8) and 6280 (392^2 bs8), and prints the device time per call
-of every kernel each launch starts, by name. One JSON line at the end; run
-it on a card, with ``nvcc`` and ``cuobjdump`` on the machine.
+(cp.async). Then it traces (CUDA activity only) kernels 5 (with the window
+bias) and 7 at the windowed teacher's bs8 (518^2, 1036^2) and the windowed
+student's bs16 shapes (the latter with the log-sum-exp, as path 4 runs
+them), kernel 8 at the windowed student's 1036^2 bs16 shape (also on
+separate contiguous q, k, v, and kernel 6 with the window bias on the same
+tiles), kernel 6 at its 518^2 bs16 shape with the window bias (from kernel
+5's tile marks and terms, as the training path calls it) and kernel 9 at
+the four ViT-L GEMMs at M = 10960 (518^2 bs8) and 6280 (392^2 bs8), and
+prints the device time per call of every kernel each launch starts, by
+name. One JSON line at the end; run it on a card, with ``nvcc`` and
+``cuobjdump`` on the machine.
 """
 import argparse
 import json
@@ -31,7 +35,8 @@ from pathlib import Path
 
 p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 p.add_argument("root", nargs="?", default=str(Path(__file__).resolve().parents[1]))
-p.add_argument("--libs", default="flash_attention_bias_bwd,flash_attention_banded_bwd,"
+p.add_argument("--libs", default="flash_attention_bias,flash_attention_banded,"
+                                 "flash_attention_bias_bwd,flash_attention_banded_bwd,"
                                  "w8a8_matmul")
 p.add_argument("--iters", type=int, default=10)
 args = p.parse_args()
@@ -131,6 +136,19 @@ def device_ms(fn, iters: int) -> dict:
     return {short(e.key)[:120]: e.self_device_time_total / iters / 1e3 for e in rows}
 
 
+def bias_forward(q, k, v, bias):
+    """Kernel 5 with the log-sum-exp: out, lse, the tile marks and the
+    kept terms (None from a tree whose kernel 6 writes its own copy)."""
+    r = fa._bias_forward(q, k, v, bias, with_lse=True)
+    return (*r, None) if len(r) == 3 else r
+
+
+def bias_backward(q, k, v, bias, out, lse, go, marks, terms):
+    """Kernel 6 as the training path calls it."""
+    kept = () if terms is None else (terms,)
+    return fa.bias_attention_backward(q, k, v, bias, out, lse, go, marks, *kept)
+
+
 report = {"root": args.root, "device": torch.cuda.get_device_name(0), "libraries": {}}
 names = args.libs.split(",")
 logs = _build.build_all(names)
@@ -148,6 +166,21 @@ for name in names:
 gen = torch.Generator(device="cuda").manual_seed(0)
 bf16, h, d = torch.bfloat16, 12, 64
 times = {}
+for res, b in ((518, 8), (518, 16), (1036, 8), (1036, 16)):
+    g = res // 14
+    n = g * g
+    qkv = torch.randn(b, n, 3 * h * d, generator=gen, device="cuda").to(bf16)
+    q, k, v = qkv.view(b, n, 3, h, d).unbind(2)
+    with_lse = b == 16  # the training forward writes the log-sum-exp
+    if res == 518:
+        wb = local_window_bias(g, g, 7, 0, "cuda", bf16)
+        times[f"kernel 5, {res}^2 bs{b}"] = device_ms(
+            lambda: fa._bias_forward(q, k, v, wb, with_lse), args.iters)
+        del wb
+    else:
+        times[f"kernel 7, {res}^2 bs{b}"] = device_ms(
+            lambda: fa._banded_forward(q, k, v, (g, 7), with_lse), args.iters)
+    del qkv, q, k, v
 for res, b in ((1036, 16), (518, 16)):
     g = res // 14
     n = g * g
@@ -165,15 +198,15 @@ for res, b in ((1036, 16), (518, 16)):
             lambda: fa.banded_attention_backward(qc, kc, vc, (g, 7), out, lse, go), args.iters)
         del qc, kc, vc
         wb = local_window_bias(g, g, 7, 0, "cuda", bf16)
-        marks = fa._bias_forward(q, k, v, wb, with_lse=True)[2]
+        marks, terms = bias_forward(q, k, v, wb)[2:]
         times[f"kernel 6 with the window bias, {res}^2 bs{b}"] = device_ms(
-            lambda: fa.bias_attention_backward(q, k, v, wb, out, lse, go, marks), args.iters)
-        del wb, marks
+            lambda: bias_backward(q, k, v, wb, out, lse, go, marks, terms), args.iters)
+        del wb, marks, terms
     else:
         wb = local_window_bias(g, g, 7, 0, "cuda", bf16)
-        out, lse, marks = fa._bias_forward(q, k, v, wb, with_lse=True)
+        out, lse, marks, terms = bias_forward(q, k, v, wb)
         times[f"kernel 6, {res}^2 bs{b}"] = device_ms(
-            lambda: fa.bias_attention_backward(q, k, v, wb, out, lse, go, marks), args.iters)
+            lambda: bias_backward(q, k, v, wb, out, lse, go, marks, terms), args.iters)
     del qkv, q, k, v, go, out, lse
     torch.cuda.empty_cache()
 for m in (10960, 6280):

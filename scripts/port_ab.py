@@ -7,8 +7,11 @@ imports ``distill_any_depth_tpu_torch`` from ROOT (build its kernels there
 first, as the package does at first use) and prints one JSON line: the
 bs16 392^2 ViT-L -> ViT-B bf16 train step with the bf16 and with the
 ``int8_pallas`` teacher (median of 5 windows of 3 steps on a device-resident
-batch, CUDA events) and the ViT-B 392^2 bs8 bf16 forward (median of 5
-windows of 10). Unpack the parent with ``git archive`` into a git-ignored
+batch, CUDA events), the ViT-B 392^2 bs8 bf16 forward (median of 5 windows
+of 10; path 1), the windowed teacher's 1036^2 bs8 bf16 forward (median of
+5 windows of 5; path 3, kernel 7) and the windowed student's 1036^2 bs16
+bf16 step under the ViT-L teacher (median of 3 windows of 2 steps; path 4,
+kernels 7 and 8). Unpack the parent with ``git archive`` into a git-ignored
 directory and run parent, change, change, parent in one call.
 """
 import json
@@ -16,7 +19,9 @@ import statistics
 import sys
 
 root = sys.argv[1]
-sys.path.insert(0, root)
+# in place of this script's directory, whose profile.py would shadow the
+# standard library's (torch's optimizers import cProfile)
+sys.path[0] = root
 
 import torch  # noqa: E402
 
@@ -47,4 +52,26 @@ with torch.no_grad():
     windows = [cuda_ms(lambda: model(xb), iters=10) for _ in range(5)]
 out["forward_ms"] = statistics.median(windows)
 out["forward_windows"] = windows
+del model
+
+# paths 3 and 4 at 1036^2: the windowed teacher's forward, the windowed
+# student's step
+WINDOW, RES4 = "depthanything-base-window", 1036
+x4 = torch.rand(16, 3, RES4, RES4, generator=torch.Generator().manual_seed(1)).cuda()
+model = create_model(WINDOW, dtype=torch.bfloat16, device="cuda", seed=0)
+xw = x4[:8].to(torch.bfloat16)
+with torch.no_grad():
+    windows = [cuda_ms(lambda: model(xw), iters=5) for _ in range(5)]
+out["window_forward_ms"] = statistics.median(windows)
+out["window_forward_windows"] = windows
+del model
+torch.cuda.empty_cache()
+cfg = TrainConfig(student=model_config(WINDOW), teachers=("depthanything-large",),
+                  batch_size=16, image_size=RES4, output_dir="build/port_ab", log_interval=10 ** 6)
+trainer = Trainer(cfg, "cuda")
+trainer._build_steps(views_shared=True)
+windows = [cuda_ms(lambda: trainer.train_step(trainer.state, 0, x4, x4), iters=2, warmup=1)
+           for _ in range(3)]
+out["window_step_ms"] = statistics.median(windows)
+out["window_step_windows"] = windows
 print(json.dumps(out), flush=True)

@@ -10,7 +10,9 @@ and their backwards: max |err| / (1 + |ref|); tail: max |err| / max
 and 8) are held against their plain versions on the same forward output
 and log-sum-exp, where the two round at the same places (bf16 differs by
 the flips of those roundings), and, through autograd, against autograd of
-the plain forward. The W8A8 GEMM (kernel 9) equals its plain version bit
+the plain forward. Kernel 7 equals kernel 5 with the window bias bit for
+bit (out and lse), also with every logit below -60, and two calls of each
+agree bit for bit. The W8A8 GEMM (kernel 9) equals its plain version bit
 for bit: the same true divisions, an exact integer product, the same
 roundings in the dequant.
 """
@@ -228,6 +230,77 @@ def test_banded_kernel_matches_plain_and_bias_kernel(cuda_device, gh, gw, window
     assert torch.equal(got, mha_flash_bias(q, k, v, wb))
 
 
+def _negative_qkv(b, n, h, dtype, gen):
+    """q, k, v as ``_masked_qkv``, with every logit below -60: q along +u,
+    the keys along -u (chip_smoke.py's inputs)."""
+    c = h * 64
+    qkv = torch.randn(b, n, 3 * c, generator=gen, device=gen.device)
+    u = torch.full((64,), 0.125, device=gen.device)
+    qkv[:, :, :c] = 0.01 * qkv[:, :, :c] + (80 * u).repeat(h)
+    qkv[:, :, c:2 * c] = 0.01 * qkv[:, :, c:2 * c] - (10 * u).repeat(h)
+    q, k, v = qkv.view(b, n, 3, h, 64).unbind(2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * 0.125
+    assert s.max() < -60
+    return qkv.to(dtype).view(b, n, 3, h, 64).unbind(2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 6e-3)])
+@pytest.mark.parametrize("gh,gw,window", [(13, 29, 5), (37, 37, 7)])
+def test_masked_forward_below_minus_60(cuda_device, gh, gw, window, dtype, tol):
+    """Kernels 5 (with the window bias) and 7 with every logit below -60:
+    the exponentials of scores far below 0, taken against the running max,
+    hold against the plain versions, and kernel 7 equals kernel 5 (out and
+    lse) bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(gh + gw)
+    n = gh * gw
+    q, k, v = _negative_qkv(2, n, 2, dtype, gen)
+    wb = local_window_bias(gh, gw, window, 0, cuda_device, dtype)
+    out5, lse5 = _bias_forward(q, k, v, wb, with_lse=True)[:2]
+    ref, ref_lse = mha_bias_reference(q, k, v, wb, with_lse=True)
+    _within(out5, ref, tol)
+    assert torch.isfinite(lse5).all() and (lse5 < -50).all()
+    if dtype == torch.float32:  # bf16 sums rounded exponentials in another order
+        assert ((lse5 - ref_lse).abs() <= 1e-5 * (1 + ref_lse.abs())).all()
+    out7, lse7 = _banded_forward(q, k, v, (gw, window), with_lse=True)
+    _within(out7, mha_banded_reference(q, k, v, (gw, window)), tol)
+    assert torch.equal(out7, out5) and torch.equal(lse7, lse5)
+
+
+# the edge grids of test_banded_kernel_matches_plain_and_bias_kernel
+EDGE_GRIDS = [(9, 9, 3), (3, 5, 7), (12, 20, 7), (50, 110, 7), (3, 1000, 7), (13, 29, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gh,gw,window", EDGE_GRIDS)
+def test_banded_forward_equals_bias_forward(cuda_device, gh, gw, window, dtype):
+    """Kernel 7 and kernel 5 with the window bias visit the same live tiles
+    in the same order with the same arithmetic: out and lse equal bit for
+    bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(gh * gw + 2)
+    q, k, v = _masked_qkv(2, gh * gw, 2, dtype, gen)
+    wb = local_window_bias(gh, gw, window, 0, cuda_device, dtype)
+    out5, lse5 = _bias_forward(q, k, v, wb, with_lse=True)[:2]
+    out7, lse7 = _banded_forward(q, k, v, (gw, window), with_lse=True)
+    assert torch.equal(out7, out5) and torch.equal(lse7, lse5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["bias", "banded"])
+def test_masked_forward_is_deterministic(cuda_device, kernel, dtype):
+    """Two calls of kernel 5 (window bias, 518^2's 37 x 37 grid) or kernel 7
+    (1036^2's 74 x 74) give out and lse equal bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    g = 37 if kernel == "bias" else 74
+    q, k, v = _masked_qkv(2, g * g, 4, dtype, gen)
+    if kernel == "bias":
+        wb = local_window_bias(g, g, 7, 0, cuda_device, dtype)
+        first, second = (_bias_forward(q, k, v, wb, with_lse=True)[:2] for _ in range(2))
+    else:
+        first, second = (_banded_forward(q, k, v, (g, 7), with_lse=True) for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_masked_kernels_refuse(cuda_device):
     q, k, v = _masked_qkv(1, 16, 2, torch.float32, torch.Generator(device=cuda_device))
     with pytest.raises(TypeError):
@@ -251,12 +324,14 @@ def _grads_within(got, ref, tol):
         _within(a, b, tol)
 
 
+@pytest.mark.parametrize("kept", [True, False], ids=["kept", "own"])
 @pytest.mark.parametrize("dtype,tol", GRAD_TOLS)
 @pytest.mark.parametrize("kind,n", [
     ("window", 81), ("window+prefix", 82), ("random", 65), ("segment", 130), ("none", 63),
 ])
-def test_bias_backward_matches_plain(cuda_device, kind, n, dtype, tol):
-    """Kernel 6 against its plain version from kernel 5's out and lse, and
+def test_bias_backward_matches_plain(cuda_device, kind, n, dtype, tol, kept):
+    """Kernel 6 against its plain version from kernel 5's out and lse, given
+    kernel 5's tile marks and bias terms (``kept``) or writing its own, and
     the autograd path of ``mha_flash_bias`` (kernels 5 + 6) against
     autograd of the plain forward."""
     gen = torch.Generator(device=cuda_device).manual_seed(n + 1)
@@ -269,9 +344,11 @@ def test_bias_backward_matches_plain(cuda_device, kind, n, dtype, tol):
         "none": lambda: None,
     }[kind]()
     g = torch.randn(2, n, 2, 64, generator=gen, device=cuda_device).to(dtype)
-    out, lse, live = _bias_forward(q, k, v, bias, with_lse=True)
+    out, lse, live, terms = _bias_forward(q, k, v, bias, with_lse=True)
+    if not kept:
+        live = terms = None
     before = bias_attention_backward.launches
-    got = bias_attention_backward(q, k, v, bias, out, lse, g, live)
+    got = bias_attention_backward(q, k, v, bias, out, lse, g, live, terms)
     assert bias_attention_backward.launches == before + 1
     _grads_within(got, bias_attention_backward_reference(q, k, v, bias, out, lse, g), tol)
     # the autograd path: kernel 5 with lse, then kernel 6
@@ -303,9 +380,9 @@ def test_banded_backward_matches_plain_and_bias_backward(cuda_device, gh, gw, wi
     _grads_within(got, banded_attention_backward_reference(q, k, v, (gw, window), out, lse, g),
                   tol)
     wb = local_window_bias(gh, gw, window, 0, cuda_device, dtype)
-    out5, lse5, live = _bias_forward(q, k, v, wb, with_lse=True)
+    out5, lse5, live, terms = _bias_forward(q, k, v, wb, with_lse=True)
     assert torch.equal(out5, out) and torch.equal(lse5, lse)
-    for a, b in zip(got, bias_attention_backward(q, k, v, wb, out, lse, g, live)):
+    for a, b in zip(got, bias_attention_backward(q, k, v, wb, out, lse, g, live, terms)):
         assert torch.equal(a, b)
 
 
@@ -320,8 +397,9 @@ def test_masked_backward_is_deterministic(cuda_device, kernel):
     g = torch.randn(2, n, 4, 64, generator=gen, device=cuda_device).to(torch.bfloat16)
     if kernel == "bias":
         wb = local_window_bias(gh, gw, 7, 0, cuda_device, torch.bfloat16)
-        out, lse, live = _bias_forward(q, k, v, wb, with_lse=True)
-        first, second = (bias_attention_backward(q, k, v, wb, out, lse, g, live) for _ in range(2))
+        out, lse, live, terms = _bias_forward(q, k, v, wb, with_lse=True)
+        first, second = (bias_attention_backward(q, k, v, wb, out, lse, g, live, terms)
+                         for _ in range(2))
     else:
         out, lse = _banded_forward(q, k, v, (gw, 7), with_lse=True)
         first, second = (banded_attention_backward(q, k, v, (gw, 7), out, lse, g)

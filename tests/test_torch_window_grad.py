@@ -11,6 +11,10 @@
   and the plain lse against the JAX kernel's.
 - A bias that requires a gradient: the port's ``mha_flash`` (the plain
   attention) returns dbias equal to the JAX einsum fallback's.
+- The autograd Function of the card's training path (kernels 5 + 6 and
+  7 + 8 on the packed qkv), its kernel launches stood in for by the plain
+  versions, with kernel 5's saved bias terms feeding the backward,
+  against ``jax.grad`` of the JAX ``mha_flash``.
 - The explicit banded plain backward equal to autograd of the dense plain
   attention with the window bias.
 - A 3-step trajectory of a tiny windowed student (2 blocks, width 64,
@@ -163,6 +167,65 @@ def test_banded_plain_backward_equals_dense_autograd(gh, gw, window):
     got = fa.banded_attention_backward_reference(q, k, v, (gw, window), out, lse, g)
     for a, x in zip(got, xs):
         _close(a.numpy(), x.grad.numpy(), 3e-6)
+
+
+def _plain_kernels(monkeypatch, calls):
+    """Stand in for the four kernel launches of ``_MaskedAttention`` with
+    their plain versions, as the card runs them: kernel 5 returns padded
+    fp32 terms (N rounded up to 128, -inf past N) for the backward, and
+    kernel 6 reads its bias from them. ``calls`` records what each got."""
+    def bias_forward(q, k, v, bias, with_lse):
+        n = q.shape[1]
+        tn = -(-n // 128) * 128
+        terms = torch.full((tn, tn), -torch.inf)
+        terms[:n, :n] = 0.0 if bias is None else bias
+        calls["terms"] = terms
+        return (*fa.mha_bias_reference(q, k, v, bias, with_lse=True), None, terms)
+
+    def bias_backward(q, k, v, bias, out, lse, g, live, terms, dqkv):
+        n = q.shape[1]
+        calls["backward_terms"] = terms
+        dqkv.copy_(torch.stack(fa.bias_attention_backward_reference(
+            q, k, v, terms[:n, :n], out, lse, g), dim=2))
+
+    def banded_backward(q, k, v, band, out, lse, g, dqkv):
+        dqkv.copy_(torch.stack(fa.banded_attention_backward_reference(
+            q, k, v, band, out, lse, g), dim=2))
+
+    monkeypatch.setattr(fa, "_bias_forward", bias_forward)
+    monkeypatch.setattr(fa, "_bias_backward", bias_backward)
+    monkeypatch.setattr(fa, "_banded_forward",
+                        lambda q, k, v, band, with_lse: fa.mha_banded_reference(
+                            q, k, v, band, with_lse=True))
+    monkeypatch.setattr(fa, "_banded_backward", banded_backward)
+
+
+@pytest.mark.parametrize("banded", [False, True], ids=["bias", "banded"])
+def test_masked_attention_function_matches_jax(monkeypatch, banded):
+    """The autograd Function of the card's training path (kernels 5 + 6 or
+    7 + 8 on the packed qkv), its kernel launches stood in for by their
+    plain versions: d(qkv) against ``jax.grad`` of the JAX ``mha_flash``,
+    and kernel 5's terms handed to kernel 6 as they were saved."""
+    if banded:
+        monkeypatch.setattr(jax_fa, "_BANDED_MIN_SEQ", 0)
+        gh, gw, window = 12, 20, 7
+        n, band, bias = gh * gw, (gw, window), None
+        jbias = local_window_bias(gh, gw, window, 0).numpy()
+    else:
+        n, band = 145, None
+        jbias = _bias("window", n, seed=0)
+        bias = torch.from_numpy(jbias)
+    calls = {}
+    _plain_kernels(monkeypatch, calls)
+    q, k, v, g = _inputs(2, n, 2, seed=n + 5)
+    want = _jax_grads(q, k, v, g, jbias, band=band)
+    qkv = torch.from_numpy(np.stack([q, k, v], axis=2).reshape(2, n, 3 * 2 * 64))
+    qkv.requires_grad_()
+    fa._MaskedAttention.apply(qkv, 2, bias, band).backward(torch.from_numpy(g))
+    for a, b in zip(qkv.grad.view(2, n, 3, 2, 64).unbind(2), want):
+        _close(a.numpy(), b)
+    if not banded:
+        assert calls["backward_terms"] is calls["terms"]
 
 
 # ---------------------------------------------------------------- trajectory
