@@ -10,9 +10,15 @@ Phases, each of which fails the run if it fails:
    against their plain versions (autograd of the plain attention for the
    backward), across the tile edges (N = 128, 129), and kernel 3 against
    itself: two calls give d(qkv) equal bit for bit;
-3. hold the DPT-head tail kernel (kernel 2) against its plain version;
+3. hold the DPT-head tail kernel (kernel 2) against its plain version, at
+   every path's shape (C = 128 at 392^2, 518^2 and 1036^2; C = 256 at
+   392^2, 518^2 and path 4's 1036^2 teacher chunk) and at ragged shapes
+   across its tile edges for each C in bf16 and fp32, and in bf16 against
+   its own second call, bit for bit;
 4. hold the order-statistic select (kernel 4) against its plain version,
-   bit for bit;
+   bit for bit, at the HDN loss's [112, 392^2] and [112, 1036^2] rows (ties,
+   +-0, an all-masked and an all-valid row, k at both ends, rows whose
+   chosen first-digit bin overfills the candidate buffers);
 5. hold the biased attention kernel (kernel 5) and the banded window
    attention kernel (kernel 7) against their plain versions, and kernel 7
    against kernel 5 with the window bias bit for bit, at the windowed
@@ -65,7 +71,9 @@ Phases, each of which fails the run if it fails:
    then two steps of ``cli.train --teacher_quant int8_pallas``;
 16. time each kernel, its plain version and its PyTorch library yardstick
    with CUDA events (kernels 1, 3, 5 and 7 and their SDPA yardsticks also
-   by the profiler's device time, with the SDPA backend's kernel names,
+   by the profiler's device time, with the SDPA backend's kernel names;
+   kernel 2 by events and device time at each path's shape, kernel 4 at
+   [112, 392^2] and [112, 1036^2] beside ``torch.kthvalue``;
    kernels 5 and 7 also at path 4's bs16 with the log-sum-exp; kernels 5-9
    also by the device time of each kernel a call starts; kernel 9 also
    beside bf16 ``F.linear``), the
@@ -98,7 +106,11 @@ from distill_any_depth_tpu_torch.configs import (  # noqa: E402
 )
 from distill_any_depth_tpu_torch.models.factory import create_model  # noqa: E402
 from distill_any_depth_tpu_torch.ops import _build  # noqa: E402
-from distill_any_depth_tpu_torch.ops.dpt_tail import fused_dpt_tail, tail_reference  # noqa: E402
+from distill_any_depth_tpu_torch.ops.dpt_tail import (  # noqa: E402
+    fused_dpt_tail,
+    prepare_weights,
+    tail_reference,
+)
 from distill_any_depth_tpu_torch.ops.flash_attention import (  # noqa: E402
     _banded_forward,
     _bias_forward,
@@ -152,6 +164,14 @@ W8A8_SHAPES = {
                                                      (3072, 768))),
 }
 GEMMS = ("qkv", "proj", "fc1", "fc2")
+# kernel 2's shapes on the paths: (label, batch, C, resolution, trailing ReLU);
+# t is [batch, res/14*4, res/14*4, C]
+TAIL_SHAPES = (("path 1 ViT-B 392^2", BATCH, 128, RES, True),
+               ("path 2 ViT-L teacher 392^2", 8, 256, RES, False),
+               ("path 3 518^2", BATCH, 128, 518, False),
+               ("path 3 1036^2", BATCH, 128, 1036, False),
+               ("path 5 ViT-L 518^2", 8, 256, 518, False),
+               ("path 4 ViT-L teacher 1036^2", 8, 256, 1036, False))
 
 BF16_ATTN_TOL = 6e-3  # max |err| / (1 + |ref|), bf16 kernel 1 against its plain version
 # max |err| / (1 + |ref|), bf16 kernels 1 + 3 against autograd of the plain
@@ -234,6 +254,16 @@ def bound(flops: float, nbytes: float, rate: float = PEAK_BF16_FLOPS) -> tuple[f
     default) moving ``nbytes``, and which bounds it."""
     t_ops, t_bytes = flops / rate, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def tail_work(b: int, g4: int, c: int, res: int) -> tuple[float, float]:
+    """Kernel 2's operations and bytes (t read once, the weights, the depth
+    written once) for t [b, g4, g4, c] -> [b, res, res] in bf16."""
+    hu, cm = 2 * g4, c // 2
+    flops = (2.0 * b * hu * hu * 9 * c * cm + 2.0 * b * res * res * 9 * cm * 32
+             + 2.0 * b * res * res * 32)
+    weights = (9 * c * cm + cm + 9 * cm * 32 + 32 + 32 + 1) * 4
+    return flops, b * g4 * g4 * c * 2 + weights + b * res * res * 2
 
 
 def device_ms(fn, iters: int = 20) -> tuple[float, list[str]]:
@@ -411,7 +441,9 @@ def tail_inputs(b, ht, wt, c, dtype, gen):
     return t, weights
 
 
-def tail_case(name, b, ht, wt, c, dtype, out_hw, trailing, tol, gen):
+def tail_case(name, b, ht, wt, c, dtype, out_hw, trailing, tol, gen, twice=False):
+    """Kernel 2 against its plain version (and, with ``twice``, against its own
+    second call, bit for bit); returns the max abs error."""
     t, w = tail_inputs(b, ht, wt, c, dtype, gen)
     got = fused_dpt_tail(t, out_hw, trailing_relu=trailing, **w)
     ref = tail_reference(t, out_hw, trailing_relu=trailing, **w)
@@ -420,11 +452,23 @@ def tail_case(name, b, ht, wt, c, dtype, out_hw, trailing, tol, gen):
     check(bool(torch.isfinite(got).all()), f"tail {name}: non-finite output")
     abs_err, rel_err = errors(got, ref)
     ok = rel_err <= tol
+    same = ""
+    if twice:
+        equal = bool(torch.equal(got, fused_dpt_tail(t, out_hw, trailing_relu=trailing, **w)))
+        same = f" second call bit-equal={equal}"
+        ok = ok and equal
     log(f"[tail] {name}: t={list(t.shape)} -> {list(out_hw)} {str(dtype)[6:]} "
         f"max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} "
-        f"tol=max|err|/max|ref|<={tol:g} {'ok' if ok else 'FAIL'}")
-    check(ok, f"tail {name} outside tolerance")
+        f"tol=max|err|/max|ref|<={tol:g}{same} {'ok' if ok else 'FAIL'}")
+    check(ok, f"tail {name} outside tolerance or not deterministic")
     return abs_err
+
+
+# Ragged shapes across the bf16 kernel's tile edges (64 output columns, 4
+# or 8 output rows a tile; a source patch of up to 5-8 rows and 35-40
+# columns behind each tile): (b, ht, wt, (oh, ow)) for each C
+TAIL_RAGGED = [(1, 1, 1, (14, 14)), (2, 1, 9, (15, 65)), (2, 9, 1, (63, 14)),
+               (1, 33, 32, (129, 70)), (2, 37, 33, (131, 200))]
 
 
 def phase_tail(gen) -> float:
@@ -433,7 +477,7 @@ def phase_tail(gen) -> float:
     # output is bf16 (2^-8 relative).
     tail_case("fp32 C=128", 1, 112, 112, 128, torch.float32, (RES, RES), True, 1e-5, gen)
     err = tail_case("slice shape", BATCH, 112, 112, 128, torch.bfloat16, (RES, RES), True,
-                    2e-2, gen)
+                    2e-2, gen, twice=True)
     for c in (64, 256):
         tail_case(f"fp32 C={c}", 1, 112, 112, c, torch.float32, (RES, RES), True, 1e-5, gen)
         tail_case(f"bf16 C={c}", 1, 112, 112, c, torch.bfloat16, (RES, RES), True, 2e-2, gen)
@@ -447,45 +491,68 @@ def phase_tail(gen) -> float:
         g4 = res // 14 * 4
         tail_case(f"window {res} tail", BATCH, g4, g4, 128, torch.bfloat16, (res, res), False,
                   2e-2, gen)
+    # path 5's ViT-L tail at 518^2 and path 4's teacher chunk at 1036^2 (C = 256)
+    for res in WINDOW_RES:
+        g4 = res // 14 * 4
+        tail_case(f"ViT-L {res} tail", 8, g4, g4, 256, torch.bfloat16, (res, res), False, 2e-2,
+                  gen, twice=True)
+    # no trailing ReLU here: where it clips most of a small output, max |ref|
+    # is tiny and the relative error of any bf16 chain (the plain version's
+    # own, against fp32) passes 2e-2
+    for c in (64, 128, 256):
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+            for b, ht, wt, hw in TAIL_RAGGED:
+                tail_case(f"ragged C={c}", b, ht, wt, c, dtype, hw, False, tol, gen,
+                          twice=dtype == torch.bfloat16)
     return err
 
 
 # ---------------------------------------------------------------- phase 4
-def select_inputs(gen):
-    """Order bits ``[112, 392^2]`` as the HDN loss's SSI medians see them,
-    with ties, +-0, ReLU zeros, a 25%-valid mask, an all-masked and an
-    all-valid row, and k at the median and at both ends of the valid
-    entries."""
-    r, n = HDN_ROWS, RES * RES
+def select_inputs(gen, n=RES * RES):
+    """Order bits ``[112, n]`` as the HDN loss's SSI medians see them, with
+    ties, +-0, ReLU zeros, a 25%-valid mask, an all-masked and an all-valid
+    row, k at the median and at both ends of the valid entries, and two rows
+    whose median's first-digit bin overfills the kernel's candidate buffers
+    with distinct values (uniform in [1, 1.25), all valid; the second with k
+    at its end)."""
+    r = HDN_ROWS
     x = torch.randn(r, n, generator=gen, device="cuda")
     x[0::4] = torch.round(x[0::4] * 4) / 4  # heavy ties
     x[1::4] = torch.relu(x[1::4])  # ReLU zeros
     x[2, : n // 2] = -0.0
     x[2, n // 2:] = 0.0
+    x[8:10] = 1.0 + 0.25 * torch.rand(2, n, generator=gen, device="cuda")
     mask = torch.rand(r, n, generator=gen, device="cuda") < 0.25
     mask[3] = False
-    mask[4:8] = True
+    mask[4:10] = True
     u = _order_bits(x, mask)
     count = mask.sum(dim=-1)
     k = (count - 1).clamp(min=0) // 2
-    k[5], k[6], k[7] = 0, count[6] - 1, n - 1
+    k[5], k[6], k[7], k[9] = 0, count[6] - 1, n - 1, n - 1
     return u, k
 
 
 def phase_select(gen) -> int:
-    """Returns the largest difference of a selected index from the plain
-    version's."""
-    u, k = select_inputs(gen)
-    got = kth_select(u, k)
-    ref = kth_select_reference(u, k)
-    torch.cuda.synchronize()
-    same = bool(torch.equal(got, ref))
-    err = int((got.long() - ref.long()).abs().max())
-    log(f"[select] u={list(u.shape)} int32 order bits: {int((got != ref).sum())} of "
-        f"{u.shape[0]} rows differ from the plain version, by up to {err} positions "
-        f"(exact equality required) {'ok' if same else 'FAIL'}")
-    check(same, "select kernel disagrees with its plain version")
-    return err
+    """Kernel 4 bit for bit against its plain version at the HDN loss's
+    392^2 rows (each block's slice whole in shared memory) and 1036^2 rows
+    (a third of it: the later sweeps also read device memory); returns the
+    largest difference of a selected index from the plain version's."""
+    worst = 0
+    for n in (RES * RES, WINDOW_RES[1] ** 2):
+        u, k = select_inputs(gen, n)
+        ref = kth_select_reference(u, k)
+        got = kth_select(u, k)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, ref))
+        err = int((got.long() - ref.long()).abs().max())
+        worst = max(worst, err)
+        log(f"[select] u={list(u.shape)} int32 order bits: {int((got != ref).sum())} of "
+            f"{u.shape[0]} rows differ from the plain version, by up to {err} positions "
+            f"(exact equality required) {'ok' if same else 'FAIL'}")
+        check(same, "select kernel disagrees with its plain version")
+        del u, k, ref, got
+        torch.cuda.empty_cache()
+    return worst
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1261,6 +1328,7 @@ def phase_pseudo_label():
 def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts,
                  wtrain, qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, gen) -> None:
     kernels = []
+    bf16 = torch.bfloat16
     runs = {"infer_forward": counts, "train_step": train_counts,
             **{f"window_{res}_forward": wcounts[res] for res in WINDOW_RES},
             **{f"window_train_{res}_step": wtrain[res]["counts"] for res in WINDOW_RES},
@@ -1316,16 +1384,38 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
           library_kernels=a["library_kernels"], teacher_shape=attn["teacher"],
           teacher_1036_shape=attn["teacher_1036"])
 
-    # kernel 2 at the inference shape
-    t, w = tail_inputs(BATCH, RES // 14 * 4, RES // 14 * 4, 128, torch.bfloat16, gen)
-    hu, wu = 2 * t.shape[1], 2 * t.shape[2]
-    flops = (2.0 * BATCH * hu * wu * 9 * 128 * 64 + 2.0 * BATCH * RES * RES * 9 * 64 * 32
-             + 2.0 * BATCH * RES * RES * 32)
-    w_bytes = sum(x.numel() for x in w.values()) * 4
-    entry("dpt_tail", "tail", "dpt_tail.cu", "ops/dpt_tail.py:362", errs["tail"],
-          cuda_ms(lambda: fused_dpt_tail(t, (RES, RES), trailing_relu=True, **w)),
-          cuda_ms(lambda: tail_reference(t, (RES, RES), trailing_relu=True, **w)), None,
-          flops, t.numel() * 2 + w_bytes + BATCH * RES * RES * 2)
+    # kernel 2 at every shape a path launches it (bf16; the weights prepared
+    # once, as the model's WeightCache keeps them): CUDA events and the
+    # profiler's device time of its two launches, beside its bound; the
+    # plain version and a call that packs the weights itself at path 1's
+    tail_rows = []
+    for label, b, c, res, relu in TAIL_SHAPES:
+        g4 = res // 14 * 4
+        t, w = tail_inputs(b, g4, g4, c, bf16, gen)
+        prep = prepare_weights(*w.values(), bf16)
+
+        def tail_call():
+            return fused_dpt_tail(t, (res, res), trailing_relu=relu, weights=prep, **w)
+
+        split = device_split(tail_call, 5)
+        flops, nbytes = tail_work(b, g4, c, res)
+        row = dict(shape=label, B=b, C=c, res=res,
+                   ms=cuda_ms(tail_call, iters=20 if res < 1000 else 5),
+                   device_ms=sum(split.values()), device_split=split,
+                   bound_ms=bound(flops, nbytes)[0])
+        if len(tail_rows) == 0:
+            row["plain_ms"] = cuda_ms(lambda: tail_reference(t, (res, res), trailing_relu=relu,
+                                                             **w))
+            row["ms_packing_each_call"] = cuda_ms(
+                lambda: fused_dpt_tail(t, (res, res), trailing_relu=relu, **w))
+        log(f"[timing] kernel 2 {label}: {json.dumps(row)}")
+        tail_rows.append(row)
+        del t, w, prep
+        torch.cuda.empty_cache()
+    a = tail_rows[0]
+    entry("dpt_tail", "tail", "dpt_tail.cu", "ops/dpt_tail.py:362", errs["tail"], a["ms"],
+          a["plain_ms"], None, *tail_work(BATCH, RES // 14 * 4, 128, RES),
+          device_ms=a["device_ms"], device_split=a["device_split"], shapes=tail_rows)
     # kernel 10, the v1 tail (same function and contract), is served by kernel 2
     tail_v1 = {**kernels[-1], "name": "dpt_tail_v1",
                "replaces": "distill_any_depth_tpu/ops/dpt_tail.py:529",
@@ -1360,15 +1450,32 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
           library_device_ms=fb_dev - f_dev, library_kernels=fb_kernels,
           library_note="SDPA forward + backward less forward (events and device times)")
 
-    # kernel 4 at the HDN loss's shape
-    u, kk = select_inputs(gen)
-    wide = u.to(torch.int64) & 0xFFFFFFFF
-    entry("kth_select", "select", "kth_select.cu", "ops/stats.py:131", errs["select"],
-          cuda_ms(lambda: kth_select(u, kk), iters=50),
-          cuda_ms(lambda: kth_select_reference(u, kk), iters=5),
-          cuda_ms(lambda: torch.kthvalue(wide, RES * RES // 2, dim=-1), iters=10),
-          0.0, u.numel() * 4 + kk.numel() * 4 + u.shape[0] * 4,
-          launches=train_counts["select"],
+    # kernel 4 at the HDN loss's shapes: both of a step's launches select
+    # from [112, N] rows (the SSI alignment's medians of the student's and
+    # the teacher's depth over the 7 HDN contexts x 16 images), N = 392^2 on
+    # paths 2 and the int8 teacher, 1036^2 on path 4's large cell
+    select_rows = []
+    for n in (RES * RES, WINDOW_RES[1] ** 2):
+        u, kk = select_inputs(gen, n)
+        wide = u.to(torch.int64) & 0xFFFFFFFF
+        nbytes = u.numel() * 4 + kk.numel() * 4 + u.shape[0] * 4
+        row = dict(R=u.shape[0], N=n, ms=cuda_ms(lambda: kth_select(u, kk), iters=50),
+                   device_ms=device_ms(lambda: kth_select(u, kk))[0],
+                   library_ms=cuda_ms(lambda: torch.kthvalue(wide, n // 2, dim=-1), iters=5),
+                   library_device_ms=device_ms(lambda: torch.kthvalue(wide, n // 2, dim=-1),
+                                               5)[0],
+                   bound_ms=bound(0.0, nbytes)[0])
+        if n == RES * RES:
+            row["plain_ms"] = cuda_ms(lambda: kth_select_reference(u, kk), iters=5)
+        log(f"[timing] kernel 4 [{u.shape[0]}, {n}]: {json.dumps(row)}")
+        select_rows.append(row)
+        del u, kk, wide
+        torch.cuda.empty_cache()
+    a = select_rows[0]
+    entry("kth_select", "select", "kth_select.cu", "ops/stats.py:131", errs["select"], a["ms"],
+          a["plain_ms"], a["library_ms"], 0.0, HDN_ROWS * RES * RES * 4 + HDN_ROWS * 8,
+          launches=train_counts["select"], device_ms=a["device_ms"],
+          library_device_ms=a["library_device_ms"], shapes=select_rows,
           library_note="torch.kthvalue over int64 order bits, one k for every row: the "
                        "value, not the first index")
 
@@ -1382,7 +1489,6 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
     # visit.
     h = 12
     c = h * d
-    bf16 = torch.bfloat16
     for key, res in zip(("attention_bias", "attention_banded"), WINDOW_RES):
         g = res // 14
         n, band = g * g, (g, 7)

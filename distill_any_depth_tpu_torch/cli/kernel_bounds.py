@@ -76,8 +76,18 @@ def bounds() -> dict:
     return {
         "1 packed attention fwd, ViT-B 392^2 bs8": _attention(8, n392, 12, n392, False),
         "2 DPT tail v2, C=128 392^2 bs8": _tail(8, 392, 128),
+        # kernel 2 at the other paths' shapes: the ViT-L teacher of path 2
+        # (C 256 at 392^2), the windowed teacher (path 3), pseudo-labelling
+        # (path 5) and the windowed student's ViT-L teacher chunks (path 4)
+        "2 DPT tail v2, C=256 392^2 bs8": _tail(8, 392, 256),
+        "2 DPT tail v2, C=128 518^2 bs8": _tail(8, 518, 128),
+        "2 DPT tail v2, C=128 1036^2 bs8": _tail(8, 1036, 128),
+        "2 DPT tail v2, C=256 518^2 bs8": _tail(8, 518, 256),
+        "2 DPT tail v2, C=256 1036^2 bs8": _tail(8, 1036, 256),
         "3 packed attention bwd, ViT-B 392^2 bs16": _attention(16, n392, 12, n392, True),
         "4 kth select, [112, 153664] int32": _bound(0.0, 112 * 153664 * 4 + 112 * 8),
+        # the windowed student's 1036^2 step (path 4)
+        "4 kth select, [112, 1073296] int32": _bound(0.0, 112 * 1073296 * 4 + 112 * 8),
         "5 bias attention fwd, window 518^2 bs8": _attention(8, n518, 12, win, False,
                                                              n518 * n518 * 2),
         "6 bias attention bwd, window student 518^2 bs16": _attention(16, n518, 12, win, True,

@@ -49,7 +49,7 @@ CLASSES = (
     ("attention backward kernel (packed; all deltas)", r"(dkdv|dq)_(wgmma|fp32)|delta_kernel"),
     ("select kernel", r"kth_select_kernel"),
     ("w8a8 kernel (quantize pass, GEMM)", r"quantize_rows|gemm_wgmma|w8a8_kernel"),
-    ("tail kernel", r"tail_conv1_kernel|tail_head_kernel"),
+    ("tail kernel", r"tail_conv_wgmma|tail_conv1_f32|tail_head_f32"),
     ("optimizer (fused Adam, norms)", r"fused_adam|FusedAdam|multi_tensor|foreach"),
     ("interpolate", r"upsample_|interp"),
     ("cast to bf16", r"bfloat16_copy_kernel"),

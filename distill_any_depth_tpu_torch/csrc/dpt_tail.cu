@@ -10,74 +10,75 @@
 //
 // Both 3x3 convs zero-pad by one pixel. Layouts are channels-last (NHWC).
 //
-// Launch 1 (tail_conv1_kernel): 2x upsample + conv1 + b1 -> v [B,2ht,2wt,C/2]
-//   in the input type.
-// Launch 2 (tail_head_kernel): resize to (oh,ow) + conv2 + b2 + ReLU + 1x1 +
-//   bd [+ ReLU] -> depth. The 32-channel conv2 output (78.7 MB in bf16 at
-//   bs8 392^2), the largest intermediate, never leaves the chip.
+// Launch 1 (conv1): 2x upsample + conv1 + b1 -> v [B,2ht,2wt,C/2] in the
+//   input type (the plain version rounds v there too).
+// Launch 2 (head): resize to (oh,ow) + conv2 + b2 + ReLU + 1x1 + bd [+ ReLU]
+//   -> depth. The 32-channel conv2 output, the largest intermediate, never
+//   leaves the chip.
 //
-// Bound at the ViT-B 392^2 bs8 shape (t [8,112,112,128] -> [8,392,392],
-// bf16): conv1 59.2 GFLOP + conv2 45.3 GFLOP is ~106 us of bf16 tensor-core
-// time; one read of t plus the depth write is ~31 MB (~9 us). The v round
-// trip between the launches (+103 MB, ~31 us) stays under the compute
-// bound, so the split costs nothing against it.
+// Bound: the convs' products on the tensor cores. At the ViT-B 392^2 bs8
+// shape (t [8,112,112,128]) conv1 59.2 GFLOP + conv2 45.3 GFLOP is ~106 us
+// at 989 TFLOP/s; at the ViT-L teacher's 1036^2 bs8 chunk (t [8,296,296,256])
+// 1.654 + 0.633 TFLOP, 2.31 ms. The bytes (one read of t, the depth write)
+// are a tenth of that, and the v round trip between the launches (~0.43 ms
+// of bytes at 1036^2) stays under the compute bound.
 //
-// Design: each block computes an 8x16 output tile. It first builds the
-// resized input for the tile plus its one-pixel conv halo (10x18 pixels x
-// all channels) in shared memory, interpolating on the fly from the source,
-// so the upsampled tensors u and w never exist in device memory. The conv is
-// then an implicit GEMM (M = 128 pixels, N = out channels, K = 9 taps x in
-// channels): bf16 on the tensor cores with mma.sync m16n8k16, A fragments
-// gathered by ldmatrix from the halo tile, B fragments read as one 16-byte
-// load per lane from weights the wrapper pre-packs in fragment order. fp32
-// runs the same tiles with scalar FMAs. The bias, ReLU and the 32->1 head
-// reduce in registers (quad shuffles) in launch 2's epilogue.
+// bf16 design, one kernel body for both launches: each conv is an implicit
+// GEMM (M = output pixels, N = C_out, K = 9 taps x C_in) on wgmma with fp32
+// accumulators, in a persistent grid (one block per SM walks output tiles of
+// 2 kMT rows x 64 columns). The block's warps:
+//   - warps 0-7, two consumer warpgroups, own kMT output rows of 64 pixels
+//     each. wgmma reads A by descriptor straight from the halo (the resized
+//     input over the tile and its one-pixel conv border, one 64-channel
+//     chunk at a time, double-buffered), stored channel-group-major ([8
+//     channel groups][pixels][8 channels], no swizzle: a core matrix is 8
+//     neighbouring pixels x 16 bytes), so a tap's (dy, dx) shift is a
+//     16-byte-aligned move of the start address and no copy; a channel
+//     group's pixel pitch is 1 mod 8, so 16-byte stores of eight channel
+//     groups hit distinct banks. (The register form, ldmatrix into A
+//     fragments, would cost the consumers an ldmatrix per k-step and
+//     registers beside their accumulators.) B is read by descriptor from a
+//     weight stage. Per (chunk, tap): kMT x 4 wgmma m64nC_outk16 and one
+//     commit; the previous stage (and, at a chunk's first tap, the previous
+//     halo buffer) is released once its products are done. The epilogue
+//     runs in registers: conv1 adds b1 and stores v; the head adds b2,
+//     applies the ReLU, reduces the 32 -> 1 head over the quad of lanes that
+//     hold a pixel's channels, adds bd [and the ReLU] and stores the depth.
+//   - lane 0 of warp 8 brings the weights by TMA (a 2-D map, 128-byte
+//     swizzle) through a 3-4 stage mbarrier ring, one stage per (chunk,
+//     tap): a [C_out x 64] K-major B tile. The wrapper packs the HWIO weights
+//     once into that [C_out, chunks x 9 x 64] order
+//     (ops/dpt_tail.pack_conv_weight, cached per weight version by the DPT
+//     head). Every block streams the same few hundred KB, which stay in L2.
+//   - the other warps (7, or 11 where the consumers hold only 64
+//     accumulators) fill the next chunk's halo while the consumers multiply
+//     the current one. One TMA box (a 4-D map over the source, 128-byte
+//     swizzled) brings the tile's source patch (up to kPR x kPC pixels x 64
+//     channels) to shared memory; then each filler walks one (halo column,
+//     channel group) down the tile, blending each source row's two column
+//     taps once and each halo row's two source rows, in fp32 and in
+//     PyTorch's order with its align_corners taps. A head whose source step
+//     exceeds the patch's (not a DPT grid) gathers each piece from device
+//     memory instead.
+// setmaxnreg gives the consumers 160 registers where they hold 128
+// accumulators. Measured on an H100 (PERF.md): the fill, not the products,
+// sets the pace; the consumers wait on it a fifth to a third of their time.
+// Two calls give the same bits: every output is summed in one fixed order.
+// fp32 keeps the scalar-FMA kernels (8x16 tiles whose halo is built in
+// shared memory, weights as a plain [9*C_in, C_out] matrix).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "hopper_tiles.cuh"
 
 namespace {
 
-constexpr int kTH = 8, kTW = 16;                  // output tile
-constexpr int kHH = kTH + 2, kHW = kTW + 2;       // with the conv halo
-constexpr int kThreads = 128;                     // 4 warps, 2 tile rows each
-constexpr int kC2 = 32;                           // conv2 output channels
+using namespace dad_hopper;
+using bf16 = __nv_bfloat16;
 
-template <typename T>
-__host__ __device__ constexpr int pad_elems() { return 16 / (int)sizeof(T); }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
-  uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 x = __bfloat1622float2(h[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
+constexpr int kC2 = 32;  // conv2 output channels
 
 __device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
   float4 a = reinterpret_cast<const float4*>(p)[0];
@@ -86,27 +87,19 @@ __device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&f)[8]) {
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
   uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
+  u.x = pack_bf16(f[0], f[1]);
+  u.y = pack_bf16(f[2], f[3]);
+  u.z = pack_bf16(f[4], f[5]);
+  u.w = pack_bf16(f[6], f[7]);
+  return u;
 }
 
 __device__ __forceinline__ void store8(float* p, const float (&f)[8]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float a) { *p = __float2bfloat16_rn(a); }
-__device__ __forceinline__ void store1(float* p, float a) { *p = a; }
 
 // Bilinear source taps with align_corners=True, as PyTorch's
 // upsample_bilinear2d computes them (float scale, truncation, clamped +1).
@@ -129,49 +122,577 @@ __device__ __forceinline__ float ac_scale(int in_size, int out_size) {
   return out_size > 1 ? (float)(in_size - 1) / (float)(out_size - 1) : 0.f;
 }
 
-// Fill the (kHH x kHW) halo tile with src [hs, ws, CIN] bilinearly resized to
-// (ho, wo); pixels outside [0,ho)x[0,wo) are the conv's zero padding.
-template <typename T, int CIN>
-__device__ __forceinline__ void fill_halo(T* halo, const T* src, int hs, int ws, int ho, int wo,
-                                          int y0, int x0) {
-  constexpr int kRow = CIN + pad_elems<T>();
+// Channels c..c+7 of src [hs, ws, CIN] resized to (ho, wo) at (oy, ox); zeros
+// outside [0,ho)x[0,wo) (the conv's padding) and past CIN.
+template <int CIN>
+__device__ __forceinline__ void resized8(float (&r)[8], const float* src, int hs, int ws, int ho,
+                                         int wo, float sh, float sw, int oy, int ox, int c) {
+  if (oy < 0 || oy >= ho || ox < 0 || ox >= wo || c >= CIN) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r[k] = 0.f;
+    return;
+  }
+  const Tap ty = bilinear_tap(sh, oy, hs), tx = bilinear_tap(sw, ox, ws);
+  float a[8], b[8], cc[8], d[8];
+  load8(src + ((long)ty.i0 * ws + tx.i0) * CIN + c, a);
+  load8(src + ((long)ty.i0 * ws + tx.i1) * CIN + c, b);
+  load8(src + ((long)ty.i1 * ws + tx.i0) * CIN + c, cc);
+  load8(src + ((long)ty.i1 * ws + tx.i1) * CIN + c, d);
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    r[k] = ty.l0 * (tx.l0 * a[k] + tx.l1 * b[k]) + ty.l1 * (tx.l0 * cc[k] + tx.l1 * d[k]);
+}
+
+// ------------------------------------------------------------------ bf16: wgmma
+
+// d[64 x N] (+)= A . B^T, A [64 x 16] and B [N x 16] both K-major in shared
+// memory (descriptors). d holds N / 2 registers in hopper_tiles.cuh's layout.
+template <int kN>
+__device__ __forceinline__ void wgmma_ss(float (&d)[kN / 2], uint64_t a, uint64_t b,
+                                         int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  wgmma_ss_n64(d, a, b, accumulate);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// Descriptor of a K-major operand without swizzle at shared address `addr`:
+// 8-row x 16-byte core matrices, `lbo` bytes apart along K and `sbo` bytes
+// apart along M (or N); layout type 0.
+__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int CIN, int COUT, bool kHead>
+struct Shape {
+  static constexpr int kCinP = CIN < 64 ? 64 : CIN;  // channels in 64-wide chunks
+  static constexpr int kChunks = kCinP / 64;
+  static constexpr int kMT = COUT >= 128 ? 2 : 4;    // output rows per consumer warpgroup
+  static constexpr int kTH = 2 * kMT, kTW = 64;      // output tile
+  static constexpr int kHC = kTW + 2;                // halo columns
+  static constexpr int kNPix = (kTH + 2) * kHC;      // halo pixels
+  static constexpr int kPitch = kNPix + (9 - kNPix % 8) % 8;  // pixels a channel group, 1 mod 8
+  static constexpr int kHaloBytes = 8 * kPitch * 16;  // one 64-channel chunk
+  static constexpr int kItems = 8 * kNPix;            // 16-byte pieces of a chunk's halo
+  static constexpr int kWBytes = COUT * 128;          // one stage: COUT rows of 64 bf16
+  static constexpr int kStages = COUT == 64 ? 3 : 4;
+  static constexpr int kSteps = kChunks * 9;          // (chunk, tap) steps a tile
+  // The source patch behind a chunk's halo, staged in shared memory: conv1
+  // upsamples 2x (source step < 0.5 a pixel); the head's patch is sized for
+  // a step up to 0.58 (4 x 14 / 2 / 14 = 4/7: the DPT grids), and a head
+  // with a larger step gathers from device memory instead.
+  static constexpr int kPR = (kTH + 1) * (kHead ? 58 : 50) / 100 + 3;  // rows
+  static constexpr int kPC = (kTW + 1) * (kHead ? 58 : 50) / 100 + 3;  // columns
+  static constexpr int kPatchBytes = kPR * kPC * 128;
+  static constexpr size_t kSmem = 1024 /* alignment */ + kStages * kWBytes + 2 * kHaloBytes +
+                                  kPatchBytes + (2 * kStages + 5) * 8 +
+                                  (kTH + 2) * 16;
+  // Registers: the consumers hold kMT x COUT / 2 fp32 accumulators. With 64
+  // (COUT 32), 20 warps fit at 96 registers each: 11 fill warps. With 128,
+  // setmaxnreg gives the consumers 160 and the other 8 warps 96.
+  static constexpr bool kWide = kMT * COUT / 2 > 64;
+  static constexpr int kThreads = kWide ? 512 : 640;
+  static constexpr int kFillers = kThreads - 256 - 32;  // the fill warps' threads
+  static constexpr int kConsumerRegs = 160;
+  static constexpr int kFillRegs = (65536 / 256 - kConsumerRegs) / 8 * 8;
+  static_assert(kPitch % 8 == 1, "pitch");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+constexpr int kConsumers = 256;  // warps 0-7: two warpgroups
+constexpr int kPerFill = 2;      // halo pieces a filler has in flight
+
+// The four source pixels' 8 channels behind one halo piece, and its weights.
+struct Gather {
+  uint4 v[4];
+  float ly, lx;  // the second taps' weights
+  bool live;     // inside the image and below CIN
+};
+
+template <int CIN>
+__device__ __forceinline__ void gather(Gather& gt, const bf16* src, int hs, int ws, int ho, int wo,
+                                       float sh, float sw, int oy, int ox, int c) {
+  gt.live = oy >= 0 && oy < ho && ox >= 0 && ox < wo && c < CIN;
+  if (!gt.live) return;
+  const Tap ty = bilinear_tap(sh, oy, hs), tx = bilinear_tap(sw, ox, ws);
+  gt.ly = ty.l1;
+  gt.lx = tx.l1;
+  const bf16* r0 = src + (long)ty.i0 * ws * CIN + c;
+  const bf16* r1 = src + (long)ty.i1 * ws * CIN + c;
+  gt.v[0] = __ldg(reinterpret_cast<const uint4*>(r0 + tx.i0 * CIN));
+  gt.v[1] = __ldg(reinterpret_cast<const uint4*>(r0 + tx.i1 * CIN));
+  gt.v[2] = __ldg(reinterpret_cast<const uint4*>(r1 + tx.i0 * CIN));
+  gt.v[3] = __ldg(reinterpret_cast<const uint4*>(r1 + tx.i1 * CIN));
+}
+
+// The bilinear value of a gathered piece in fp32, as resized8, packed to bf16.
+__device__ __forceinline__ uint4 blend(const Gather& gt) {
+  if (!gt.live) return uint4{0u, 0u, 0u, 0u};
+  float f[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&gt.v[i]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 x = __bfloat1622float2(h[j]);
+      f[i][2 * j] = x.x;
+      f[i][2 * j + 1] = x.y;
+    }
+  }
+  const float ly1 = gt.ly, ly0 = 1.f - ly1, lx1 = gt.lx, lx0 = 1.f - lx1;
+  float r[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    r[k] = ly0 * (lx0 * f[0][k] + lx1 * f[1][k]) + ly1 * (lx0 * f[2][k] + lx1 * f[3][k]);
+  return pack8(r);
+}
+
+// Sync the `count` threads of named barrier `id` (0 is __syncthreads').
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The box of a 4-D map at (c0, c1, c2, c3).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// 16 bytes from or to shared memory at a shared-window address.
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// The blend of patch columns cx0 and cx1 at row r, channel group c8 (a
+// patch pixel q's groups sit swizzled by q % 8), in fp32.
+template <int kPC>
+__device__ __forceinline__ void horizontal(float (&h)[8], uint32_t patch, int r, int cx0,
+                                           int cx1, float l0, float l1, int c8) {
+  const int q0 = r * kPC + cx0, q1 = r * kPC + cx1;
+  const uint4 a = lds128(patch + q0 * 128 + ((c8 ^ (q0 & 7)) << 4));
+  const uint4 b = lds128(patch + q1 * 128 + ((c8 ^ (q1 & 7)) << 4));
+  const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 x = __bfloat1622float2(ha[j]), y = __bfloat1622float2(hb[j]);
+    h[2 * j] = l0 * x.x + l1 * y.x;
+    h[2 * j + 1] = l0 * x.y + l1 * y.y;
+  }
+}
+
+// A halo row's bilinear tap in patch rows: r0 (-1: the conv's padding row)
+// and r0 + step (step 0 at the image's last row), weights l0 and l1.
+struct RowTap {
+  int r0, step;
+  float l0, l1;
+};
+
+// A chunk's halo (piece = 8 channels of one halo pixel) by the fillers.
+// Where the tile's source patch fits, it is first brought to shared memory
+// by one TMA box, and each filler interpolates a halo column's channel group
+// from there. Otherwise each piece gathers its four source pixels from
+// device memory, kPerFill pieces a thread at a time.
+template <int CIN, int COUT, bool kHead>
+__device__ __forceinline__ void fill_chunk(uint8_t* hb, uint8_t* patch, RowTap* rows,
+                                           const CUtensorMap* src_map, uint64_t* pfull,
+                                           int& npatch, const bf16* src, int b,
+                                           int hs, int ws, int ho, int wo, float sh, float sw,
+                                           int y0, int x0, int cc, int ft) {
+  using S = Shape<CIN, COUT, kHead>;
+  // the source rows and columns behind the halo's pixels inside the image
+  const int oy0 = max(y0 - 1, 0), oy1 = min(y0 + S::kTH, ho - 1);
+  const int ox0 = max(x0 - 1, 0), ox1 = min(x0 + S::kTW, wo - 1);
+  const int ry0 = bilinear_tap(sh, oy0, hs).i0, ry1 = bilinear_tap(sh, oy1, hs).i1;
+  const int rx0 = bilinear_tap(sw, ox0, ws).i0, rx1 = bilinear_tap(sw, ox1, ws).i1;
+  const int pr = ry1 - ry0 + 1, pc = rx1 - rx0 + 1;
+  if (pr <= S::kPR && pc <= S::kPC) {
+    const int c0 = cc * 64;
+    bar_sync(1, S::kFillers);  // every filler is done with the last patch
+    if (ft == 0) {
+      // the box of kPR rows x kPC columns x 64 channels at (ry0, rx0, c0),
+      // 128-byte swizzled: patch pixel q's channel group g sits at g ^ (q % 8)
+      mbar_arrive_expect_tx(pfull, S::kPatchBytes);
+      tma_load_4d(patch, src_map, pfull, c0, rx0, ry0, b);
+    }
+    if (ft < S::kTH + 2) {
+      // the halo rows' taps, shared by every (column, channel group)
+      const int oy = y0 - 1 + ft;
+      RowTap rt{-1, 0, 0.f, 0.f};
+      if (oy >= 0 && oy < ho) {
+        const Tap ty = bilinear_tap(sh, oy, hs);
+        rt = RowTap{ty.i0 - ry0, ty.i1 - ty.i0, ty.l0, ty.l1};
+      }
+      rows[ft] = rt;
+    }
+    mbar_wait(pfull, npatch & 1);
+    ++npatch;
+    bar_sync(1, S::kFillers);
+    const uint32_t spatch = smem_u32(patch), shb = smem_u32(hb);
+    // a thread a (halo column, channel group): down the column, each source
+    // row's blend of the column's two taps once, then each halo row's blend
+    // of its two source rows, in PyTorch's order
+    for (int u = ft; u < S::kHC * 8; u += S::kFillers) {
+      const int c8 = u & 7, hx = u >> 3, ox = x0 - 1 + hx;
+      const bool live_col = ox >= 0 && ox < wo && c0 + c8 * 8 < CIN;
+      const Tap tx = bilinear_tap(sw, live_col ? ox : 0, ws);
+      const int cx0 = tx.i0 - rx0, cx1 = tx.i1 - rx0;
+      int have = -2;  // h0: the source row `have`'s blend, h1: row have + 1's
+      float h0[8], h1[8];
+#pragma unroll
+      for (int hy = 0; hy < S::kTH + 2; ++hy) {
+        const RowTap ty = rows[hy];
+        uint4 piece = uint4{0u, 0u, 0u, 0u};
+        if (live_col && ty.r0 >= 0) {
+          const int r0 = ty.r0;
+          if (r0 != have) {
+            if (r0 == have + 1) {
+#pragma unroll
+              for (int e = 0; e < 8; ++e) h0[e] = h1[e];
+            } else {
+              horizontal<S::kPC>(h0, spatch, r0, cx0, cx1, tx.l0, tx.l1, c8);
+            }
+            have = r0;
+            if (ty.step) horizontal<S::kPC>(h1, spatch, r0 + 1, cx0, cx1, tx.l0, tx.l1, c8);
+          }
+          float r[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            r[e] = ty.l0 * h0[e] + ty.l1 * (ty.step ? h1[e] : h0[e]);
+          piece = pack8(r);
+        }
+        sts128(shb + (c8 * S::kPitch + hy * S::kHC + hx) * 16, piece);
+      }
+    }
+    return;
+  }
+  for (int base = 0; base < S::kItems; base += S::kFillers * kPerFill) {
+    Gather gt[kPerFill];
+#pragma unroll
+    for (int p = 0; p < kPerFill; ++p) {
+      const int it = base + p * S::kFillers + ft;
+      const int c8 = it & 7, pix = it >> 3, hy = pix / S::kHC, hx = pix - hy * S::kHC;
+      gather<CIN>(gt[p], src, hs, ws, ho, wo, sh, sw, it < S::kItems ? y0 - 1 + hy : -1,
+                  x0 - 1 + hx, cc * 64 + c8 * 8);
+    }
+#pragma unroll
+    for (int p = 0; p < kPerFill; ++p) {
+      const int it = base + p * S::kFillers + ft;
+      if (it < S::kItems)
+        *reinterpret_cast<uint4*>(hb + ((it & 7) * S::kPitch + (it >> 3)) * 16) = blend(gt[p]);
+    }
+  }
+}
+
+// One conv of the tail on src [batch, hs, ws, CIN] resized to (ho, wo):
+// conv1 (kHead false) writes out = v [batch, ho, wo, COUT]; the head (kHead
+// true, COUT 32) writes out = depth [batch, ho, wo].
+template <int CIN, int COUT, bool kHead>
+__global__ void __launch_bounds__((Shape<CIN, COUT, kHead>::kThreads), 1)
+    tail_conv_wgmma(const __grid_constant__ CUtensorMap w_map,
+                    const __grid_constant__ CUtensorMap src_map, const bf16* __restrict__ src,
+                    const float* __restrict__ bias, const float* __restrict__ kd,
+                    const float* __restrict__ bd, bf16* __restrict__ out, int batch, int hs,
+                    int ws, int ho, int wo, int relu_out) {
+  using S = Shape<CIN, COUT, kHead>;
+  extern __shared__ unsigned char smem_raw[];
+  uint8_t* wst = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* patch = wst + S::kStages * S::kWBytes;  // 1024-byte aligned, for the swizzle
+  uint8_t* halo = patch + S::kPatchBytes;
+  uint64_t* wfull = reinterpret_cast<uint64_t*>(halo + 2 * S::kHaloBytes);
+  uint64_t* wempty = wfull + S::kStages;
+  uint64_t* hfull = wempty + S::kStages;
+  uint64_t* hempty = hfull + 2;
+  uint64_t* pfull = hempty + 2;
+  RowTap* rows = reinterpret_cast<RowTap*>(pfull + 1);
+
+  const int tiles_x = (wo + S::kTW - 1) / S::kTW, tiles_y = (ho + S::kTH - 1) / S::kTH;
+  const int ntiles = tiles_x * tiles_y * batch;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      mbar_init(&wfull[s], 1);
+      mbar_init(&wempty[s], 8);  // one arrival per consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&hfull[b], S::kFillers);
+      mbar_init(&hempty[b], 8);
+    }
+    mbar_init(pfull, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= kConsumers / 32) {
+    if constexpr (S::kWide) setmaxnreg_dec<S::kFillRegs>();
+    if (warp == kConsumers / 32) {
+      // ---- the weights: one stage per (chunk, tap), the same every tile
+      if (lane == 0) {
+        int q = 0;
+        for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+          for (int step = 0; step < S::kSteps; ++step, ++q) {
+            const int st = q % S::kStages, round = q / S::kStages;
+            if (round > 0) mbar_wait(&wempty[st], (round - 1) & 1);
+            mbar_arrive_expect_tx(&wfull[st], S::kWBytes);
+            tma_load_2d(wst + st * S::kWBytes, &w_map, &wfull[st], step * 64, 0);
+          }
+        }
+      }
+      return;
+    }
+    // ---- the halo: chunk by chunk into the double buffer
+    const int ft = threadIdx.x - kConsumers - 32;
+    const float sh = ac_scale(hs, ho), sw = ac_scale(ws, wo);
+    int h = 0, npatch = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int tx = tile % tiles_x, rest = tile / tiles_x;
+      const int y0 = (rest % tiles_y) * S::kTH, x0 = tx * S::kTW, b = rest / tiles_y;
+      const bf16* sb = src + (long)b * hs * ws * CIN;
+      for (int cc = 0; cc < S::kChunks; ++cc, ++h) {
+        const int buf = h & 1;
+        if (h >= 2) mbar_wait(&hempty[buf], ((h >> 1) - 1) & 1);
+        fill_chunk<CIN, COUT, kHead>(halo + buf * S::kHaloBytes, patch, rows, &src_map, pfull,
+                                     npatch, sb, b, hs, ws, ho, wo, sh, sw, y0, x0, cc, ft);
+        fence_proxy_async();  // the stores, before wgmma reads them
+        mbar_arrive(&hfull[buf]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup w owns tile rows w*kMT .. w*kMT + kMT - 1
+  if constexpr (S::kWide) setmaxnreg_inc<S::kConsumerRegs>();
+  const int w = warp / 4, wi = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[S::kMT][COUT / 2];
+  int q = 0, h = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int tx = tile % tiles_x, rest = tile / tiles_x;
+    const int y0 = (rest % tiles_y) * S::kTH, x0 = tx * S::kTW, b = rest / tiles_y;
+    for (int cc = 0; cc < S::kChunks; ++cc, ++h) {
+      const int buf = h & 1;
+      mbar_wait(&hfull[buf], (h >> 1) & 1);
+      const uint32_t hbase = smem_u32(halo + buf * S::kHaloBytes);
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap, ++q) {
+        const int st = q % S::kStages;
+        mbar_wait(&wfull[st], (q / S::kStages) & 1);
+        const int dy = tap / 3, dx = tap % 3;
+        const uint64_t bdesc = desc_sw128(wst + st * S::kWBytes);
+#pragma unroll
+        for (int r = 0; r < S::kMT; ++r) fence_regs(acc[r]);
+        wgmma_fence();
+#pragma unroll
+        for (int r = 0; r < S::kMT; ++r) {
+          const int pix = (w * S::kMT + r + dy) * S::kHC + dx;
+          const uint64_t adesc = desc_plain(hbase + pix * 16, S::kPitch * 16, 128);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<COUT>(acc[r], adesc + 2 * kk * S::kPitch, bdesc + 2 * kk,
+                           (cc | tap | kk) != 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous step's products are done: release its buffers
+#pragma unroll
+        for (int r = 0; r < S::kMT; ++r) fence_regs(acc[r]);
+        if ((cc | tap) != 0 && lane == 0) {
+          mbar_arrive(&wempty[(q - 1) % S::kStages]);
+          if (tap == 0) mbar_arrive(&hempty[(h - 1) & 1]);
+        }
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int r = 0; r < S::kMT; ++r) fence_regs(acc[r]);
+    if (lane == 0) {
+      mbar_arrive(&wempty[(q - 1) % S::kStages]);
+      mbar_arrive(&hempty[(h - 1) & 1]);
+    }
+
+    // ---- epilogue: (warp wi, lane 4g + t) holds pixels x0 + 16wi + g (+8)
+    // of row r, channels 8j + 2t (+1)
+#pragma unroll
+    for (int r = 0; r < S::kMT; ++r) {
+      const int oy = y0 + w * S::kMT + r;
+      if constexpr (!kHead) {
+        if (oy >= ho) continue;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int ox = x0 + 16 * wi + g + 8 * half;
+          if (ox >= wo) continue;
+          bf16* dst = out + (((long)b * ho + oy) * wo + ox) * COUT;
+#pragma unroll
+          for (int j = 0; j < COUT / 8; ++j) {
+            const int c = 8 * j + 2 * t;
+            *reinterpret_cast<uint32_t*>(dst + c) =
+                pack_bf16(acc[r][4 * j + 2 * half] + __ldg(bias + c),
+                          acc[r][4 * j + 2 * half + 1] + __ldg(bias + c + 1));
+          }
+        }
+      } else {
+        float dsum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < COUT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * j + 2 * t + (e & 1);
+            const float z = fmaxf(acc[r][4 * j + e] + __ldg(bias + c), 0.f);
+            dsum[e >> 1] = fmaf(z, __ldg(kd + c), dsum[e >> 1]);
+          }
+        const float bias_d = __ldg(bd);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float s = dsum[half];
+          s += __shfl_xor_sync(0xffffffffu, s, 1);
+          s += __shfl_xor_sync(0xffffffffu, s, 2);
+          const int ox = x0 + 16 * wi + g + 8 * half;
+          if (t == 0 && oy < ho && ox < wo) {
+            float d = s + bias_d;
+            if (relu_out) d = fmaxf(d, 0.f);
+            out[((long)b * ho + oy) * wo + ox] = __float2bfloat16_rn(d);
+          }
+        }
+      }
+    }
+  }
+}
+
+// src [batch, hs, ws, cin] bf16 in boxes of 64 channels x box_c columns x
+// box_r rows of one image, 128-byte swizzled; elements past an edge read as
+// zeros (the interpolation never uses them).
+int make_patch_map(CUtensorMap* map, const void* src, int batch, int hs, int ws, int cin,
+                   int box_c, int box_r) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode;
+  if (int err = tensor_map_encoder(&encode)) return err;
+  const cuuint64_t dims[4] = {(cuuint64_t)cin, (cuuint64_t)ws, (cuuint64_t)hs, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)cin * 2, (cuuint64_t)ws * cin * 2,
+                                 (cuuint64_t)hs * ws * cin * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_c, (cuuint32_t)box_r, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(src), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      count = 132;
+  }
+  return count;
+}
+
+// w: the packed [COUT, chunks * 9 * 64] bf16 weights (ops/dpt_tail.pack_conv_weight).
+template <int CIN, int COUT, bool kHead>
+int launch_wgmma(const void* src, const void* w, const float* bias, const float* kd,
+                 const float* bd, void* out, int batch, int hs, int ws, int ho, int wo,
+                 int relu_out, cudaStream_t st) {
+  using S = Shape<CIN, COUT, kHead>;
+  CUtensorMap w_map, src_map;
+  if (int err = make_map_2d(&w_map, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, COUT, S::kSteps * 64,
+                            64, COUT))
+    return err;
+  if (int err = make_patch_map(&src_map, src, batch, hs, ws, CIN, S::kPC, S::kPR)) return err;
+  auto kernel = tail_conv_wgmma<CIN, COUT, kHead>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)S::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const long tiles =
+      (long)((wo + S::kTW - 1) / S::kTW) * ((ho + S::kTH - 1) / S::kTH) * batch;
+  if (tiles > 0x7fffffff) return -1;
+  const int grid = (int)(tiles < sm_count() ? tiles : sm_count());
+  kernel<<<grid, S::kThreads, S::kSmem, st>>>(w_map, src_map, static_cast<const bf16*>(src), bias,
+                                           kd, bd,
+                                           static_cast<bf16*>(out), batch, hs, ws, ho, wo,
+                                           relu_out);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ fp32: scalar FMA
+
+constexpr int kTH = 8, kTW = 16;             // output tile
+constexpr int kHH = kTH + 2, kHW = kTW + 2;  // with the conv halo
+constexpr int kF32Threads = 128;             // 4 warps, 2 tile rows each
+
+// Fill the (kHH x kHW) halo tile, rows of CIN + 4 floats, with src [hs, ws,
+// CIN] bilinearly resized to (ho, wo).
+template <int CIN>
+__device__ __forceinline__ void fill_halo_f32(float* halo, const float* src, int hs, int ws,
+                                              int ho, int wo, int y0, int x0) {
+  constexpr int kRow = CIN + 4;
   constexpr int kChunks = CIN / 8;
   const float sh = ac_scale(hs, ho), sw = ac_scale(ws, wo);
-  for (int i = threadIdx.x; i < kHH * kHW * kChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < kHH * kHW * kChunks; i += kF32Threads) {
     int pix = i / kChunks, c8 = (i % kChunks) * 8;
     int hy = pix / kHW, hx = pix % kHW;
-    int oy = y0 - 1 + hy, ox = x0 - 1 + hx;
     float r[8];
-    if (oy < 0 || oy >= ho || ox < 0 || ox >= wo) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) r[k] = 0.f;
-    } else {
-      Tap ty = bilinear_tap(sh, oy, hs), tx = bilinear_tap(sw, ox, ws);
-      float a[8], b[8], c[8], d[8];
-      load8(src + ((long)ty.i0 * ws + tx.i0) * CIN + c8, a);
-      load8(src + ((long)ty.i0 * ws + tx.i1) * CIN + c8, b);
-      load8(src + ((long)ty.i1 * ws + tx.i0) * CIN + c8, c);
-      load8(src + ((long)ty.i1 * ws + tx.i1) * CIN + c8, d);
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        r[k] = ty.l0 * (tx.l0 * a[k] + tx.l1 * b[k]) + ty.l1 * (tx.l0 * c[k] + tx.l1 * d[k]);
-    }
+    resized8<CIN>(r, src, hs, ws, ho, wo, sh, sw, y0 - 1 + hy, x0 - 1 + hx, c8);
     store8(halo + pix * kRow + c8, r);
   }
 }
 
-// acc[mt][j][e] += implicit-GEMM 3x3 conv of the halo tile. Warp w owns
-// tile rows 2w+mt (mt = 0,1); m-tile row m is tile column m. Accumulator
+// acc[mt][j][e] += the 3x3 conv of the halo tile with w, the plain [9*CIN,
+// COUT] matrix (k = tap*CIN + ci). Warp w owns tile rows 2w+mt (mt = 0,1);
 // element e of n-tile j sits at column g + 8*(e>>1), channel 8j + 2t + (e&1).
-//
-// bf16: w is pre-packed in mma B-fragment order, one uint4 per lane per
-//   (k-step of 16, pair of n-tiles), k = tap*CIN + ci.
-// fp32: w is the plain [9*CIN, COUT] matrix.
-template <typename T, int CIN, int COUT>
-__device__ __forceinline__ void conv3x3_tile(const T* halo, const void* w,
-                                             float (&acc)[2][COUT / 8][4]) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int kRow = CIN + pad_elems<T>();
+template <int CIN, int COUT>
+__device__ __forceinline__ void conv3x3_f32(const float* halo, const float* wf,
+                                            float (&acc)[2][COUT / 8][4]) {
+  constexpr int kRow = CIN + 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -180,78 +701,48 @@ __device__ __forceinline__ void conv3x3_tile(const T* halo, const void* w,
     for (int j = 0; j < COUT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-
-  if constexpr (kBf16) {
-    const uint4* wp = static_cast<const uint4*>(w);
-    const int p = (lane & 7) + 8 * ((lane >> 3) & 1);
-    const int cofs = 8 * (lane >> 4);
 #pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-      const T* row0 = halo + ((2 * warp + dy) * kHW + p + dx) * kRow + cofs;
-#pragma unroll 2
-      for (int kc = 0; kc < CIN / 16; ++kc) {
-        uint32_t a[2][4];
-        ldsm_x4(a[0], row0 + kc * 16);
-        ldsm_x4(a[1], row0 + kHW * kRow + kc * 16);
-        const uint4* wk = wp + ((tap * (CIN / 16) + kc) * (COUT / 16)) * 32 + lane;
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dy = tap / 3, dx = tap % 3;
+#pragma unroll 1
+    for (int ci = 0; ci < CIN; ++ci) {
+      float alo[2], ahi[2];
 #pragma unroll
-        for (int np = 0; np < COUT / 16; ++np) {
-          uint4 bb = __ldg(wk + np * 32);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            mma_bf16(acc[mt][2 * np], a[mt], bb.x, bb.y);
-            mma_bf16(acc[mt][2 * np + 1], a[mt], bb.z, bb.w);
-          }
-        }
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* hr = halo + ((2 * warp + mt + dy) * kHW + dx) * kRow + ci;
+        alo[mt] = hr[g * kRow];
+        ahi[mt] = hr[(g + 8) * kRow];
       }
-    }
-  } else {
-    const float* wf = static_cast<const float*>(w);
-    const float* hf = reinterpret_cast<const float*>(halo);
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-#pragma unroll 1
-      for (int ci = 0; ci < CIN; ++ci) {
-        float alo[2], ahi[2];
+      const float* wr = wf + (long)(tap * CIN + ci) * COUT + 2 * t;
+#pragma unroll
+      for (int j = 0; j < COUT / 8; ++j) {
+        float2 wv = *reinterpret_cast<const float2*>(wr + 8 * j);
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
-          const float* hr = hf + ((2 * warp + mt + dy) * kHW + dx) * kRow + ci;
-          alo[mt] = hr[g * kRow];
-          ahi[mt] = hr[(g + 8) * kRow];
-        }
-        const float* wr = wf + (long)(tap * CIN + ci) * COUT + 2 * t;
-#pragma unroll
-        for (int j = 0; j < COUT / 8; ++j) {
-          float2 wv = *reinterpret_cast<const float2*>(wr + 8 * j);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            acc[mt][j][0] = fmaf(alo[mt], wv.x, acc[mt][j][0]);
-            acc[mt][j][1] = fmaf(alo[mt], wv.y, acc[mt][j][1]);
-            acc[mt][j][2] = fmaf(ahi[mt], wv.x, acc[mt][j][2]);
-            acc[mt][j][3] = fmaf(ahi[mt], wv.y, acc[mt][j][3]);
-          }
+          acc[mt][j][0] = fmaf(alo[mt], wv.x, acc[mt][j][0]);
+          acc[mt][j][1] = fmaf(alo[mt], wv.y, acc[mt][j][1]);
+          acc[mt][j][2] = fmaf(ahi[mt], wv.x, acc[mt][j][2]);
+          acc[mt][j][3] = fmaf(ahi[mt], wv.y, acc[mt][j][3]);
         }
       }
     }
   }
 }
 
-template <typename T, int C>
-__global__ void __launch_bounds__(kThreads)
-    tail_conv1_kernel(const T* __restrict__ t, const void* __restrict__ w1,
-                      const float* __restrict__ b1, T* __restrict__ v, int ht, int wt) {
+template <int C>
+__global__ void __launch_bounds__(kF32Threads)
+    tail_conv1_f32(const float* __restrict__ t, const float* __restrict__ w1,
+                   const float* __restrict__ b1, float* __restrict__ v, int ht, int wt) {
   constexpr int CM = C / 2;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* halo = reinterpret_cast<T*>(smem);
+  float* halo = reinterpret_cast<float*>(smem);
   const int hu = 2 * ht, wu = 2 * wt;
   const int x0 = blockIdx.x * kTW, y0 = blockIdx.y * kTH, b = blockIdx.z;
-  fill_halo<T, C>(halo, t + (long)b * ht * wt * C, ht, wt, hu, wu, y0, x0);
+  fill_halo_f32<C>(halo, t + (long)b * ht * wt * C, ht, wt, hu, wu, y0, x0);
   __syncthreads();
 
   float acc[2][CM / 8][4];
-  conv3x3_tile<T, C, CM>(halo, w1, acc);
+  conv3x3_f32<C, CM>(halo, w1, acc);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -263,30 +754,31 @@ __global__ void __launch_bounds__(kThreads)
     for (int half = 0; half < 2; ++half) {
       const int ox = x0 + g + 8 * half;
       if (ox >= wu) continue;
-      T* dst = v + (((long)b * hu + oy) * wu + ox) * CM;
+      float* dst = v + (((long)b * hu + oy) * wu + ox) * CM;
 #pragma unroll
       for (int j = 0; j < CM / 8; ++j) {
         const int co = 8 * j + 2 * tq;
-        store2(dst + co, acc[mt][j][2 * half] + b1[co], acc[mt][j][2 * half + 1] + b1[co + 1]);
+        *reinterpret_cast<float2*>(dst + co) = make_float2(acc[mt][j][2 * half] + b1[co],
+                                                           acc[mt][j][2 * half + 1] + b1[co + 1]);
       }
     }
   }
 }
 
-template <typename T, int CM>
-__global__ void __launch_bounds__(kThreads)
-    tail_head_kernel(const T* __restrict__ v, const void* __restrict__ w2,
-                     const float* __restrict__ b2, const float* __restrict__ kd,
-                     const float* __restrict__ bd, T* __restrict__ out, int hv, int wv, int oh,
-                     int ow, int relu_out) {
+template <int CM>
+__global__ void __launch_bounds__(kF32Threads)
+    tail_head_f32(const float* __restrict__ v, const float* __restrict__ w2,
+                  const float* __restrict__ b2, const float* __restrict__ kd,
+                  const float* __restrict__ bd, float* __restrict__ out, int hv, int wv, int oh,
+                  int ow, int relu_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* halo = reinterpret_cast<T*>(smem);
+  float* halo = reinterpret_cast<float*>(smem);
   const int x0 = blockIdx.x * kTW, y0 = blockIdx.y * kTH, b = blockIdx.z;
-  fill_halo<T, CM>(halo, v + (long)b * hv * wv * CM, hv, wv, oh, ow, y0, x0);
+  fill_halo_f32<CM>(halo, v + (long)b * hv * wv * CM, hv, wv, oh, ow, y0, x0);
   __syncthreads();
 
   float acc[2][kC2 / 8][4];
-  conv3x3_tile<T, CM, kC2>(halo, w2, acc);
+  conv3x3_f32<CM, kC2>(halo, w2, acc);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -313,78 +805,72 @@ __global__ void __launch_bounds__(kThreads)
       if (tq == 0 && oy < oh && ox < ow) {
         float d = s + bias;
         if (relu_out) d = fmaxf(d, 0.f);
-        store1(out + ((long)b * oh + oy) * ow + ox, d);
+        out[((long)b * oh + oy) * ow + ox] = d;
       }
     }
 }
 
-template <typename T, int CIN>
-size_t halo_bytes() {
-  return (size_t)kHH * kHW * (CIN + pad_elems<T>()) * sizeof(T);
+template <int CIN>
+size_t halo_bytes_f32() {
+  return (size_t)kHH * kHW * (CIN + 4) * sizeof(float);
 }
 
-template <typename T, int C>
-int launch_conv1(const void* t, const void* w1, const float* b1, void* v, int batch, int ht,
-                 int wt, cudaStream_t st) {
-  const size_t smem = halo_bytes<T, C>();
-  cudaError_t err = cudaFuncSetAttribute(tail_conv1_kernel<T, C>,
+template <int C>
+int launch_conv1_f32(const void* t, const void* w1, const float* b1, void* v, int batch, int ht,
+                     int wt, cudaStream_t st) {
+  const size_t smem = halo_bytes_f32<C>();
+  cudaError_t err = cudaFuncSetAttribute(tail_conv1_f32<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((2 * wt + kTW - 1) / kTW, (2 * ht + kTH - 1) / kTH, batch);
-  tail_conv1_kernel<T, C><<<grid, kThreads, smem, st>>>(static_cast<const T*>(t), w1, b1,
-                                                        static_cast<T*>(v), ht, wt);
+  tail_conv1_f32<C><<<grid, kF32Threads, smem, st>>>(static_cast<const float*>(t),
+                                                     static_cast<const float*>(w1), b1,
+                                                     static_cast<float*>(v), ht, wt);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int CM>
-int launch_head(const void* v, const void* w2, const float* b2, const float* kd, const float* bd,
-                void* out, int batch, int hv, int wv, int oh, int ow, int relu_out,
-                cudaStream_t st) {
-  const size_t smem = halo_bytes<T, CM>();
-  cudaError_t err = cudaFuncSetAttribute(tail_head_kernel<T, CM>,
+template <int CM>
+int launch_head_f32(const void* v, const void* w2, const float* b2, const float* kd,
+                    const float* bd, void* out, int batch, int hv, int wv, int oh, int ow,
+                    int relu_out, cudaStream_t st) {
+  const size_t smem = halo_bytes_f32<CM>();
+  cudaError_t err = cudaFuncSetAttribute(tail_head_f32<CM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((ow + kTW - 1) / kTW, (oh + kTH - 1) / kTH, batch);
-  tail_head_kernel<T, CM><<<grid, kThreads, smem, st>>>(static_cast<const T*>(v), w2, b2, kd, bd,
-                                                        static_cast<T*>(out), hv, wv, oh, ow,
-                                                        relu_out);
+  tail_head_f32<CM><<<grid, kF32Threads, smem, st>>>(
+      static_cast<const float*>(v), static_cast<const float*>(w2), b2, kd, bd,
+      static_cast<float*>(out), hv, wv, oh, ow, relu_out);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int conv1_for(int c, const void* t, const void* w1, const float* b1, void* v, int batch, int ht,
-              int wt, cudaStream_t st) {
-  switch (c) {
-    case 64: return launch_conv1<T, 64>(t, w1, b1, v, batch, ht, wt, st);
-    case 128: return launch_conv1<T, 128>(t, w1, b1, v, batch, ht, wt, st);
-    case 256: return launch_conv1<T, 256>(t, w1, b1, v, batch, ht, wt, st);
-  }
-  return -1;
-}
-
-template <typename T>
-int head_for(int cm, const void* v, const void* w2, const float* b2, const float* kd,
-             const float* bd, void* out, int batch, int hv, int wv, int oh, int ow, int relu_out,
-             cudaStream_t st) {
-  switch (cm) {
-    case 32: return launch_head<T, 32>(v, w2, b2, kd, bd, out, batch, hv, wv, oh, ow, relu_out, st);
-    case 64: return launch_head<T, 64>(v, w2, b2, kd, bd, out, batch, hv, wv, oh, ow, relu_out, st);
-    case 128: return launch_head<T, 128>(v, w2, b2, kd, bd, out, batch, hv, wv, oh, ow, relu_out, st);
-  }
-  return -1;
 }
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32. Each returns a cudaError_t (0 = success),
-// or -1 for an argument the kernels do not take.
+// dtype: 0 = bfloat16 (w1, w2 packed by ops/dpt_tail.pack_conv_weight),
+// 1 = float32 (w1, w2 the plain [9*C_in, C_out] matrices). Each returns a
+// cudaError_t (0 = success), or -1 for an argument the kernels do not take.
 extern "C" int dad_tail_conv1(const void* t, const void* w1, const void* b1, void* v, int batch,
                               int ht, int wt, int c, int dtype, void* stream) {
   if (batch <= 0 || batch > 65535 || ht <= 0 || wt <= 0 || 2 * ht > 8 * 65535) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* bias = static_cast<const float*>(b1);
-  if (dtype == 0) return conv1_for<__nv_bfloat16>(c, t, w1, bias, v, batch, ht, wt, st);
-  if (dtype == 1) return conv1_for<float>(c, t, w1, bias, v, batch, ht, wt, st);
+  const float* b = static_cast<const float*>(b1);
+  const int hu = 2 * ht, wu = 2 * wt;
+  if (dtype == 0) {
+    auto conv1 = [&](auto kernel) {
+      return kernel(t, w1, b, nullptr, nullptr, v, batch, ht, wt, hu, wu, 0, st);
+    };
+    switch (c) {
+      case 64: return conv1(launch_wgmma<64, 32, false>);
+      case 128: return conv1(launch_wgmma<128, 64, false>);
+      case 256: return conv1(launch_wgmma<256, 128, false>);
+    }
+  } else if (dtype == 1) {
+    switch (c) {
+      case 64: return launch_conv1_f32<64>(t, w1, b, v, batch, ht, wt, st);
+      case 128: return launch_conv1_f32<128>(t, w1, b, v, batch, ht, wt, st);
+      case 256: return launch_conv1_f32<256>(t, w1, b, v, batch, ht, wt, st);
+    }
+  }
   return -1;
 }
 
@@ -395,12 +881,24 @@ extern "C" int dad_tail_head(const void* v, const void* w2, const void* b2, cons
       oh > 8 * 65535)
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* b2f = static_cast<const float*>(b2);
-  const float* kdf = static_cast<const float*>(kd);
-  const float* bdf = static_cast<const float*>(bd);
-  if (dtype == 0)
-    return head_for<__nv_bfloat16>(cm, v, w2, b2f, kdf, bdf, out, batch, hv, wv, oh, ow, relu_out, st);
-  if (dtype == 1)
-    return head_for<float>(cm, v, w2, b2f, kdf, bdf, out, batch, hv, wv, oh, ow, relu_out, st);
+  const float* b = static_cast<const float*>(b2);
+  const float* k = static_cast<const float*>(kd);
+  const float* d = static_cast<const float*>(bd);
+  auto head = [&](auto kernel) {
+    return kernel(v, w2, b, k, d, out, batch, hv, wv, oh, ow, relu_out, st);
+  };
+  if (dtype == 0) {
+    switch (cm) {
+      case 32: return head(launch_wgmma<32, kC2, true>);
+      case 64: return head(launch_wgmma<64, kC2, true>);
+      case 128: return head(launch_wgmma<128, kC2, true>);
+    }
+  } else if (dtype == 1) {
+    switch (cm) {
+      case 32: return head(launch_head_f32<32>);
+      case 64: return head(launch_head_f32<64>);
+      case 128: return head(launch_head_f32<128>);
+    }
+  }
   return -1;
 }

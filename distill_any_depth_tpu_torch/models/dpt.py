@@ -27,7 +27,7 @@ from torch import nn
 
 from distill_any_depth_tpu_torch.configs import ModelConfig
 from distill_any_depth_tpu_torch.models.vit import Conv2d, DinoViT, Linear, gelu
-from distill_any_depth_tpu_torch.ops.dpt_tail import fused_dpt_tail
+from distill_any_depth_tpu_torch.ops.dpt_tail import WeightCache, fused_dpt_tail
 from distill_any_depth_tpu_torch.ops.resize import resize_nchw
 
 __all__ = ["ConvTranspose2d", "ResidualConvUnit", "FeatureFusionBlock", "DPTHead",
@@ -110,6 +110,7 @@ class DPTHead(nn.Module):
                  fused_tail: bool = True):
         super().__init__()
         self.fused_tail = fused_tail
+        self.tail_weights = WeightCache()  # the kernel's packed weights, per weight version
         self.use_clstoken = use_clstoken
         self.trailing_relu = trailing_relu
         self.patch_size = patch_size
@@ -144,13 +145,12 @@ class DPTHead(nn.Module):
         oh, ow = gh * self.patch_size, gw * self.patch_size
         conv2, head = s.output_conv2[0], s.output_conv2[2]
         if self.fused_tail and self.head_out_channels == 1:
-            d = fused_dpt_tail(
-                t.permute(0, 2, 3, 1).contiguous(), (oh, ow),
-                s.output_conv1.weight.permute(2, 3, 1, 0), s.output_conv1.bias,
-                conv2.weight.permute(2, 3, 1, 0), conv2.bias,
-                head.weight[:, :, 0, 0].t(), head.bias,
-                trailing_relu=self.trailing_relu,
-            )
+            weights = (s.output_conv1.weight.permute(2, 3, 1, 0), s.output_conv1.bias,
+                       conv2.weight.permute(2, 3, 1, 0), conv2.bias,
+                       head.weight[:, :, 0, 0].t(), head.bias)
+            prepared = self.tail_weights.get(*weights, t.dtype) if t.is_cuda else None
+            d = fused_dpt_tail(t.permute(0, 2, 3, 1).contiguous(), (oh, ow), *weights,
+                               trailing_relu=self.trailing_relu, weights=prepared)
             return d[:, None]
         x = s.output_conv1(resize_nchw(t, (2 * t.shape[2], 2 * t.shape[3])))
         x = s.output_conv2(resize_nchw(x, (oh, ow)))

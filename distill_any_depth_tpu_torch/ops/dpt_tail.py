@@ -11,18 +11,21 @@ Counterpart of distill_any_depth_tpu/ops/dpt_tail.py ``fused_dpt_tail_v2``
 Layouts follow the JAX contract: ``t`` channels-last, ``k1``/``k2`` HWIO,
 ``kd`` ``[32, 1]``. The kernel (``csrc/dpt_tail.cu``, two launches) takes
 C in {64, 128, 256}; its header states its bound on the H100 and its
-design. Forward only.
+design. Its bf16 convs read the weights packed by ``pack_conv_weight``;
+``WeightCache`` keeps the packing until a weight changes. Forward only.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from distill_any_depth_tpu_torch.ops import _build
 
-__all__ = ["fused_dpt_tail", "tail_reference", "pack_b_fragments"]
+__all__ = ["fused_dpt_tail", "tail_reference", "pack_conv_weight", "prepare_weights",
+           "TailWeights", "WeightCache"]
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _CHANNELS = (64, 128, 256)
@@ -45,24 +48,73 @@ def tail_reference(t, out_hw, k1, b1, k2, b2, kd, bd, *, trailing_relu):
     return d[:, 0]
 
 
-def pack_b_fragments(bmat: torch.Tensor) -> torch.Tensor:
-    """``[K, N]`` bf16 GEMM B matrix -> mma.sync m16n8k16 B-fragment order.
+def pack_conv_weight(k: torch.Tensor) -> torch.Tensor:
+    """HWIO ``[3, 3, C_in, C_out]`` conv weight -> the bf16 ``[C_out, chunks
+    * 9 * 64]`` matrix the bf16 kernel streams by TMA: row n holds, for each
+    64-channel chunk of C_in (zero-padded to 64) and each tap, that tap's 64
+    weights into output channel n. Element ``(n, (cc * 9 + tap) * 64 + ci)``
+    is ``k[tap // 3, tap % 3, 64 * cc + ci, n]``."""
+    kh, kw, cin, cout = k.shape
+    if (kh, kw) != (3, 3):
+        raise ValueError(f"expected a 3x3 HWIO weight, got {tuple(k.shape)}")
+    cinp = -(-cin // 64) * 64
+    w = F.pad(k.detach().to(torch.bfloat16).reshape(9, cin, cout), (0, 0, 0, cinp - cin))
+    return w.reshape(9, cinp // 64, 64, cout).permute(3, 1, 0, 2).reshape(cout, -1).contiguous()
 
-    Element (k, n) with k = 16*ks + 8*half + 2*t + pair and
-    n = 8*(2*np + jj) + g goes to ``[ks, np, lane = 4*g + t, jj, half, pair]``:
-    one 16-byte load per lane yields the (b0, b1) registers of n-tiles 2*np
-    and 2*np + 1 for k-step ks.
-    """
-    k, n = bmat.shape
-    if k % 16 or n % 16:
-        raise ValueError(f"B matrix {k}x{n} must be a multiple of 16 both ways")
-    v = bmat.reshape(k // 16, 2, 4, 2, n // 16, 2, 8)
-    return v.permute(0, 4, 6, 2, 5, 1, 3).reshape(k // 16, n // 16, 32, 2, 2, 2)
+
+class TailWeights(NamedTuple):
+    """The tail's weights as the kernel reads them, for one compute dtype:
+    w1 and w2 packed (bf16, ``pack_conv_weight``) or the plain ``[9 * C_in,
+    C_out]`` matrices (fp32); the biases and the head rounded to the compute
+    dtype, as the plain version uses them, and held in fp32."""
+
+    w1: torch.Tensor
+    w2: torch.Tensor
+    b1: torch.Tensor
+    b2: torch.Tensor
+    kd: torch.Tensor
+    bd: torch.Tensor
 
 
-def fused_dpt_tail(t, out_hw, k1, b1, k2, b2, kd, bd, *, trailing_relu):
+def prepare_weights(k1, b1, k2, b2, kd, bd, dtype: torch.dtype) -> TailWeights:
+    """The kernel's operands for compute ``dtype`` from the JAX-layout
+    weights (HWIO k1, k2; kd ``[32, 1]``)."""
+    if dtype == torch.bfloat16:
+        w1, w2 = pack_conv_weight(k1), pack_conv_weight(k2)
+    else:
+        w1 = k1.detach().to(dtype).reshape(-1, k1.shape[-1]).contiguous()
+        w2 = k2.detach().to(dtype).reshape(-1, k2.shape[-1]).contiguous()
+    small = (a.detach().to(dtype).float().reshape(-1).contiguous() for a in (b1, b2, kd, bd))
+    return TailWeights(w1, w2, *small)
+
+
+class WeightCache:
+    """``prepare_weights`` kept until a weight changes: keyed on each
+    weight's device, storage and version counter (an in-place update, such
+    as ``load_state_dict`` or an optimizer step, bumps the version), as
+    ``ops/quant.QuantLinear`` keeps its int8 weight."""
+
+    def __init__(self):
+        self._key = None
+        self._weights = None
+
+    def get(self, k1, b1, k2, b2, kd, bd, dtype: torch.dtype) -> TailWeights:
+        arrays = (k1, b1, k2, b2, kd, bd)
+        key = (dtype, *((a.device, a.data_ptr(), a._version, a.shape, a.stride())
+                        for a in arrays))
+        if key != self._key:
+            self._weights = prepare_weights(*arrays, dtype)
+            self._key = key
+        return self._weights
+
+
+def fused_dpt_tail(t, out_hw, k1, b1, k2, b2, kd, bd, *, trailing_relu,
+                   weights: TailWeights | None = None):
     """The tail on ``t``: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor. Returns ``[B, oh, ow]`` in ``t``'s dtype."""
+    version for a CPU tensor. Returns ``[B, oh, ow]`` in ``t``'s dtype.
+    ``weights``: the kernel's operands from ``prepare_weights`` (or a
+    ``WeightCache``) for these weights and ``t``'s dtype; prepared on this
+    call when None."""
     if t.device.type == "cpu":
         return tail_reference(t, out_hw, k1, b1, k2, b2, kd, bd, trailing_relu=trailing_relu)
     if t.device.type != "cuda":
@@ -88,29 +140,25 @@ def fused_dpt_tail(t, out_hw, k1, b1, k2, b2, kd, bd, *, trailing_relu):
         raise RuntimeError("the DPT tail kernel is forward-only (no backward)")
 
     dtype = t.dtype
-    if dtype == torch.bfloat16:
-        w1 = pack_b_fragments(k1.to(dtype).reshape(9 * c, cm))
-        w2 = pack_b_fragments(k2.to(dtype).reshape(9 * cm, _C2))
-    else:
-        w1 = k1.to(dtype).reshape(9 * c, cm).contiguous()
-        w2 = k2.to(dtype).reshape(9 * cm, _C2).contiguous()
-    # biases and the head weights are rounded to the compute dtype, as the
-    # plain version uses them, then handed over in fp32
-    b1f, b2f, kdf, bdf = (a.to(dtype).float().reshape(-1).contiguous()
-                          for a in (b1, b2, kd, bd))
+    if weights is None:
+        weights = prepare_weights(k1, b1, k2, b2, kd, bd, dtype)
+    w1_rows = cm if dtype == torch.bfloat16 else 9 * c
+    if (weights.w1.dtype != dtype or weights.w1.shape[0] != w1_rows
+            or weights.w1.device != t.device):
+        raise ValueError("weights were prepared for another dtype, width or device")
     v = torch.empty((b, 2 * ht, 2 * wt, cm), dtype=dtype, device=t.device)
     out = torch.empty((b, oh, ow), dtype=dtype, device=t.device)
     lib = _lib()
     code = _DTYPES[dtype]
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dad_tail_conv1(t.data_ptr(), w1.data_ptr(), b1f.data_ptr(), v.data_ptr(),
-                                 b, ht, wt, c, code, stream)
+        err = lib.dad_tail_conv1(t.data_ptr(), weights.w1.data_ptr(), weights.b1.data_ptr(),
+                                 v.data_ptr(), b, ht, wt, c, code, stream)
         if err:
             raise RuntimeError(f"DPT tail conv1 launch failed (error {err})")
-        err = lib.dad_tail_head(v.data_ptr(), w2.data_ptr(), b2f.data_ptr(), kdf.data_ptr(),
-                                bdf.data_ptr(), out.data_ptr(), b, 2 * ht, 2 * wt, cm, oh, ow,
-                                int(trailing_relu), code, stream)
+        err = lib.dad_tail_head(v.data_ptr(), weights.w2.data_ptr(), weights.b2.data_ptr(),
+                                weights.kd.data_ptr(), weights.bd.data_ptr(), out.data_ptr(), b,
+                                2 * ht, 2 * wt, cm, oh, ow, int(trailing_relu), code, stream)
     if err:
         raise RuntimeError(f"DPT tail head launch failed (error {err})")
     fused_dpt_tail.launches += 1

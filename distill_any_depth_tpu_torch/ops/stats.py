@@ -8,7 +8,8 @@ is found by index (first occurrence of its value), and the value is a
 a one-element scatter per row, as the JAX ``_gather_at``.
 
 ``_kth_valid_index`` runs the CUDA kernel ``csrc/kth_select.cu`` (the port
-of the TPU kernel ``_kth_valid_index_fused``) for every CUDA tensor,
+of the TPU kernel ``_kth_valid_index_fused``: a radix select with a row
+spread over a cluster of blocks) for every CUDA tensor,
 whatever the row length: the TPU's 32768-column cutover to its jnp
 bisection was a VMEM/launch trade. A CPU tensor takes the plain version: a
 stable sort of the order bits, the value at position k, then the first

@@ -1,27 +1,32 @@
 """What the port's CUDA kernels compiled to, and the device time of each
-launch of kernels 5-9 at their main paths' shapes.
+launch of kernels 2 and 4-9 at their main paths' shapes.
 
     python scripts/kernel_report.py [ROOT] [--libs a,b] [--iters N]
 
 Imports ``distill_any_depth_tpu_torch`` from ROOT (default: this checkout)
 and builds the libraries ``--libs`` (default: the masked forwards and
-backwards and the W8A8 GEMM) there. For each kernel function it prints ptxas's registers,
-spills and shared memory, its SASS instruction count (``cuobjdump -sass``)
-and the count of the opcodes that say how its products and loads run:
-``HGMMA``/``IGMMA`` (warpgroup MMA), ``HMMA``/``IMMA`` (``mma.sync``),
-``LDSM`` (ldmatrix), ``UTMALDG`` (TMA loads), ``SYNCS`` (mbarrier), ``BAR``,
-``BRA``, ``MUFU``, ``LDG``, ``LDS``, ``STS``, ``STG``, ``LDGSTS``
-(cp.async). Then it traces (CUDA activity only) kernels 5 (with the window
-bias) and 7 at the windowed teacher's bs8 (518^2, 1036^2) and the windowed
-student's bs16 shapes (the latter with the log-sum-exp, as path 4 runs
-them), kernel 8 at the windowed student's 1036^2 bs16 shape (also on
+backwards, the W8A8 GEMM, the DPT tail and the select) there. For each
+kernel function it prints ptxas's registers, spills and shared memory, its
+SASS instruction count (``cuobjdump -sass``) and the count of the opcodes
+that say how its products and loads run: ``HGMMA``/``IGMMA`` (warpgroup
+MMA), ``HMMA``/``IMMA`` (``mma.sync``), ``LDSM`` (ldmatrix), ``UTMALDG``
+(TMA loads), ``SYNCS`` (mbarrier), ``BAR``, ``BRA``, ``MUFU``, ``LDG``,
+``LDS``, ``STS``, ``STG``, ``LDGSTS`` (cp.async), ``LDL``/``STL`` (local
+memory: spills). Then it traces (CUDA activity only) kernels 5 (with the
+window bias) and 7 at the windowed teacher's bs8 (518^2, 1036^2) and the
+windowed student's bs16 shapes (the latter with the log-sum-exp, as path 4
+runs them), kernel 8 at the windowed student's 1036^2 bs16 shape (also on
 separate contiguous q, k, v, and kernel 6 with the window bias on the same
 tiles), kernel 6 at its 518^2 bs16 shape with the window bias (from kernel
-5's tile marks and terms, as the training path calls it) and kernel 9 at
-the four ViT-L GEMMs at M = 10960 (518^2 bs8) and 6280 (392^2 bs8), and
-prints the device time per call of every kernel each launch starts, by
-name. One JSON line at the end; run it on a card, with ``nvcc`` and
-``cuobjdump`` on the machine.
+5's tile marks and terms, as the training path calls it), kernel 9 at the
+four ViT-L GEMMs at M = 10960 (518^2 bs8) and 6280 (392^2 bs8), kernel 2
+(its two launches) at each path's shape (C = 128 at 392^2, 518^2, 1036^2;
+C = 256 at 392^2, 518^2, 1036^2; bs8) and kernel 4 at the HDN loss's
+[112, 392^2] and [112, 1036^2] rows, and prints the device time per call of
+every kernel each launch starts, by name. One JSON line at the end; run it
+on a card, with ``nvcc`` and ``cuobjdump`` on the machine. With ROOT an
+unpacked parent tree, the same on the parent's kernels, for a comparison
+inside one call.
 """
 import argparse
 import json
@@ -37,7 +42,7 @@ p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 p.add_argument("root", nargs="?", default=str(Path(__file__).resolve().parents[1]))
 p.add_argument("--libs", default="flash_attention_bias,flash_attention_banded,"
                                  "flash_attention_bias_bwd,flash_attention_banded_bwd,"
-                                 "w8a8_matmul")
+                                 "w8a8_matmul,dpt_tail,kth_select")
 p.add_argument("--iters", type=int, default=10)
 args = p.parse_args()
 sys.path.insert(0, args.root)
@@ -45,13 +50,15 @@ sys.path.insert(0, args.root)
 import torch  # noqa: E402
 
 from distill_any_depth_tpu_torch.ops import _build  # noqa: E402
+from distill_any_depth_tpu_torch.ops import dpt_tail as dt  # noqa: E402
 from distill_any_depth_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from distill_any_depth_tpu_torch.ops import stats  # noqa: E402
 from distill_any_depth_tpu_torch.ops.quant import quantize_weight  # noqa: E402
 from distill_any_depth_tpu_torch.ops.quant_matmul import w8a8_matmul  # noqa: E402
 from distill_any_depth_tpu_torch.ops.window import local_window_bias  # noqa: E402
 
 OPCODES = ("HGMMA", "IGMMA", "HMMA", "IMMA", "LDSM", "UTMALDG", "SYNCS", "BAR", "BRA", "MUFU",
-           "LDG", "LDS", "STS", "STG", "LDGSTS")
+           "LDG", "LDS", "STS", "STG", "LDGSTS", "LDL", "STL")
 CUDA_BIN = Path("/usr/local/cuda/bin")
 
 
@@ -218,6 +225,30 @@ for m in (10960, 6280):
         qw = quantize_weight(w)
         times[f"kernel 9, M={m} {gemm}"] = device_ms(
             lambda: w8a8_matmul(x, w, bias, quantized=qw), args.iters)
+# kernel 2 (its two launches) at the paths' shapes, the weights prepared
+# once where the tree has a cache for them; kernel 4 at the HDN rows
+for c, res in ((128, 392), (256, 392), (128, 518), (128, 1036), (256, 518), (256, 1036)):
+    g4, cm = res // 14 * 4, c // 2
+    t = torch.randn(8, g4, g4, c, generator=gen, device="cuda").to(bf16)
+    w = dict(k1=torch.randn(3, 3, c, cm, generator=gen, device="cuda") * (9 * c) ** -0.5,
+             b1=torch.zeros(cm, device="cuda"),
+             k2=torch.randn(3, 3, cm, 32, generator=gen, device="cuda") * (9 * cm) ** -0.5,
+             b2=torch.zeros(32, device="cuda"), kd=torch.full((32, 1), 0.1, device="cuda"),
+             bd=torch.zeros(1, device="cuda"))
+    extra = ({"weights": dt.prepare_weights(*w.values(), bf16)}
+             if hasattr(dt, "prepare_weights") else {})
+    times[f"kernel 2, C={c} {res}^2 bs8"] = device_ms(
+        lambda: dt.fused_dpt_tail(t, (res, res), trailing_relu=False, **w, **extra), args.iters)
+    del t
+    torch.cuda.empty_cache()
+for n in (392 * 392, 1036 * 1036):
+    x = torch.randn(112, n, generator=gen, device="cuda")
+    mask = torch.rand(112, n, generator=gen, device="cuda") < 0.25
+    u = stats._order_bits(x, mask)
+    k = (mask.sum(-1) - 1).clamp(min=0) // 2
+    times[f"kernel 4, [112, {n}]"] = device_ms(lambda: stats.kth_select(u, k), args.iters)
+    del x, mask, u
+    torch.cuda.empty_cache()
 for label, row in times.items():
     print(f"[time] {label}: {json.dumps(row)}", flush=True)
 report["device_ms"] = times

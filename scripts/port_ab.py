@@ -8,8 +8,9 @@ first, as the package does at first use) and prints one JSON line: the
 bs16 392^2 ViT-L -> ViT-B bf16 train step with the bf16 and with the
 ``int8_pallas`` teacher (median of 5 windows of 3 steps on a device-resident
 batch, CUDA events), the ViT-B 392^2 bs8 bf16 forward (median of 5 windows
-of 10; path 1), the windowed teacher's 1036^2 bs8 bf16 forward (median of
-5 windows of 5; path 3, kernel 7) and the windowed student's 1036^2 bs16
+of 10; path 1), the ViT-L 518^2 bs8 bf16 forward with ``int8_pallas`` GEMMs
+(median of 5 windows of 3; path 5), the windowed teacher's 1036^2 bs8 bf16
+forward (median of 5 windows of 5; path 3, kernel 7) and the windowed student's 1036^2 bs16
 bf16 step under the ViT-L teacher (median of 3 windows of 2 steps; path 4,
 kernels 7 and 8). Unpack the parent with ``git archive`` into a git-ignored
 directory and run parent, change, change, parent in one call.
@@ -53,6 +54,18 @@ with torch.no_grad():
 out["forward_ms"] = statistics.median(windows)
 out["forward_windows"] = windows
 del model
+
+# path 5: the ViT-L 518^2 bs8 forward with the int8_pallas GEMMs
+model = create_model("depthanything-large", dtype=torch.bfloat16, device="cuda", seed=0,
+                     quant="int8_pallas")
+x5 = torch.rand(8, 3, 518, 518, generator=torch.Generator().manual_seed(2)).cuda()
+x5 = x5.to(torch.bfloat16)
+with torch.no_grad():
+    windows = [cuda_ms(lambda: model(x5), iters=3) for _ in range(5)]
+out["pseudo_forward_ms"] = statistics.median(windows)
+out["pseudo_forward_windows"] = windows
+del model, x5
+torch.cuda.empty_cache()
 
 # paths 3 and 4 at 1036^2: the windowed teacher's forward, the windowed
 # student's step

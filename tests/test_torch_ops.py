@@ -20,8 +20,9 @@ from distill_any_depth_tpu.ops.flash_attention import mha_flash_packed as jax_mh
 from distill_any_depth_tpu_torch.ops import resize
 from distill_any_depth_tpu_torch.ops.attention import multi_head_attention_packed
 from distill_any_depth_tpu_torch.ops.dpt_tail import (
+    WeightCache,
     fused_dpt_tail,
-    pack_b_fragments,
+    pack_conv_weight,
     tail_reference,
 )
 from distill_any_depth_tpu_torch.ops.flash_attention import (
@@ -107,6 +108,7 @@ def _tail_params(rng, ci, cm):
         (8, 8, 128, 64, 28, 28, True),
         (16, 12, 128, 64, 56, 42, False),  # non-square, teacher-style tail
         (14, 14, 256, 128, 98, 98, True),  # ViT-L channel widths
+        (7, 3, 64, 32, 29, 66, False),  # ragged, non-square, off the patch grid
     ],
 )
 def test_tail_matches_jax(ht, wt, ci, cm, oh, ow, trailing):
@@ -156,24 +158,58 @@ def test_cpu_wrappers_count_no_launch():
     assert mha_flash_packed.launches == before
 
 
-def test_pack_b_fragments_follows_mma_layout():
-    """Lane 4g+t of k-step ks, n-tile pair np holds (b0, b1) of n-tiles
-    2np and 2np+1: b0 = B[16ks+2t+{0,1}, n], b1 = B[16ks+8+2t+{0,1}, n],
-    n = 8*tile + g (mma.sync m16n8k16 B-fragment layout)."""
-    k, n = 48, 32
-    bmat = torch.arange(k * n, dtype=torch.float32).reshape(k, n)
-    packed = pack_b_fragments(bmat)
-    assert packed.shape == (k // 16, n // 16, 32, 2, 2, 2)
-    for ks in range(k // 16):
-        for np_ in range(n // 16):
-            for lane in range(32):
-                g, t = divmod(lane, 4)
-                for jj in range(2):
-                    col = 8 * (2 * np_ + jj) + g
-                    for half in range(2):
-                        rows = [16 * ks + 8 * half + 2 * t + p for p in range(2)]
-                        assert packed[ks, np_, lane, jj, half].tolist() == \
-                            bmat[rows, col].tolist()
+def unpack_conv_weight(packed: torch.Tensor, cin: int) -> torch.Tensor:
+    """The inverse of ``pack_conv_weight``: the HWIO ``[3, 3, cin, C_out]``
+    weight."""
+    cout = packed.shape[0]
+    w = packed.reshape(cout, -1, 9, 64).permute(2, 1, 3, 0).reshape(9, -1, cout)
+    return w[:, :cin].reshape(3, 3, cin, cout)
+
+
+@pytest.mark.parametrize("c", [64, 128, 256])
+def test_conv_weight_packing_unpacks_to_hwio(c):
+    """The bf16 kernel's packed weights ([C_out, chunks x 9 taps x 64]) of
+    conv1 (C -> C/2) and conv2 (C/2 -> 32) hold every HWIO weight, rounded to
+    bf16, at (n, (cc * 9 + tap) * 64 + ci), with zeros for the channels a
+    64-wide chunk pads, and unpack to the HWIO weights exactly."""
+    rng = np.random.RandomState(c)
+    for cin, cout in ((c, c // 2), (c // 2, 32)):
+        k = torch.from_numpy(rng.randn(3, 3, cin, cout).astype(np.float32))
+        packed = pack_conv_weight(k)
+        chunks = -(-cin // 64)
+        assert packed.dtype == torch.bfloat16 and packed.shape == (cout, chunks * 9 * 64)
+        assert packed.is_contiguous()
+        kb = k.to(torch.bfloat16)
+        assert torch.equal(unpack_conv_weight(packed, cin), kb)
+        blocks = packed.reshape(cout, chunks, 9, 64)
+        for tap in (0, 4, 8):
+            dy, dx = divmod(tap, 3)
+            for cc in range(chunks):
+                width = min(64, cin - 64 * cc)
+                assert torch.equal(blocks[:, cc, tap, :width],
+                                   kb[dy, dx, 64 * cc:64 * cc + width].t())
+                assert not blocks[:, cc, tap, width:].any()
+
+
+def test_weight_cache_repacks_only_after_an_inplace_change():
+    """``WeightCache`` (the DPT head keeps one) packs the weights once and
+    hands back the same tensors until a weight changes in place, then packs
+    the new values."""
+    rng = np.random.RandomState(0)
+    ws = [torch.from_numpy(a.astype(np.float32)) for a in _tail_params(rng, 128, 64).values()]
+    cache = WeightCache()
+    first = cache.get(*ws, torch.bfloat16)
+    assert cache.get(*ws, torch.bfloat16) is first
+    assert torch.equal(unpack_conv_weight(first.w1, 128), ws[0].to(torch.bfloat16))
+    with torch.no_grad():
+        ws[0].mul_(2.0)
+    second = cache.get(*ws, torch.bfloat16)
+    assert second is not first
+    assert torch.equal(unpack_conv_weight(second.w1, 128), ws[0].to(torch.bfloat16))
+    assert cache.get(*ws, torch.bfloat16) is second
+    # another compute dtype is another packing: the fp32 kernel's plain matrices
+    plain = cache.get(*ws, torch.float32)
+    assert plain.w1.dtype == torch.float32 and torch.equal(plain.w1, ws[0].reshape(-1, 64))
 
 
 @pytest.mark.parametrize("in_size,out_size", [(8, 16), (112, 224), (224, 392), (5, 9)])
