@@ -11,8 +11,9 @@ Phases, each of which fails the run if it fails:
    backward), across the tile edges (N = 128, 129), and kernel 3 against
    itself: two calls give d(qkv) equal bit for bit;
 3. hold the DPT-head tail kernel (kernel 2) against its plain version, at
-   every path's shape (C = 128 at 392^2, 518^2 and 1036^2; C = 256 at
-   392^2, 518^2 and path 4's 1036^2 teacher chunk) and at ragged shapes
+   every path's shape (C = 128 at 392^2, 518^2 and 1036^2 and at path 6's
+   KITTI native 392 x 1358 in bf16 and fp32; C = 256 at 392^2, 518^2 and
+   path 4's 1036^2 teacher chunk) and at ragged shapes
    across its tile edges for each C in bf16 and fp32, and in bf16 against
    its own second call, bit for bit;
 4. hold the order-statistic select (kernel 4) against its plain version,
@@ -33,7 +34,8 @@ Phases, each of which fails the run if it fails:
    student at bs16 392^2 in bf16 (the default loss stack, NYU shared views,
    teacher in two bs8 chunks) on seeded synthetic images; per step, the
    launch counts of the kernels, finite losses and gradient norm, and
-   moved parameters; then two steps of ``cli.train`` over ``data/smoke``;
+   moved parameters; then two steps of ``cli.train`` over ``data/smoke``,
+   saving the student and the train state every step (path 6 reads them);
 8. one fp32 step of the same pair at bs2 on the card against the CPU;
 9. main path 3: ``cli.infer.predict`` with the windowed teacher
    ``depthanything-base-window`` at 518^2 (kernel 5) and 1036^2 (kernel 7),
@@ -78,7 +80,26 @@ Phases, each of which fails the run if it fails:
    also by the device time of each kernel a call starts; kernel 9 also
    beside bf16 ``F.linear``), the
    end-to-end forwards (the ViT-L 518^2 forward with each quant mode) and
-   the bs16 train steps (bf16 and int8 teacher).
+   the bs16 train steps (bf16 and int8 teacher); kernel 2 also at path 6's
+   KITTI native shape;
+17. path 6, checkpoints and evaluation (run between phases 15 and 16):
+   phase 7's ``student_final`` read back through the port's own
+   safetensors reader and held bit for bit against the saved fp32
+   parameters; ``cli.infer --checkpoint`` with it over ``data/smoke/imgs``;
+   the train state restored into phase 7's trainer (parameters, Adam
+   moments and counts bit for bit, on the card); ``cli.train --resume`` for
+   steps 3 and 4 (launches per step, finite losses; bit-exact continuation
+   is a CPU test, since cuDNN's backward may pick non-deterministic
+   algorithms here); path 5's seeded ViT-L saved with ``save_safetensors``,
+   renamed by ``cli.convert`` and loaded as a ``Trainer``'s teacher
+   (parameters and a bs8 392^2 forward bit for bit); ``cli.evaluate`` with
+   ``student_final`` over 64 synthetic NYU pairs at 392^2 bs8 in fp32 and
+   bf16, and over 16 synthetic KITTI pairs at their native resolution (KB
+   crop, eigen mask; kernel 1 at N = 2717 and kernel 2 at 392 x 1358, the
+   prediction upsampled to 352 x 1216): kernels 1 and 2 per batch, finite
+   metrics, the report files, images/s with the decode, and the metrics of
+   2 images against the port's CPU fp32 ``evaluate_model`` of the same
+   weights; save and load times.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -104,6 +125,7 @@ from distill_any_depth_tpu_torch.configs import (  # noqa: E402
     TrainConfig,
     model_config,
 )
+from distill_any_depth_tpu_torch.data.transforms import Resize  # noqa: E402
 from distill_any_depth_tpu_torch.models.factory import create_model  # noqa: E402
 from distill_any_depth_tpu_torch.ops import _build  # noqa: E402
 from distill_any_depth_tpu_torch.ops.dpt_tail import (  # noqa: E402
@@ -164,14 +186,22 @@ W8A8_SHAPES = {
                                                      (3072, 768))),
 }
 GEMMS = ("qkv", "proj", "fc1", "fc2")
-# kernel 2's shapes on the paths: (label, batch, C, resolution, trailing ReLU);
-# t is [batch, res/14*4, res/14*4, C]
+# path 6: evaluation on NYU (64 480x640 pairs, the real test set has 654) and
+# on KITTI at its native resolution (16 375x1242 pairs): the KB crop 352x1216
+# goes in keeping its aspect, 392 high and a multiple of 14 wide
+NYU_EVAL_IMAGES, KITTI_EVAL_IMAGES, EVAL_BATCH = 64, 16, 8
+KITTI_RAW_HW, KITTI_CROP_HW = (375, 1242), (352, 1216)
+KITTI_IN_HW = Resize(RES, RES, ensure_multiple_of=14,
+                     keep_aspect_ratio=True).get_size(*KITTI_CROP_HW[::-1])[::-1]
+# kernel 2's shapes on the paths: (label, batch, C, output size, trailing
+# ReLU); t is [batch, oh/14*4, ow/14*4, C] (oh = ow for a single number)
 TAIL_SHAPES = (("path 1 ViT-B 392^2", BATCH, 128, RES, True),
                ("path 2 ViT-L teacher 392^2", 8, 256, RES, False),
                ("path 3 518^2", BATCH, 128, 518, False),
                ("path 3 1036^2", BATCH, 128, 1036, False),
                ("path 5 ViT-L 518^2", 8, 256, 518, False),
-               ("path 4 ViT-L teacher 1036^2", 8, 256, 1036, False))
+               ("path 4 ViT-L teacher 1036^2", 8, 256, 1036, False),
+               ("path 6 ViT-B KITTI native", BATCH, 128, KITTI_IN_HW, True))
 
 BF16_ATTN_TOL = 6e-3  # max |err| / (1 + |ref|), bf16 kernel 1 against its plain version
 # max |err| / (1 + |ref|), bf16 kernels 1 + 3 against autograd of the plain
@@ -229,6 +259,13 @@ WINDOW_FP32_STEP_TOL = {"sc rel": 7e-7, "lg rel": 7e-7, "feat rel": 7e-7, "grad 
                         "param max |diff|/lr": 2.01}
 
 
+def gpu_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -256,14 +293,14 @@ def bound(flops: float, nbytes: float, rate: float = PEAK_BF16_FLOPS) -> tuple[f
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def tail_work(b: int, g4: int, c: int, res: int) -> tuple[float, float]:
+def tail_work(b: int, gh: int, gw: int, c: int, oh: int, ow: int) -> tuple[float, float]:
     """Kernel 2's operations and bytes (t read once, the weights, the depth
-    written once) for t [b, g4, g4, c] -> [b, res, res] in bf16."""
-    hu, cm = 2 * g4, c // 2
-    flops = (2.0 * b * hu * hu * 9 * c * cm + 2.0 * b * res * res * 9 * cm * 32
-             + 2.0 * b * res * res * 32)
+    written once) for t [b, gh, gw, c] -> [b, oh, ow] in bf16."""
+    cm = c // 2
+    flops = (2.0 * b * (2 * gh) * (2 * gw) * 9 * c * cm + 2.0 * b * oh * ow * 9 * cm * 32
+             + 2.0 * b * oh * ow * 32)
     weights = (9 * c * cm + cm + 9 * cm * 32 + 32 + 32 + 1) * 4
-    return flops, b * g4 * g4 * c * 2 + weights + b * res * res * 2
+    return flops, b * gh * gw * c * 2 + weights + b * oh * ow * 2
 
 
 def device_ms(fn, iters: int = 20) -> tuple[float, list[str]]:
@@ -379,6 +416,13 @@ def phase_attention(gen) -> float:
     attention_case("N = 129", 2, 129, 12, torch.bfloat16, BF16_ATTN_TOL, gen)
     # fp32: only the summation order differs
     attention_case("fp32", 2, 197, 12, torch.float32, 1e-5, gen)
+    # path 6's shapes: NYU 392^2 in fp32 (bf16 is the slice shape above) and
+    # KITTI at its native grid (a ragged last q tile) in both dtypes
+    attention_case("path 6 NYU fp32", EVAL_BATCH, 785, 12, torch.float32, 1e-5, gen)
+    kn = 1 + (KITTI_IN_HW[0] // 14) * (KITTI_IN_HW[1] // 14)
+    attention_case("path 6 KITTI native fp32", EVAL_BATCH, kn, 12, torch.float32, 1e-5, gen)
+    attention_case("path 6 KITTI native bf16", EVAL_BATCH, kn, 12, torch.bfloat16,
+                   BF16_ATTN_TOL, gen)
     attention_case("logits < -60 fp32", 2, 197, 4, torch.float32, 1e-5, gen, negative=True)
     attention_case("logits < -60 bf16", 2, 197, 4, torch.bfloat16, BF16_ATTN_TOL, gen,
                    negative=True)
@@ -491,6 +535,11 @@ def phase_tail(gen) -> float:
         g4 = res // 14 * 4
         tail_case(f"window {res} tail", BATCH, g4, g4, 128, torch.bfloat16, (res, res), False,
                   2e-2, gen)
+    # path 6's ViT-B tail at KITTI's native 392 x 1358 (t 112 x 388)
+    kh, kw = KITTI_IN_HW
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        tail_case(f"KITTI native {str(dtype)[6:]}", BATCH, kh // 14 * 4, kw // 14 * 4, 128, dtype,
+                  (kh, kw), True, tol, gen, twice=True)
     # path 5's ViT-L tail at 518^2 and path 4's teacher chunk at 1036^2 (C = 256)
     for res in WINDOW_RES:
         g4 = res // 14 * 4
@@ -815,9 +864,9 @@ def phase_window_grad(gen) -> tuple[float, float]:
 
 
 # ---------------------------------------------------------------- phase 6
-def synthetic_images(n: int) -> list[np.ndarray]:
-    rng = np.random.RandomState(0)
-    yy, xx = np.mgrid[0:480, 0:640].astype(np.float32)
+def synthetic_images(n: int, hw: tuple[int, int] = (480, 640), seed: int = 0) -> list[np.ndarray]:
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:hw[0], 0:hw[1]].astype(np.float32)
     ims = []
     for _ in range(n):
         f = rng.uniform(0.005, 0.03, size=3)
@@ -976,7 +1025,8 @@ def phase_train(teacher_quant: str = "none") -> tuple[Trainer, dict]:
     log(f"[{tag}] block 0 qkv weight moved by up to {moved:.3e}")
     check(moved > 0, f"{tag}: the student's parameters did not move")
 
-    # the CLI over the repository's smoke data, at a batch it holds
+    # the CLI over the repository's smoke data, at a batch it holds; with the
+    # bf16 teacher it saves every step (path 6 reads the files)
     from distill_any_depth_tpu_torch.cli import train as train_cli
 
     out = OUT / f"train_cli_{teacher_quant}"
@@ -985,6 +1035,7 @@ def phase_train(teacher_quant: str = "none") -> tuple[Trainer, dict]:
         "--device", "cuda", "--dataset_dir", "data/smoke", "--output_dir", str(out),
         "--batch_size", "2", "--num_iterations", "2", "--image_size", str(RES),
         "--use_hdn_loss", "--log_interval", "1", "--teacher_quant", teacher_quant,
+        "--checkpoint_interval", "1" if teacher_quant == "none" else "0",
     ])
     torch.cuda.synchronize()
     counts, want = read_counts(), expected_step_counts(2, teacher_quant=teacher_quant)
@@ -1324,16 +1375,332 @@ def phase_pseudo_label():
     return model, plain, counts, ims
 
 
+# ---------------------------------------------------------------- phase 17
+# path 6, the card's evaluation against the port's CPU fp32 evaluate_model
+# with the same weights on 2 images: the largest relative difference of
+# abs_rel, abs_diff, sq_rel, rmse and rmse_log, and the largest absolute
+# difference of the deltas a1-a3 (fractions of pixels). About 3x the largest
+# reading on an H100 over four runs (path 2 trains the weights anew in each
+# run, and the readings moved 3-4x with them): fp32 1.6e-7, 2.3e-7, 1.2e-7
+# and 5.75e-7 on NYU, 9e-8, 1.5e-7, 1.5e-7 and 0 on KITTI; bf16 2.7e-4,
+# 4.0e-4, 8.6e-4 and 6.1e-4, deltas 1.7e-4, 2.5e-4, 6.4e-4 and 7.2e-4. The
+# fp32 deltas read 0, 3.3e-6, 0 and 0: a delta moves in steps of one pixel,
+# 1 / (2 n) for an image of n valid pixels (3.3e-6 is one NYU pixel), so the
+# fp32 limit is 3x that reading in pixels, FP32_DELTA_PIXELS / (2 n) for the
+# fewer-pixel image of the 2 (about 1e-5 on NYU, 3.3e-5 on KITTI's ~46k)
+EVAL_VS_CPU_TOL = {"float32": (1.7e-6, None), "bfloat16": (2.6e-3, 2e-3)}
+FP32_DELTA_PIXELS = 3
+DELTAS = ("a1", "a2", "a3")
+# path 6's images/s: the median of EVAL_PASSES passes over the dataset with
+# the decode, and of passes over the decoded batches for EVAL_DECODED_S
+# seconds and at least EVAL_PASSES + 2 passes
+EVAL_PASSES, EVAL_DECODED_S = 3, 3.0
+
+
+def nyu_eval_data(root: Path) -> Path:
+    """``NYU_EVAL_IMAGES`` seeded 480x640 RGB and uint16 depth PNG pairs and
+    their ``nyu2_test.csv`` (absolute paths) under ``root``."""
+    import cv2
+
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(5)
+    yy, xx = np.mgrid[0:480, 0:640].astype(np.float32)
+    rows = []
+    for i, im in enumerate(synthetic_images(NYU_EVAL_IMAGES, seed=5)):
+        f = rng.uniform(0.002, 0.01, size=2)
+        depth = 20000 + 15000 * np.sin(f[0] * xx + rng.uniform(0, 6)) * np.cos(f[1] * yy)
+        depth = (depth + rng.normal(0, 500, depth.shape)).clip(1, 65535).astype(np.uint16)
+        depth[:8] = 0  # invalid rows, as the sensor leaves them
+        rgb_path, depth_path = root / f"{i:03d}_colors.png", root / f"{i:03d}_depth.png"
+        cv2.imwrite(str(rgb_path), cv2.cvtColor(im, cv2.COLOR_RGB2BGR))
+        cv2.imwrite(str(depth_path), depth)
+        rows.append(f"{rgb_path},{depth_path}")
+    (root / "nyu2_test.csv").write_text("\n".join(rows) + "\n")
+    return root
+
+
+def kitti_eval_data(root: Path) -> Path:
+    """``KITTI_EVAL_IMAGES`` seeded 375x1242 RGB and uint16 (/256 m) depth
+    pairs, 0 where a pixel has no depth, and the split list the registry
+    reads under ``root``."""
+    import cv2
+
+    (root / "kitti").mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(6)
+    lines = []
+    for i, im in enumerate(synthetic_images(KITTI_EVAL_IMAGES, hw=KITTI_RAW_HW, seed=6)):
+        depth = rng.randint(256, 20000, KITTI_RAW_HW).astype(np.uint16)  # 1 to 78 m
+        depth[rng.rand(*KITTI_RAW_HW) < 0.8] = 0  # sparse, as projected LiDAR
+        cv2.imwrite(str(root / f"rgb_{i:02d}.png"), cv2.cvtColor(im, cv2.COLOR_RGB2BGR))
+        cv2.imwrite(str(root / f"depth_{i:02d}.png"), depth)
+        lines.append(f"rgb_{i:02d}.png depth_{i:02d}.png")
+    (root / "kitti" / "eigen_test_files_with_gt.txt").write_text("\n".join(lines) + "\n")
+    return root
+
+
+def metrics_vs_cpu(tag: str, got: dict, ref: dict, tol: tuple[float, float]) -> dict:
+    """The card's metrics against the CPU fp32 ones (``EVAL_VS_CPU_TOL``)."""
+    from distill_any_depth_tpu_torch.eval.metrics import METRIC_KEYS
+
+    diff = {k: abs(got[k] - ref[k]) / (1.0 if k in DELTAS else abs(ref[k])) for k in METRIC_KEYS}
+    rel = max(v for k, v in diff.items() if k not in DELTAS)
+    delta = max(v for k, v in diff.items() if k in DELTAS)
+    ok = rel <= tol[0] and delta <= tol[1]
+    log(f"[{tag}] card against CPU fp32 on 2 images: {json.dumps(diff)}; max rel {rel:.3e} "
+        f"(tol {tol[0]:g}), max delta diff {delta:.3e} (tol {tol[1]:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{tag}: card metrics disagree with the CPU fp32 evaluation")
+    return {"max_rel": rel, "max_delta": delta, **diff}
+
+
+def run_evaluate(tag: str, argv: list[str], images: int, in_hw: tuple[int, int],
+                 gt_hw: tuple[int, int], cpu_ref: dict) -> tuple[dict, dict]:
+    """``cli.evaluate`` on the card with every launch count set to 0 just
+    before and read just after (kernels 1 and 2 per batch); then, with the
+    model the CLI builds, images/s over the dataset (decode included) and
+    the metrics of its first 2 images against the CPU fp32 model's
+    (computed once per dataset into ``cpu_ref``). Returns the results and
+    the readings."""
+    from distill_any_depth_tpu_torch.cli import evaluate as evaluate_cli
+    from distill_any_depth_tpu_torch.data.nyu import iterate_batches
+    from distill_any_depth_tpu_torch.eval.evaluate import evaluate_model
+    from distill_any_depth_tpu_torch.eval.metrics import METRIC_KEYS
+
+    args = evaluate_cli.argument_parser().parse_args(argv)
+    reset_counts()
+    t0 = time.time()
+    results = evaluate_cli.main(args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    batches = images // EVAL_BATCH
+    blocks = model_config(args.arch_name).encoder.depth
+    want = {k: {"attention": blocks, "tail": 1}.get(k, 0) * batches for k in COUNTERS}
+    log(f"[{tag}] cli.evaluate over {images} images in {time.time() - t0:.1f} s (first call, "
+        f"model build included): {json.dumps(results)} launches {counts}")
+    check(counts == want, f"{tag}: launches {counts}, expected {want}")
+    m = results["distilled"]
+    check(set(m) == set(METRIC_KEYS) and all(np.isfinite(v) for v in m.values()),
+          f"{tag}: metrics {m}")
+    report = Path(args.output)
+    check(report.exists() and report.with_suffix(".json").exists(), f"{tag}: no report")
+
+    ds = evaluate_cli.build_dataset(args)
+    check(ds[0].image.shape == (*in_hw, 3) and ds[0].depth.shape == gt_hw,
+          f"{tag}: sample {ds[0].image.shape} {ds[0].depth.shape}")
+    model = evaluate_cli.build_model(args, args.model_path)
+
+    def pass_rate(batches) -> float:
+        t0 = time.perf_counter()
+        evaluate_model(model, batches)
+        torch.cuda.synchronize()
+        return images / (time.perf_counter() - t0)
+
+    rates = [pass_rate(iterate_batches(ds, EVAL_BATCH, shuffle=False))
+             for _ in range(EVAL_PASSES)]
+    # the same without the decode: the batches decoded first, then evaluated
+    t0 = time.perf_counter()
+    decoded = list(iterate_batches(ds, EVAL_BATCH, shuffle=False))
+    decode_s = time.perf_counter() - t0
+    decoded_rates, t0 = [], time.perf_counter()
+    while len(decoded_rates) < EVAL_PASSES + 2 or time.perf_counter() - t0 < EVAL_DECODED_S:
+        decoded_rates.append(pass_rate(decoded))
+    decoded_s = time.perf_counter() - t0
+    del decoded
+    rate, decoded_rate = float(np.median(rates)), float(np.median(decoded_rates))
+    two = list(iterate_batches(ds, 2, shuffle=False, indices=[0, 1]))
+    with torch.no_grad():
+        x = torch.from_numpy(two[0]["image"]).cuda().permute(0, 3, 1, 2)
+        check(tuple(model(x)[0].shape) == (2, *in_hw), f"{tag}: prediction shape")
+    if "metrics" not in cpu_ref:
+        cpu_args = evaluate_cli.argument_parser().parse_args(
+            [*argv, "--device", "cpu", "--dtype", "float32"])
+        t0 = time.time()
+        cpu_ref["metrics"] = evaluate_model(evaluate_cli.build_model(cpu_args, args.model_path),
+                                            two)
+        log(f"[{tag}] CPU fp32 evaluate_model on 2 images in {time.time() - t0:.1f} s: "
+            f"{json.dumps(cpu_ref['metrics'])}")
+    rel_tol, delta_tol = EVAL_VS_CPU_TOL[args.dtype]
+    if delta_tol is None:
+        delta_tol = FP32_DELTA_PIXELS / (2 * int((two[0]["depth"] > 0).sum((1, 2)).min()))
+    reading = metrics_vs_cpu(tag, evaluate_model(model, two), cpu_ref["metrics"],
+                             (rel_tol, delta_tol))
+    log(f"[{tag}] {images} images: median {rate:.1f} images/s over {len(rates)} passes "
+        f"(decode included) {[round(r, 2) for r in rates]}; decode alone {decode_s:.2f} s; "
+        f"the evaluation of decoded batches median {decoded_rate:.1f} images/s over "
+        f"{len(decoded_rates)} passes in {decoded_s:.1f} s "
+        f"{[round(r, 1) for r in decoded_rates]}")
+    per_batch = {k: v // batches for k, v in counts.items()}
+    return results, {"images": images, "images_per_s": rate, "passes": rates,
+                     "decode_s": decode_s, "decoded_images_per_s": decoded_rate,
+                     "decoded_passes": decoded_rates, "vs_cpu": reading,
+                     "launches_per_batch": per_batch}
+
+
+def phase_checkpoints_and_eval(trainer: Trainer, source: torch.nn.Module) -> dict:
+    """Path 6: what path 2's ``cli.train`` saved (weights read back through
+    the port's own reader, ``cli.infer --checkpoint``, the train state
+    restored into ``trainer``'s state, ``cli.train --resume``), a ViT-L
+    teacher through ``save_safetensors``, ``cli.convert`` and
+    ``teacher_checkpoints``, and ``cli.evaluate`` on NYU (fp32 and bf16) and
+    on KITTI at its native resolution. ``source`` is a seeded ViT-L (path 5's
+    unquantized model, seed 0). Returns the readings and times."""
+    from distill_any_depth_tpu_torch.cli import convert as convert_cli
+    from distill_any_depth_tpu_torch.cli import infer as infer_cli
+    from distill_any_depth_tpu_torch.cli import train as train_cli
+    from distill_any_depth_tpu_torch.utils import checkpoint as ckpt_io
+
+    out, run = {}, OUT / "train_cli_none"
+    t_phase = time.time()
+
+    # saves: every step, the final weights and the train state
+    final = run / "student_final.safetensors"
+    for name in ("student_checkpoint_1.safetensors", "student_checkpoint_2.safetensors",
+                 final.name, "train_state/state.pt"):
+        check((run / name).exists(), f"cli.train did not write {name}")
+    t0 = time.perf_counter()
+    weights = ckpt_io.read_safetensors(str(final))
+    read_s = time.perf_counter() - t0
+    saved = ckpt_io.restore_train_state(str(run))
+    names = [k for k, _ in trainer.student.named_parameters()]
+    check(int(saved["step"]) == 2 and sorted(weights) == sorted(names),
+          f"student_final: {len(weights)} tensors, state at step {int(saved['step'])}")
+    equal = all(torch.equal(weights[k], p) for k, p in zip(names, saved["params"]))
+    last = ckpt_io.read_safetensors(str(run / "student_checkpoint_2.safetensors"))
+    equal = equal and all(torch.equal(last[k], weights[k]) for k in names)
+    log(f"[path 6] student_final ({final.stat().st_size / 1e6:.1f} MB, read in {read_s:.2f} s) "
+        f"equals the saved fp32 parameters and student_checkpoint_2 bit for bit: {equal}")
+    check(equal, "student_final differs from the student's parameters")
+
+    # the saved weights through cli.infer on the card
+    reset_counts()
+    written = infer_cli.main(infer_cli.argument_parser().parse_args([
+        "--device", "cuda", "--arch_name", ARCH, "--checkpoint", str(final), "--input",
+        "data/smoke/imgs", "--output_dir", str(OUT / "infer_checkpoint")]))
+    torch.cuda.synchronize()
+    counts, n_in = read_counts(), len(list(Path("data/smoke/imgs").iterdir()))
+    forwards = -(-n_in // BATCH)
+    want = {k: {"attention": model_config(ARCH).encoder.depth, "tail": 1}.get(k, 0) * forwards
+            for k in COUNTERS}
+    log(f"[path 6] cli.infer --checkpoint student_final over data/smoke/imgs: {len(written)} "
+        f"of {n_in} images written, launches {counts}")
+    check(len(written) == n_in and all(Path(w).exists() for w in written), "cli.infer outputs")
+    check(counts == want, f"cli.infer --checkpoint: launches {counts}, expected {want}")
+
+    # the train state restored on the card into path 2's trainer (the same
+    # student): parameters, Adam moments and counts, lr and counters
+    t0 = time.perf_counter()
+    trainer.state.load_state_dict(saved)
+    torch.cuda.synchronize()
+    out["train_state_load_s"] = time.perf_counter() - t0
+    back = trainer.state.state_dict()
+    opt = trainer.state.optimizer
+    same = all(torch.equal(a[k], b[k]) for a, b in zip(back["adam"], saved["adam"])
+               for k in ("exp_avg", "exp_avg_sq", "step"))
+    same = same and all(torch.equal(a, b) for a, b in zip(back["params"], saved["params"]))
+    same = same and all(torch.equal(back[k], saved[k])
+                        for k in ("lr", "step", "applied", "notfinite_count", "last_norm"))
+    on_card = all(opt.state[p]["step"].is_cuda for p in trainer.state.params)
+    log(f"[path 6] train state (step 2) restored into the bs16 trainer in "
+        f"{out['train_state_load_s']:.2f} s: parameters, Adam moments and counts, lr and "
+        f"counters equal bit for bit: {same}; Adam counts on the card: {on_card}")
+    check(same and on_card and opt.param_groups[0]["lr"].is_cuda, "train state restore")
+
+    # cli.train --resume: steps 3 and 4 from the saved state. Bit-exact
+    # continuation is a CPU test (tests/test_torch_checkpoint_io.py): cuDNN's
+    # backward may pick non-deterministic algorithms on the card.
+    resumed = OUT / "train_cli_resume"
+    reset_counts()
+    history = train_cli.main([
+        "--device", "cuda", "--dataset_dir", "data/smoke", "--output_dir", str(resumed),
+        "--batch_size", "2", "--num_iterations", "4", "--image_size", str(RES),
+        "--use_hdn_loss", "--log_interval", "1", "--resume", str(run),
+    ])
+    torch.cuda.synchronize()
+    counts, want = read_counts(), expected_step_counts(2)
+    step = int(ckpt_io.restore_train_state(str(resumed))["step"])
+    log(f"[path 6] cli.train --resume, 2 steps from step 2: history {history}, launches "
+        f"{counts}, saved at step {step}")
+    check(counts == {k: 2 * v for k, v in want.items()}, f"cli.train --resume: launches {counts}")
+    check(step == 4 and len(history["lr"]) == 2 and all(np.isfinite(history["train_loss"])),
+          "cli.train --resume did not run steps 3 and 4")
+
+    # the ViT-B student's save and load times
+    t0 = time.perf_counter()
+    ckpt_io.save_safetensors(str(OUT / "student.safetensors"), trainer.student)
+    out["vit_b_save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt_io.load_state_dict_file(trainer.student, str(OUT / "student.safetensors"))
+    torch.cuda.synchronize()
+    out["vit_b_load_s"] = time.perf_counter() - t0
+    (OUT / "student.safetensors").unlink()
+
+    # the seeded ViT-L saved, converted to backbone.* keys, and loaded as the
+    # teacher of a Trainer, whose own seed for it would be 100
+    raw, converted = OUT / "teacher.safetensors", OUT / "teacher_backbone.safetensors"
+    t0 = time.perf_counter()
+    ckpt_io.save_safetensors(str(raw), source)
+    out["vit_l_save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n = convert_cli.main([str(raw), str(converted)])
+    out["vit_l_convert_s"] = time.perf_counter() - t0
+    want_n = sum(k.startswith("pretrained.") for k, _ in source.named_parameters())
+    check(n == want_n, f"cli.convert renamed {n} keys, expected {want_n}")
+    t0 = time.perf_counter()
+    ckpt_io.load_state_dict_file(source, str(converted))
+    torch.cuda.synchronize()
+    out["vit_l_load_s"] = time.perf_counter() - t0
+    cfg = TrainConfig(student=model_config(ARCH), teachers=(TEACHER,), batch_size=8,
+                      image_size=RES, teacher_checkpoints=(str(converted),),
+                      output_dir=str(OUT / "train_teacher_checkpoint"))
+    loaded = Trainer(cfg, "cuda").teachers[0]
+    same = all(torch.equal(a, b) for a, b in zip(loaded.parameters(), source.parameters()))
+    x = torch.from_numpy(train_images(8, seed=4)).cuda().permute(0, 3, 1, 2)
+    with torch.no_grad():
+        same_fwd = torch.equal(loaded(x)[0], source(x)[0])
+    log(f"[path 6] ViT-L teacher: save {out['vit_l_save_s']:.2f} s "
+        f"({raw.stat().st_size / 1e9:.2f} GB), cli.convert {out['vit_l_convert_s']:.2f} s "
+        f"({n} keys renamed), load {out['vit_l_load_s']:.2f} s; the Trainer's teacher equals "
+        f"it bit for bit: parameters {same}, bs8 {RES}^2 forward {same_fwd}")
+    check(same and same_fwd and loaded.dtype == source.dtype,
+          "teacher_checkpoints did not load the teacher")
+    raw.unlink()
+    converted.unlink()
+    del loaded
+    torch.cuda.empty_cache()
+
+    # evaluation on NYU at 392^2 (fp32, bf16) and KITTI at its native size
+    common = ["--arch_name", ARCH, "--model_path", str(final), "--image_size", str(RES),
+              "--batch_size", str(EVAL_BATCH), "--device", "cuda"]
+    nyu = nyu_eval_data(OUT / "nyu_eval")
+    cpu_ref: dict = {}
+    for dtype in ("float32", "bfloat16"):
+        _, out[f"nyu_{dtype}"] = run_evaluate(
+            f"eval NYU {dtype}", [*common, "--data_dir", str(nyu), "--dtype", dtype,
+                                  "--output", str(OUT / f"eval_nyu_{dtype}" / "report.txt")],
+            NYU_EVAL_IMAGES, (RES, RES), (RES, RES), cpu_ref)
+    kitti = kitti_eval_data(OUT / "kitti_eval")
+    _, out["kitti_float32"] = run_evaluate(
+        "eval KITTI native", [*common, "--dataset", "kitti", "--data_dir", str(kitti),
+                              "--output", str(OUT / "eval_kitti" / "report.txt")],
+        KITTI_EVAL_IMAGES, KITTI_IN_HW, KITTI_CROP_HW, {})
+    out["seconds"] = time.time() - t_phase
+    log(f"[path 6] checkpoints and evaluation passed in {out['seconds']:.1f} s")
+    print(json.dumps({"checkpoints_and_eval": out, "gpu": gpu_line()}), flush=True)
+    return out
+
+
 # ---------------------------------------------------------------- phase 16
 def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts,
-                 wtrain, qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, gen) -> None:
+                 wtrain, qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, evals, gen) -> None:
     kernels = []
     bf16 = torch.bfloat16
     runs = {"infer_forward": counts, "train_step": train_counts,
             **{f"window_{res}_forward": wcounts[res] for res in WINDOW_RES},
             **{f"window_train_{res}_step": wtrain[res]["counts"] for res in WINDOW_RES},
             f"pseudo_label_{QUANT_IMAGES}_images": qcounts,
-            "int8_teacher_train_step": qtrain_counts}
+            "int8_teacher_train_step": qtrain_counts,
+            **{f"eval_{k}_batch": evals[k]["launches_per_batch"]
+               for k in ("nyu_float32", "nyu_bfloat16", "kitti_float32")}}
 
     def entry(name, key, source, replaces, err, ms, plain, lib, flops, nbytes, launches=None,
               rate=PEAK_BF16_FLOPS, **extra):
@@ -1390,31 +1757,31 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
     # plain version and a call that packs the weights itself at path 1's
     tail_rows = []
     for label, b, c, res, relu in TAIL_SHAPES:
-        g4 = res // 14 * 4
-        t, w = tail_inputs(b, g4, g4, c, bf16, gen)
+        oh, ow = (res, res) if isinstance(res, int) else res
+        t, w = tail_inputs(b, oh // 14 * 4, ow // 14 * 4, c, bf16, gen)
         prep = prepare_weights(*w.values(), bf16)
 
         def tail_call():
-            return fused_dpt_tail(t, (res, res), trailing_relu=relu, weights=prep, **w)
+            return fused_dpt_tail(t, (oh, ow), trailing_relu=relu, weights=prep, **w)
 
         split = device_split(tail_call, 5)
-        flops, nbytes = tail_work(b, g4, c, res)
+        flops, nbytes = tail_work(b, oh // 14 * 4, ow // 14 * 4, c, oh, ow)
         row = dict(shape=label, B=b, C=c, res=res,
-                   ms=cuda_ms(tail_call, iters=20 if res < 1000 else 5),
+                   ms=cuda_ms(tail_call, iters=20 if oh * ow < 10 ** 6 else 5),
                    device_ms=sum(split.values()), device_split=split,
                    bound_ms=bound(flops, nbytes)[0])
         if len(tail_rows) == 0:
-            row["plain_ms"] = cuda_ms(lambda: tail_reference(t, (res, res), trailing_relu=relu,
+            row["plain_ms"] = cuda_ms(lambda: tail_reference(t, (oh, ow), trailing_relu=relu,
                                                              **w))
             row["ms_packing_each_call"] = cuda_ms(
-                lambda: fused_dpt_tail(t, (res, res), trailing_relu=relu, **w))
+                lambda: fused_dpt_tail(t, (oh, ow), trailing_relu=relu, **w))
         log(f"[timing] kernel 2 {label}: {json.dumps(row)}")
         tail_rows.append(row)
         del t, w, prep
         torch.cuda.empty_cache()
     a = tail_rows[0]
     entry("dpt_tail", "tail", "dpt_tail.cu", "ops/dpt_tail.py:362", errs["tail"], a["ms"],
-          a["plain_ms"], None, *tail_work(BATCH, RES // 14 * 4, 128, RES),
+          a["plain_ms"], None, *tail_work(BATCH, RES // 14 * 4, RES // 14 * 4, 128, RES, RES),
           device_ms=a["device_ms"], device_split=a["device_split"], shapes=tail_rows)
     # kernel 10, the v1 tail (same function and contract), is served by kernel 2
     tail_v1 = {**kernels[-1], "name": "dpt_tail_v1",
@@ -1756,12 +2123,11 @@ def main() -> None:
     phase_window_train_vs_cpu()
     qmodel, qplain, qcounts, qims = phase_pseudo_label()
     qtrainer, qtrain_counts = phase_train("int8_pallas")
+    evals = phase_checkpoints_and_eval(trainer, qplain)
     phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts, wtrain,
-                 qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, gen)
+                 qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, evals, gen)
     log(f"[smoke] all phases passed in {time.time() - t0:.1f} s")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(gpu_line(), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}), flush=True)

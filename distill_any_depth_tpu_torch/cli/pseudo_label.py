@@ -88,7 +88,7 @@ def main(args=None) -> list[str]:
     logging.basicConfig(level=logging.INFO)
 
     model = create_model(args.arch_name, dtype=getattr(torch, args.dtype), device=args.device,
-                         quant=args.quant)
+                         seed=None if args.checkpoint else 0, quant=args.quant)
     if args.checkpoint:
         load_state_dict_file(model, args.checkpoint)
     else:

@@ -9,10 +9,14 @@ backward is kernel 6 at fewer than 3000 tokens, e.g. ``--image_size 518``,
 and kernel 8 above, e.g. ``--image_size 1036``). ``--teacher_quant int8``
 or ``int8_pallas`` runs the teachers' encoder GEMMs as dynamic W8A8 int8
 (the latter through kernel 9 on the card); the student trains unquantized.
-The flags of features not ported yet are accepted by name and refuse any
-value but their default: checkpoints (``--teacher_checkpoints``,
-``--checkpoint_interval``, ``--resume``), visualisation, the profiler, the
-dp/tp mesh, image-folder data, LoRA/SSF adapters and device preprocessing.
+``--teacher_checkpoints`` loads teacher i from a reference-layout
+safetensors file; ``--checkpoint_interval`` (default 1000) writes
+``student_checkpoint_{step}.safetensors`` and ``train_state/`` every that
+many steps; ``--resume DIR`` continues the run saved in ``DIR`` (its output
+directory or its ``train_state``). The flags of features not ported yet are
+accepted by name and refuse any value but their default: visualisation,
+the profiler, the dp/tp mesh, image-folder data, LoRA/SSF adapters and
+device preprocessing.
 """
 from __future__ import annotations
 
@@ -23,9 +27,6 @@ __all__ = ["argument_parser", "main"]
 
 # flag -> (its default, what is not ported)
 _NOT_PORTED = {
-    "teacher_checkpoints": ([], "checkpoint loading"),
-    "checkpoint_interval": (0, "checkpoint saving"),
-    "resume": (None, "checkpoint resume"),
     "visualize_interval": (0, "visualisation"),
     "profile_dir": (None, "the profiler hook"),
     "dp": (1, "data parallelism"),
@@ -42,6 +43,8 @@ def argument_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train depth distillation on one device.")
     p.add_argument("--dataset_dir", default="data/nyu")
     p.add_argument("--teacher_models", nargs="+", default=["depthanything-large"])
+    p.add_argument("--teacher_checkpoints", nargs="+", default=[],
+                   help="safetensors weights of each teacher, in --teacher_models order")
     p.add_argument("--student_arch", default="depthanything-base")
     p.add_argument("--output_dir", required=True)
     p.add_argument("--batch_size", type=int, default=16)
@@ -65,6 +68,12 @@ def argument_parser() -> argparse.ArgumentParser:
     p.add_argument("--scheduler_type", default="cosine", choices=["cosine", "step", "none"])
     p.add_argument("--max_grad_norm", type=float, default=1.0)
     p.add_argument("--log_interval", type=int, default=100)
+    p.add_argument("--checkpoint_interval", type=int, default=1000,
+                   help="save the student and the train state every this many steps "
+                        "(0 = only at the end)")
+    p.add_argument("--resume", default=None,
+                   help="a train_state directory (or the output_dir holding one) to "
+                        "resume from")
     p.add_argument("--val_split", type=float, default=0.1)
     p.add_argument("--early_stopping", type=int, default=0)
     p.add_argument("--seed", type=int, default=42)
@@ -77,9 +86,7 @@ def argument_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug", action="store_true")
     for flag, (default, what) in _NOT_PORTED.items():
         kw = {"action": "store_true"} if default is False else {"default": default}
-        if isinstance(default, list):
-            kw["nargs"] = "+"
-        elif isinstance(default, int) and default is not False:
+        if isinstance(default, int) and default is not False:
             kw["type"] = int
         p.add_argument(f"--{flag}", help=f"not ported yet ({what}): only the default", **kw)
     return p
@@ -106,6 +113,7 @@ def main(args=None) -> dict:
     cfg = TrainConfig(
         student=model_config(args.student_arch),
         teachers=tuple(args.teacher_models),
+        teacher_checkpoints=tuple(args.teacher_checkpoints),
         loss=LossConfig(
             normalization=args.normalization, num_segments=args.num_segments,
             lambda_sc=args.lambda_sc, lambda_lg=args.lambda_lg, lambda_feat=args.lambda_feat,
@@ -124,13 +132,14 @@ def main(args=None) -> dict:
         seed=args.seed,
         val_split=args.val_split,
         log_interval=args.log_interval,
+        checkpoint_interval=args.checkpoint_interval,
         early_stopping=args.early_stopping,
         output_dir=args.output_dir,
         dataset_dir=args.dataset_dir,
         teacher_dtype=args.teacher_dtype,
         teacher_quant=args.teacher_quant,
     )
-    return train_nyu(cfg, device=args.device)
+    return train_nyu(cfg, device=args.device, resume=args.resume)
 
 
 if __name__ == "__main__":

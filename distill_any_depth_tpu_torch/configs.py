@@ -143,6 +143,9 @@ class OptimizerConfig:
 class TrainConfig:
     student: ModelConfig = MODELS["depthanything-base"]
     teachers: tuple[str, ...] = ("depthanything-large",)
+    # safetensors weights of teacher i (reference layout); a teacher without
+    # one keeps its seeded random init
+    teacher_checkpoints: tuple[str, ...] = ()
     loss: LossConfig = LossConfig()
     optimizer: OptimizerConfig = OptimizerConfig()
     batch_size: int = 16
@@ -152,6 +155,8 @@ class TrainConfig:
     seed: int = 42
     val_split: float = 0.1
     log_interval: int = 100
+    # student weights and the train state every this many steps (0 = never)
+    checkpoint_interval: int = 1000
     early_stopping: int = 0
     output_dir: str = "output"
     dataset_dir: str = "data/nyu"

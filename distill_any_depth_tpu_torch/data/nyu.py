@@ -4,10 +4,11 @@ Counterpart of distill_any_depth_tpu/data/nyu.py (``epoch_order``,
 ``NYUDataset``, ``iterate_batches``), the Python loader: a square resize to
 the target size (INTER_CUBIC for RGB, INTER_NEAREST for depth), uint8
 depth /255 and uint16 /65535, ImageNet normalization, and a bounded retry
-on unreadable files. Batches are NHWC float32 numpy, as in the JAX package;
-the train step moves them to the card. ``cv2`` is imported where an image
-is read. Not ported yet: the reference's unnormalized ``raw_255`` images and
-the multi-process shards of an epoch.
+on unreadable files. ``raw_255=True`` feeds the unnormalized 0-255 images
+(the reference loader's behaviour, for parity runs). Batches are NHWC
+float32 numpy, as in the JAX package; the train step moves them to the
+card. ``cv2`` is imported where an image is read. Not ported yet: the
+multi-process shards of an epoch.
 """
 from __future__ import annotations
 
@@ -42,9 +43,10 @@ class NYUDataset:
     MAX_ATTEMPTS = 10  # reads of other random rows after an unreadable one
 
     def __init__(self, mode: str, dataset_dir: str = "data/nyu", image_size: int = 392,
-                 root_dir: str | None = None):
+                 raw_255: bool = False, root_dir: str | None = None):
         self.mode = mode
         self.image_size = image_size
+        self.raw_255 = raw_255
         self.root = os.path.abspath(root_dir or os.getcwd())
         csv_name = f"nyu2_{mode}.csv"
         candidates = [os.path.join(dataset_dir, csv_name), os.path.join("data", csv_name),
@@ -77,7 +79,7 @@ class NYUDataset:
         depth = depth.astype(np.float32) / (65535.0 if depth.dtype == np.uint16 else 255.0)
         if depth.ndim == 3:
             depth = depth[..., 0]
-        image = (rgb / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+        image = rgb if self.raw_255 else (rgb / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
         return NYUSample(image=image, depth=depth, rgb_path=rgb_rel)
 
     def __getitem__(self, idx: int) -> NYUSample:

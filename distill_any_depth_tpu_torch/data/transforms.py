@@ -1,8 +1,8 @@
 """Host-side image transforms (numpy/cv2) used by the inference CLI.
 
 The port's own copy of the part of distill_any_depth_tpu/data/transforms.py
-that the CLI uses: ``Compose``, ``Resize`` (the reference's lower-bound
-sizing rule), ``NormalizeImage``, ``PrepareForNet`` and ``standard_transform``.
+that the CLI and the evaluation registry use: ``Compose``, ``Resize`` (the
+reference's lower-bound sizing rule and its ``get_size``), ``NormalizeImage``, ``PrepareForNet`` and ``standard_transform``.
 ``cv2`` is imported only where an image is resized.
 """
 from __future__ import annotations
@@ -29,27 +29,38 @@ class Compose:
 class Resize:
     """Resize ``sample["image"]`` to at least (width, height), each side a
     multiple of ``ensure_multiple_of``: the reference's ``lower_bound``
-    sizing without aspect preservation, the one the CLI uses.
+    sizing, with the aspect ratio kept when ``keep_aspect_ratio`` (the
+    registry's native-resolution protocol) and not otherwise (the CLI).
     ``interpolation`` is a cv2 flag name."""
 
     def __init__(self, width: int, height: int, ensure_multiple_of: int = 1,
-                 interpolation: str = "INTER_AREA"):
+                 interpolation: str = "INTER_AREA", keep_aspect_ratio: bool = False):
         self.width = width
         self.height = height
         self.multiple_of = ensure_multiple_of
         self.interpolation = interpolation
+        self.keep_aspect_ratio = keep_aspect_ratio
 
-    def _snap(self, x: int) -> int:
-        """The nearest multiple, or the next one up if that falls below x."""
+    def _snap(self, x: float, min_val: int) -> int:
+        """The nearest multiple, or the next one up if that falls below
+        ``min_val``."""
         m = self.multiple_of
         y = int(np.round(x / m) * m)
-        return y if y >= x else int(np.ceil(x / m) * m)
+        return y if y >= min_val else int(np.ceil(x / m) * m)
+
+    def get_size(self, width: int, height: int) -> tuple[int, int]:
+        """The ``(width, height)`` an image of that size is resized to."""
+        scale_h, scale_w = self.height / height, self.width / width
+        if self.keep_aspect_ratio:
+            scale_h = scale_w = max(scale_w, scale_h)
+        return (self._snap(scale_w * width, self.width),
+                self._snap(scale_h * height, self.height))
 
     def __call__(self, sample: dict) -> dict:
         import cv2
 
-        size = (self._snap(self.width), self._snap(self.height))
-        sample["image"] = cv2.resize(sample["image"], size,
+        h, w = sample["image"].shape[:2]
+        sample["image"] = cv2.resize(sample["image"], self.get_size(w, h),
                                      interpolation=getattr(cv2, self.interpolation))
         return sample
 

@@ -34,11 +34,13 @@ def create_model(
     arch_name: str | ModelConfig,
     dtype: torch.dtype | None = None,
     device: str | torch.device = "cuda",
-    seed: int = 0,
+    seed: int | None = 0,
     fused_tail: bool = True,
     quant: str = "none",
 ) -> DepthModel:
-    """An eval-mode ``DepthModel`` with seeded random weights on ``device``.
+    """An eval-mode ``DepthModel`` with seeded random weights on ``device``
+    (``seed=None``: no seeded init, for a caller that loads every weight
+    from a checkpoint next; the seeded init of ViT-L takes seconds).
     ``dtype`` is the compute dtype (parameters stay fp32): bf16 by default
     on a card, fp32 on the CPU. ``fused_tail=True`` (inference, teachers)
     runs a 1-channel DPT tail through its kernel; a model that trains (the
@@ -51,7 +53,8 @@ def create_model(
     if dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model = DepthModel(cfg, dtype, fused_tail, quant)
-    init_params(model, seed)
+    if seed is not None:
+        init_params(model, seed)
     return model.to(device).eval()
 
 

@@ -83,6 +83,48 @@ class TrainState:
     notfinite_count: torch.Tensor
     last_norm: torch.Tensor
 
+    _COUNTERS = ("step", "applied", "notfinite_count", "last_norm")
+    _ADAM = ("exp_avg", "exp_avg_sq", "step")
+
+    def state_dict(self) -> dict:
+        """CPU copies of the parameters, Adam's moments and step counts, the
+        learning-rate tensor and the counters: what an exact resume needs
+        (the counterpart of the JAX package's orbax checkpoint)."""
+        opt = self.optimizer
+
+        def cpu(t):
+            return t.detach().to("cpu", copy=True)
+
+        return {"params": [cpu(p) for p in self.params],
+                "adam": [{k: cpu(opt.state[p][k]) for k in self._ADAM} if opt.state[p] else {}
+                         for p in self.params],
+                "lr": cpu(opt.param_groups[0]["lr"]),
+                **{k: cpu(getattr(self, k)) for k in self._COUNTERS}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy ``state`` (from ``state_dict``) into this state in place: the
+        parameters' version counters move, so the caches keyed on them
+        rebuild, and Adam's step counts and learning rate stay on the
+        parameters' device, where the fused Adam reads them."""
+        if len(state["params"]) != len(self.params) or any(
+                tuple(a.shape) != tuple(p.shape) for a, p in zip(state["params"], self.params)):
+            raise ValueError("the saved train state holds other parameters than this model's")
+        opt = self.optimizer
+        for p, saved, adam in zip(self.params, state["params"], state["adam"]):
+            p.copy_(saved)
+            if not adam:
+                opt.state[p] = {}
+                continue
+            held = opt.state[p]
+            for k in self._ADAM:
+                if k not in held:
+                    held[k] = torch.empty_like(adam[k], device=p.device)
+                held[k].copy_(adam[k])
+        opt.param_groups[0]["lr"].copy_(state["lr"])
+        for k in self._COUNTERS:
+            getattr(self, k).copy_(state[k])
+
 
 def create_train_state(model: torch.nn.Module, cfg: OptimizerConfig) -> TrainState:
     params = [p for p in model.parameters() if p.requires_grad]

@@ -1,6 +1,8 @@
 """Import guard: the port and ``chip_smoke.py`` import nothing of JAX and
-nothing of the JAX package, found by scanning the import statements of
-their source files; and every module of the port imports cleanly."""
+nothing of the JAX package, and not the ``safetensors`` package (the card
+machine has none: the port reads and writes the format itself), found by
+scanning the import statements of their source files; and every module of
+the port imports cleanly."""
 import ast
 import importlib
 from pathlib import Path
@@ -35,6 +37,18 @@ def test_no_jax_imports(path):
     bad = [name for name in _imported_modules(path)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_safetensors_imports(path):
+    bad = [name for name in _imported_modules(path) if name.split(".")[0] == "safetensors"]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_new_modules_scanned():
+    for module in ("eval/metrics.py", "eval/evaluate.py", "cli/evaluate.py", "cli/convert.py",
+                   "data/registry.py", "utils/checkpoint.py"):
+        assert PORT / module in SOURCES, module
 
 
 @pytest.mark.parametrize(

@@ -300,8 +300,8 @@ def test_cli_trains_on_smoke_data(tmp_path, monkeypatch):
     assert len(history["lr"]) == 2 and np.isfinite(history["train_loss"]).all()
 
 
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--resume", "run"], ["--lora_rank", "4"],
-                                  ["--data_mode", "images"], ["--checkpoint_interval", "10"],
+@pytest.mark.parametrize("flag", [["--dp", "2"], ["--profile_dir", "run"], ["--lora_rank", "4"],
+                                  ["--data_mode", "images"], ["--visualize_interval", "10"],
                                   ["--device_preprocess"]],
                          ids=lambda f: f[0])
 def test_cli_refuses_features_not_ported(flag, tmp_path):
