@@ -8,14 +8,16 @@ Phases, each of which fails the run if it fails:
 1. build every CUDA kernel from ``distill_any_depth_tpu_torch/csrc``;
 2. hold the packed attention kernel (kernel 1) and its backward (kernel 3)
    against their plain versions (autograd of the plain attention for the
-   backward), across the tile edges (N = 128, 129), and kernel 3 against
-   itself: two calls give d(qkv) equal bit for bit;
+   backward), across the tile edges (N = 128, 129) and at ViT-g's 24 heads
+   (N = 1370, 1374 with its registers, 789), and kernel 3 against itself:
+   two calls give d(qkv) equal bit for bit;
 3. hold the DPT-head tail kernel (kernel 2) against its plain version, at
    every path's shape (C = 128 at 392^2, 518^2 and 1036^2 and at path 6's
    KITTI native 392 x 1358 in bf16 and fp32; C = 256 at 392^2, 518^2 and
-   path 4's 1036^2 teacher chunk) and at ragged shapes
-   across its tile edges for each C in bf16 and fp32, and in bf16 against
-   its own second call, bit for bit;
+   path 4's 1036^2 teacher chunk; ViT-g's C = 384 at 392^2 and 518^2 bs8 in
+   bf16 and fp32, with the student head and the teacher head) and at ragged
+   shapes across its tile edges for each C in bf16 and fp32, and in bf16
+   against its own second call, bit for bit;
 4. hold the order-statistic select (kernel 4) against its plain version,
    bit for bit, at the HDN loss's [112, 392^2] and [112, 1036^2] rows (ties,
    +-0, an all-masked and an all-valid row, k at both ends, rows whose
@@ -59,7 +61,8 @@ Phases, each of which fails the run if it fails:
    at 784^2 (a 56 x 56 grid, kernel 8);
 13. hold the W8A8 GEMM (kernel 9) against its plain version, bit for bit:
    bf16 and fp32, with and without bias, at the ViT-L 518^2 bs8, ViT-L
-   392^2 bs8 (the int8 teacher) and ViT-B 392^2 bs8 encoder GEMM shapes and
+   392^2 bs8 (the int8 teacher), ViT-B 392^2 bs8 and ViT-g 518^2 bs8 (qkv,
+   proj, SwiGLU's w12 and w3) encoder GEMM shapes and
    at edge shapes (M in {1, 100, 129, 257}, N in {200, 264}, K in {96,
    4096}), on rows holding exact rounding ties and all-zero rows;
 14. main path 5: ``cli.pseudo_label.label_batches`` with
@@ -79,9 +82,10 @@ Phases, each of which fails the run if it fails:
    kernels 5 and 7 also at path 4's bs16 with the log-sum-exp; kernels 5-9
    also by the device time of each kernel a call starts; kernel 9 also
    beside bf16 ``F.linear``), the
-   end-to-end forwards (the ViT-L 518^2 forward with each quant mode) and
-   the bs16 train steps (bf16 and int8 teacher); kernel 2 also at path 6's
-   KITTI native shape;
+   end-to-end forwards (the ViT-L and the ViT-g 518^2 forwards with each
+   quant mode) and the bs16 train steps (bf16, int8 and register teachers);
+   kernel 2 also at path 6's KITTI native shape and at ViT-g's C = 384;
+   kernel 1 also at ViT-g's 518^2;
 17. path 6, checkpoints and evaluation (run between phases 15 and 16):
    phase 7's ``student_final`` read back through the port's own
    safetensors reader and held bit for bit against the saved fp32
@@ -99,7 +103,21 @@ Phases, each of which fails the run if it fails:
    prediction upsampled to 352 x 1216): kernels 1 and 2 per batch, finite
    metrics, the report files, images/s with the decode, and the metrics of
    2 images against the port's CPU fp32 ``evaluate_model`` of the same
-   weights; save and load times.
+   weights; save and load times;
+18. main path 7, the DINOv2 register/SwiGLU family (run between phases 17
+   and 16): ``cli.infer.predict`` with ``depthanything-giant`` (ViT-g/14,
+   40 blocks, SwiGLU, DPT features 384) at 518^2 bs8 bf16 on seeded weights
+   (kernel 1 40 times and kernel 2 at C = 384 once a forward), one image
+   against the port's CPU fp32 forward of the same weights; the same model
+   with ``quant="int8_pallas"`` (kernel 9 160 times a forward), its depth
+   against the card's unquantized depth; ``cli.pseudo_label.label_batches``
+   with ``depthanything-giant-reg`` (4 registers, pre-norm taps, the teacher
+   head) at 518^2 bs8 over 10 images, one image against the CPU fp32
+   forward; that model saved, and loaded through ``--teacher_checkpoints``
+   as the teacher of a ``Trainer`` with the ViT-B student at bs16 392^2
+   bf16 for 3 steps (launches per step, finite losses and gradient norm,
+   moved parameters); two steps of ``cli.train --teacher_models
+   depthanything-large-reg`` over ``data/smoke``; the phase's time.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -119,6 +137,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from distill_any_depth_tpu_torch.cli.infer import predict  # noqa: E402
+from distill_any_depth_tpu_torch.cli.kernel_bounds import vit_gemms  # noqa: E402
 from distill_any_depth_tpu_torch.cli.profile_infer import cuda_ms  # noqa: E402
 from distill_any_depth_tpu_torch.configs import (  # noqa: E402
     LossConfig,
@@ -176,16 +195,22 @@ WINDOW_TRAIN_BATCH = {518: 16, 1036: 16}  # main path 4: kernels 5 + 6, kernels 
 HDN_ROWS = 7 * TRAIN_BATCH  # the dr/3 HDN contexts folded with the batch
 # main path 5: ViT-L pseudo-labelling at 518^2 bs8 with int8 encoder GEMMs
 QUANT_ARCH, QUANT_RES, QUANT_BATCH, QUANT_IMAGES = "depthanything-large", 518, 8, 10
-# kernel 9's shapes: (M, the (K, N) of qkv, proj, fc1, fc2) of each encoder
-VIT_L_GEMMS = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))
+# main path 7: the register/SwiGLU family. ViT-g inference at 518^2 bs8, the
+# ViT-g register teacher's pseudo-labels, and the register teachers in the
+# distillation step (ViT-g-reg in the Trainer, ViT-L-reg through the CLI)
+GIANT, GIANT_REG, LARGE_REG = ("depthanything-giant", "depthanything-giant-reg",
+                               "depthanything-large-reg")
+GIANT_RES, GIANT_BATCH, GIANT_IMAGES = 518, 8, 10
+# kernel 9's shapes: (M, {GEMM: (K, N)} of qkv, proj and the FFN's two) of
+# each encoder
 W8A8_SHAPES = {
-    "ViT-L 518^2 bs8": (8 * ((518 // 14) ** 2 + 1), VIT_L_GEMMS),
+    "ViT-L 518^2 bs8": (8 * ((518 // 14) ** 2 + 1), vit_gemms(1024)),
     # the int8 teacher's bs8 chunks of the 392^2 distillation step
-    "ViT-L 392^2 bs8": (8 * ((392 // 14) ** 2 + 1), VIT_L_GEMMS),
-    "ViT-B 392^2 bs8": (8 * ((392 // 14) ** 2 + 1), ((768, 2304), (768, 768), (768, 3072),
-                                                     (3072, 768))),
+    "ViT-L 392^2 bs8": (8 * ((392 // 14) ** 2 + 1), vit_gemms(1024)),
+    "ViT-B 392^2 bs8": (8 * ((392 // 14) ** 2 + 1), vit_gemms(768)),
+    # path 7: ViT-g, whose FFN is SwiGLU (w12 1536 -> 8192, w3 4096 -> 1536)
+    "ViT-g 518^2 bs8": (8 * ((518 // 14) ** 2 + 1), vit_gemms(1536, "swiglu")),
 }
-GEMMS = ("qkv", "proj", "fc1", "fc2")
 # path 6: evaluation on NYU (64 480x640 pairs, the real test set has 654) and
 # on KITTI at its native resolution (16 375x1242 pairs): the KB crop 352x1216
 # goes in keeping its aspect, 392 high and a multiple of 14 wide
@@ -201,7 +226,9 @@ TAIL_SHAPES = (("path 1 ViT-B 392^2", BATCH, 128, RES, True),
                ("path 3 1036^2", BATCH, 128, 1036, False),
                ("path 5 ViT-L 518^2", 8, 256, 518, False),
                ("path 4 ViT-L teacher 1036^2", 8, 256, 1036, False),
-               ("path 6 ViT-B KITTI native", BATCH, 128, KITTI_IN_HW, True))
+               ("path 6 ViT-B KITTI native", BATCH, 128, KITTI_IN_HW, True),
+               ("path 7 ViT-g-reg teacher 392^2", 8, 384, RES, False),
+               ("path 7 ViT-g 518^2", GIANT_BATCH, 384, GIANT_RES, True))
 
 BF16_ATTN_TOL = 6e-3  # max |err| / (1 + |ref|), bf16 kernel 1 against its plain version
 # max |err| / (1 + |ref|), bf16 kernels 1 + 3 against autograd of the plain
@@ -426,6 +453,11 @@ def phase_attention(gen) -> float:
     attention_case("logits < -60 fp32", 2, 197, 4, torch.float32, 1e-5, gen, negative=True)
     attention_case("logits < -60 bf16", 2, 197, 4, torch.bfloat16, BF16_ATTN_TOL, gen,
                    negative=True)
+    # path 7: ViT-g's 24 heads at 518^2 (N = 1370; 1374 with 4 registers)
+    # and the register teacher's 392^2 chunks (N = 789)
+    for n in (1370, 1374, 789):
+        attention_case(f"ViT-g N = {n}", 8, n, 24, torch.bfloat16, BF16_ATTN_TOL, gen)
+    attention_case("ViT-g fp32", 2, 1374, 24, torch.float32, 1e-5, gen)
     return err
 
 
@@ -508,8 +540,8 @@ def tail_case(name, b, ht, wt, c, dtype, out_hw, trailing, tol, gen, twice=False
     return abs_err
 
 
-# Ragged shapes across the bf16 kernel's tile edges (64 output columns, 4
-# or 8 output rows a tile; a source patch of up to 5-8 rows and 35-40
+# Ragged shapes across the bf16 kernel's tile edges (64 output columns, 2,
+# 4 or 8 output rows a tile; a source patch of up to 4-8 rows and 35-40
 # columns behind each tile): (b, ht, wt, (oh, ow)) for each C
 TAIL_RAGGED = [(1, 1, 1, (14, 14)), (2, 1, 9, (15, 65)), (2, 9, 1, (63, 14)),
                (1, 33, 32, (129, 70)), (2, 37, 33, (131, 200))]
@@ -545,10 +577,19 @@ def phase_tail(gen) -> float:
         g4 = res // 14 * 4
         tail_case(f"ViT-L {res} tail", 8, g4, g4, 256, torch.bfloat16, (res, res), False, 2e-2,
                   gen, twice=True)
+    # path 7: ViT-g's C = 384, at the register teacher's bs8 chunk at 392^2
+    # and at 518^2, with the student head (giant) and the teacher head
+    for res in (RES, GIANT_RES):
+        g4 = res // 14 * 4
+        for trailing in (True, False):
+            head = "student" if trailing else "teacher"
+            for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+                tail_case(f"ViT-g {res} {head} head {str(dtype)[6:]}", 8, g4, g4, 384, dtype,
+                          (res, res), trailing, tol, gen, twice=dtype == torch.bfloat16)
     # no trailing ReLU here: where it clips most of a small output, max |ref|
     # is tiny and the relative error of any bf16 chain (the plain version's
     # own, against fp32) passes 2e-2
-    for c in (64, 128, 256):
+    for c in (64, 128, 256, 384):
         for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
             for b, ht, wt, hw in TAIL_RAGGED:
                 tail_case(f"ragged C={c}", b, ht, wt, c, dtype, hw, False, tol, gen,
@@ -969,10 +1010,12 @@ def reset_counts() -> None:
         fn.launches = 0
 
 
-def expected_step_counts(batch: int, chunk: int = 8, teacher_quant: str = "none") -> dict:
-    """Per step of the ViT-B student under the ViT-L teacher; an int8
-    teacher adds kernel 9 four times per teacher block and chunk."""
-    s, t = model_config(ARCH).encoder.depth, model_config(TEACHER).encoder.depth
+def expected_step_counts(batch: int, chunk: int = 8, teacher_quant: str = "none",
+                         teacher: str = TEACHER) -> dict:
+    """Per step of the ViT-B student under ``teacher`` (the ViT-L teacher by
+    default); an int8 teacher adds kernel 9 four times per teacher block and
+    chunk."""
+    s, t = model_config(ARCH).encoder.depth, model_config(teacher).encoder.depth
     chunks = batch // chunk if batch > chunk and batch % chunk == 0 else 1
     return {"attention": s + chunks * t, "tail": chunks, "attention_bwd": s, "select": 2,
             "attention_bias": 0, "attention_banded": 0, "attention_bias_bwd": 0,
@@ -980,22 +1023,20 @@ def expected_step_counts(batch: int, chunk: int = 8, teacher_quant: str = "none"
             "w8a8": 4 * chunks * t if teacher_quant == "int8_pallas" else 0}
 
 
-def phase_train(teacher_quant: str = "none") -> tuple[Trainer, dict]:
-    """Main path 2 at the tentpole's configuration (with the teacher's
-    GEMMs as ``teacher_quant`` sets them), then the CLI over data/smoke.
-    Returns the trainer and the per-step launch counts."""
-    tag = "train" if teacher_quant == "none" else f"train, teacher {teacher_quant}"
-    cfg = TrainConfig(student=model_config(ARCH), teachers=(TEACHER,), batch_size=TRAIN_BATCH,
-                      image_size=RES, log_interval=10 ** 6, teacher_quant=teacher_quant,
-                      output_dir=str(OUT / f"train_{teacher_quant}"))
+def run_trainer(tag: str, cfg: TrainConfig) -> tuple[Trainer, dict]:
+    """``TRAIN_STEPS`` steps of a ``Trainer`` built from ``cfg`` (the ViT-B
+    student at bs16 392^2 bf16) on seeded synthetic images: each step's
+    launches, finite losses and gradient norm, and moved parameters.
+    Returns the trainer and the last step's launch counts."""
+    teacher = cfg.teachers[0]
     t0 = time.time()
     trainer = Trainer(cfg, "cuda")
-    log(f"[{tag}] Trainer({ARCH} <- {TEACHER}, bs{TRAIN_BATCH} {RES}^2 bf16) built in "
+    log(f"[{tag}] Trainer({ARCH} <- {teacher}, bs{TRAIN_BATCH} {RES}^2 bf16) built in "
         f"{time.time() - t0:.1f} s")
     images = train_images(TRAIN_BATCH * TRAIN_STEPS, seed=1)
     watched = trainer.student.pretrained.blocks[0].attn.qkv.weight
     before = watched.detach().clone()
-    want = expected_step_counts(TRAIN_BATCH, cfg.teacher_chunk, teacher_quant)
+    want = expected_step_counts(TRAIN_BATCH, cfg.teacher_chunk, cfg.teacher_quant, teacher)
     seen: list[dict] = []
     last = {}
 
@@ -1024,26 +1065,46 @@ def phase_train(teacher_quant: str = "none") -> tuple[Trainer, dict]:
     moved = (watched.detach() - before).abs().max().item()
     log(f"[{tag}] block 0 qkv weight moved by up to {moved:.3e}")
     check(moved > 0, f"{tag}: the student's parameters did not move")
+    return trainer, seen[-1]
 
-    # the CLI over the repository's smoke data, at a batch it holds; with the
-    # bf16 teacher it saves every step (path 6 reads the files)
+
+def run_train_cli(tag: str, out: Path, teacher: str = TEACHER, teacher_quant: str = "none",
+                  checkpoint_interval: int = 0) -> None:
+    """Two steps of ``cli.train`` over the repository's smoke data at bs2
+    392^2 with ``teacher``: launches, the history, finite losses."""
     from distill_any_depth_tpu_torch.cli import train as train_cli
 
-    out = OUT / f"train_cli_{teacher_quant}"
     reset_counts()
     history = train_cli.main([
         "--device", "cuda", "--dataset_dir", "data/smoke", "--output_dir", str(out),
         "--batch_size", "2", "--num_iterations", "2", "--image_size", str(RES),
-        "--use_hdn_loss", "--log_interval", "1", "--teacher_quant", teacher_quant,
-        "--checkpoint_interval", "1" if teacher_quant == "none" else "0",
+        "--use_hdn_loss", "--log_interval", "1", "--teacher_models", teacher,
+        "--teacher_quant", teacher_quant, "--checkpoint_interval", str(checkpoint_interval),
     ])
     torch.cuda.synchronize()
-    counts, want = read_counts(), expected_step_counts(2, teacher_quant=teacher_quant)
-    log(f"[{tag}] cli.train over data/smoke, bs2, 2 steps: history {history}, launches {counts}")
-    check(counts == {k: 2 * v for k, v in want.items()}, f"cli.train: launches {counts}")
-    check((out / "history.json").exists(), "cli.train: no history.json")
-    check(all(np.isfinite(history["train_loss"])), "cli.train: non-finite loss")
-    return trainer, seen[-1]
+    counts = read_counts()
+    want = expected_step_counts(2, teacher_quant=teacher_quant, teacher=teacher)
+    log(f"[{tag}] cli.train --teacher_models {teacher} over data/smoke, bs2, 2 steps: history "
+        f"{history}, launches {counts}")
+    check(counts == {k: 2 * v for k, v in want.items()}, f"{tag} cli.train: launches {counts}")
+    check((out / "history.json").exists(), f"{tag} cli.train: no history.json")
+    check(all(np.isfinite(history["train_loss"])), f"{tag} cli.train: non-finite loss")
+
+
+def phase_train(teacher_quant: str = "none") -> tuple[Trainer, dict]:
+    """Main path 2 at the tentpole's configuration (with the teacher's
+    GEMMs as ``teacher_quant`` sets them), then the CLI over data/smoke.
+    Returns the trainer and the per-step launch counts."""
+    tag = "train" if teacher_quant == "none" else f"train, teacher {teacher_quant}"
+    cfg = TrainConfig(student=model_config(ARCH), teachers=(TEACHER,), batch_size=TRAIN_BATCH,
+                      image_size=RES, log_interval=10 ** 6, teacher_quant=teacher_quant,
+                      output_dir=str(OUT / f"train_{teacher_quant}"))
+    trainer, counts = run_trainer(tag, cfg)
+    # the CLI at a batch the smoke data holds; with the bf16 teacher it saves
+    # every step (path 6 reads the files)
+    run_train_cli(tag, OUT / f"train_cli_{teacher_quant}", teacher_quant=teacher_quant,
+                  checkpoint_interval=1 if teacher_quant == "none" else 0)
+    return trainer, counts
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1281,13 +1342,13 @@ def w8a8_case(name, m, k, n, dtype, with_bias, gen) -> float:
 
 
 def phase_w8a8(gen) -> float:
-    """Kernel 9 at every encoder GEMM shape of paths 5 and 1 and of the int8
-    teacher, and at edge shapes (a single row; M, K, N off the 128 x 256
+    """Kernel 9 at every encoder GEMM shape of paths 5 and 1, of the int8
+    teacher and of path 7's ViT-g, and at edge shapes (a single row; M, K, N off the 128 x 256
     output tiles and the 128-byte K chunks); returns the max abs error at
     the slice shapes."""
     err = 0.0
     for label, (m, gemms) in W8A8_SHAPES.items():
-        for gemm, (k, n) in zip(GEMMS, gemms):
+        for gemm, (k, n) in gemms.items():
             for dtype in (torch.bfloat16, torch.float32):
                 for with_bias in (True, False):
                     err = max(err, w8a8_case(f"{label} {gemm}", m, k, n, dtype, with_bias, gen))
@@ -1689,9 +1750,129 @@ def phase_checkpoints_and_eval(trainer: Trainer, source: torch.nn.Module) -> dic
     return out
 
 
+# ---------------------------------------------------------------- phase 18
+# path 7, the card's bf16 depth of one image against the CPU fp32 forward of
+# the same weights (as E2E_MAX ...), at 518^2: about 3x the readings on an
+# H100. ViT-g through predict() (max 0.0334, mean 0.00674, 1 - corr 7.8e-4:
+# LayerScale 1.0 over 40 blocks carries bf16's roundings further than ViT-L)
+# and the ViT-g register teacher through label_batches() (max 0.0121, mean
+# 0.00169, 1 - corr 3e-5: its LayerScale 1e-5 keeps the blocks' share small)
+GIANT_E2E_MAX, GIANT_E2E_MEAN, GIANT_E2E_CORR = 0.1, 0.02, 0.9976
+GIANT_REG_E2E_MAX, GIANT_REG_E2E_MEAN, GIANT_REG_E2E_CORR = 0.036, 0.005, 0.9999
+
+
+def cpu_copy(model) -> torch.nn.Module:
+    """The port's CPU fp32 model of ``model``'s config with its weights (no
+    seeded init: ViT-g's takes about a minute on the host)."""
+    cpu = create_model(model.cfg, dtype=torch.float32, device="cpu", seed=None)
+    cpu.load_state_dict({k: v.detach().cpu() for k, v in model.state_dict().items()})
+    return cpu
+
+
+def seeded(arch: str, tag: str) -> torch.nn.Module:
+    """``create_model(arch)`` in bf16 on the card with seed 0, timed."""
+    t0 = time.time()
+    model = create_model(arch, dtype=torch.bfloat16, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    params = sum(p.numel() for p in model.parameters())
+    log(f"[{tag}] create_model({arch}, seed=0): {params / 1e9:.3f} B parameters in "
+        f"{time.time() - t0:.1f} s")
+    return model
+
+
+def phase_register_family(images, qims) -> dict:
+    """Main path 7: ViT-g inference (bf16 and int8_pallas), the ViT-g
+    register teacher's pseudo-labels, and the register teachers in the
+    distillation step (ViT-g-reg in the Trainer, ViT-L-reg through the CLI).
+    ``images``: path 1's synthetic images; ``qims``: path 5's 10 images at
+    518^2. Returns the models kept for phase 16, the launch counts and the
+    phase's time."""
+    from distill_any_depth_tpu_torch.cli import pseudo_label
+    from distill_any_depth_tpu_torch.utils import checkpoint as ckpt_io
+
+    t_phase = time.time()
+    out = {}
+    # ViT-g through predict: kernel 1 once a block, kernel 2 at C = 384 once
+    giant = seeded(GIANT, "vitg")
+    blocks = giant.cfg.encoder.depth
+    depth, out["counts"] = run_predict("vitg", giant, images, GIANT_RES,
+                                       {"attention": blocks, "tail": 1})
+    cpu = cpu_copy(giant)
+    t0 = time.time()
+    ref = predict(cpu, images[:1], GIANT_RES, batch_size=1)[0]
+    out["vs_cpu"] = compare_depth("vitg", depth[0], ref,
+                                  (GIANT_E2E_MAX, GIANT_E2E_MEAN, GIANT_E2E_CORR),
+                                  time.time() - t0)
+    del cpu
+
+    # the same weights with int8_pallas GEMMs: kernel 9 at qkv, proj, w12, w3
+    qgiant = create_model(GIANT, dtype=torch.bfloat16, device="cuda", seed=None,
+                          quant="int8_pallas")
+    qgiant.load_state_dict(giant.state_dict())
+    qdepth, out["int8_pallas_counts"] = run_predict(
+        "vitg int8_pallas", qgiant, images, GIANT_RES,
+        {"w8a8": 4 * blocks, "attention": blocks, "tail": 1})
+    corr = float(np.corrcoef(qdepth.ravel(), depth.ravel())[0, 1])
+    ok = corr >= QUANT_VS_PLAIN_CORR
+    log(f"[vitg int8_pallas] depth against the unquantized bf16 depth, {len(images)} images: "
+        f"corr {corr:.5f} (tol >= {QUANT_VS_PLAIN_CORR}) {'ok' if ok else 'FAIL'}")
+    check(ok, "vitg: int8 depth does not follow the unquantized depth")
+    out["int8_vs_plain_corr"] = corr
+
+    # the ViT-g register teacher's pseudo-labels: registers, pre-norm taps,
+    # the teacher head
+    greg = seeded(GIANT_REG, "vitg-reg")
+    forwards = -(-GIANT_IMAGES // GIANT_BATCH)
+    want = {k: {"attention": blocks, "tail": 1}.get(k, 0) * forwards for k in COUNTERS}
+    reset_counts()
+    t0 = time.time()
+    labels = pseudo_label.label_batches(greg, qims[:GIANT_IMAGES], GIANT_RES, GIANT_BATCH)
+    torch.cuda.synchronize()
+    out["label_counts"] = read_counts()
+    log(f"[vitg-reg] label_batches({GIANT_REG}, {GIANT_IMAGES} images, {GIANT_RES}, bs"
+        f"{GIANT_BATCH}, bf16) in {time.time() - t0:.2f} s (first call); launches "
+        f"{out['label_counts']}")
+    check(out["label_counts"] == want,
+          f"vitg-reg: launches {out['label_counts']}, expected {want}")
+    check(labels.shape == (GIANT_IMAGES, GIANT_RES, GIANT_RES) and bool(np.isfinite(labels).all())
+          and bool((labels >= 0).all()), f"vitg-reg: bad depth {labels.shape}")
+    cpu = cpu_copy(greg)
+    t0 = time.time()
+    ref = pseudo_label.label_batches(cpu, qims[:1], GIANT_RES, 1)[0]
+    out["reg_vs_cpu"] = compare_depth(
+        "vitg-reg", labels[0], ref, (GIANT_REG_E2E_MAX, GIANT_REG_E2E_MEAN, GIANT_REG_E2E_CORR),
+        time.time() - t0)
+    del cpu
+
+    # the register teacher in the distillation step, loaded from a file as
+    # --teacher_checkpoints loads it (no second seeded init)
+    path = OUT / "vitg_reg.safetensors"
+    OUT.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    ckpt_io.save_safetensors(str(path), greg)
+    log(f"[vitg-reg] saved in {time.time() - t0:.2f} s ({path.stat().st_size / 1e9:.2f} GB)")
+    cfg = TrainConfig(student=model_config(ARCH), teachers=(GIANT_REG,),
+                      teacher_checkpoints=(str(path),), batch_size=TRAIN_BATCH, image_size=RES,
+                      log_interval=10 ** 6, output_dir=str(OUT / "train_vitg_reg"))
+    trainer, out["train_counts"] = run_trainer("train, teacher vitg-reg", cfg)
+    loaded = trainer.teachers[0].state_dict()
+    same = all(torch.equal(loaded[k].float(), v.float()) for k, v in greg.state_dict().items())
+    log(f"[vitg-reg] the Trainer's teacher equals the saved model bit for bit: {same}")
+    check(same, "vitg-reg: the teacher loaded from the file differs from the saved model")
+    del greg, loaded
+    path.unlink()
+    torch.cuda.empty_cache()
+
+    run_train_cli("train, teacher vitl-reg", OUT / "train_cli_vitl_reg", teacher=LARGE_REG)
+    out["phase_s"] = time.time() - t_phase
+    log(f"[vitg] phase 18 (path 7) passed in {out['phase_s']:.1f} s")
+    return dict(out, giant=giant, qgiant=qgiant, trainer=trainer)
+
+
 # ---------------------------------------------------------------- phase 16
 def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts,
-                 wtrain, qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, evals, gen) -> None:
+                 wtrain, qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, evals, path7,
+                 gen) -> None:
     kernels = []
     bf16 = torch.bfloat16
     runs = {"infer_forward": counts, "train_step": train_counts,
@@ -1700,7 +1881,10 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
             f"pseudo_label_{QUANT_IMAGES}_images": qcounts,
             "int8_teacher_train_step": qtrain_counts,
             **{f"eval_{k}_batch": evals[k]["launches_per_batch"]
-               for k in ("nyu_float32", "nyu_bfloat16", "kitti_float32")}}
+               for k in ("nyu_float32", "nyu_bfloat16", "kitti_float32")},
+            "vitg_forward": path7["counts"], "vitg_int8_pallas_forward": path7["int8_pallas_counts"],
+            f"vitg_reg_pseudo_label_{GIANT_IMAGES}_images": path7["label_counts"],
+            "vitg_reg_teacher_train_step": path7["train_counts"]}
 
     def entry(name, key, source, replaces, err, ms, plain, lib, flops, nbytes, launches=None,
               rate=PEAK_BF16_FLOPS, **extra):
@@ -1715,18 +1899,20 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
                         **extra})
 
     # kernel 1 at the inference shape (ViT-B bs8), at the teacher's (ViT-L bs8
-    # chunk) and at the ViT-L teacher's N at 1036^2 (the windowed student's
-    # path 4), each beside SDPA on the same q, k, v; event times of
-    # back-to-back calls and the profiler's device times
+    # chunk), at the ViT-L teacher's N at 1036^2 (the windowed student's
+    # path 4) and at ViT-g's 518^2 bs8 (path 7), each beside SDPA on the same
+    # q, k, v; event times of back-to-back calls and the profiler's device
+    # times
     n, d = (RES // 14) ** 2 + 1, 64
     n1036 = (WINDOW_RES[1] // 14) ** 2 + 1
     attn = {}
     for tag, b, nn, h in (("student", BATCH, n, 12), ("teacher", 8, n, 16),
-                          ("teacher_1036", 8, n1036, 16)):
+                          ("teacher_1036", 8, n1036, 16),
+                          ("vitg_518", GIANT_BATCH, (GIANT_RES // 14) ** 2 + 1, 24)):
         c = h * d
         qkv = torch.randn(b, nn, 3 * c, generator=gen, device="cuda").to(torch.bfloat16)
         q, k, v = (x.contiguous() for x in qkv.view(b, nn, 3, h, d).permute(2, 0, 3, 1, 4))
-        iters = 50 if nn == n else 10
+        iters = 50 if nn <= 1370 else 10
         lib_dev, lib_kernels = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
         attn[tag] = dict(
             B=b, N=nn, H=h, ms=cuda_ms(lambda: mha_flash_packed(qkv, h), iters=iters),
@@ -1738,9 +1924,10 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
             attn[tag]["plain_ms"] = cuda_ms(lambda: mha_packed_reference(qkv, h))
         else:
             # its error at bs1: the plain version's fp32 scores at bs8 would take 15 GB
+            # at N = 5477 (ViT-g's is held at bs8 in phase 2)
             attn[tag]["max_err_b1"] = reading_of(mha_flash_packed(qkv[:1], h),
                                                  mha_packed_reference(qkv[:1], h))
-            check(attn[tag]["max_err_b1"] <= BF16_ATTN_TOL, "kernel 1 at N = 5477 outside tolerance")
+            check(attn[tag]["max_err_b1"] <= BF16_ATTN_TOL, f"kernel 1 {tag} outside tolerance")
         log(f"[timing] kernel 1 {tag}: {json.dumps(attn[tag])}")
         del qkv, q, k, v
     a = attn["student"]
@@ -1749,7 +1936,7 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
           a["library_ms"], 4.0 * BATCH * 12 * n * n * d, 4 * BATCH * n * 12 * d * 2,
           device_ms=a["device_ms"], library_device_ms=a["library_device_ms"],
           library_kernels=a["library_kernels"], teacher_shape=attn["teacher"],
-          teacher_1036_shape=attn["teacher_1036"])
+          teacher_1036_shape=attn["teacher_1036"], vitg_518_shape=attn["vitg_518"])
 
     # kernel 2 at every shape a path launches it (bf16; the weights prepared
     # once, as the model's WeightCache keeps them): CUDA events and the
@@ -1966,7 +2153,7 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
     # the library yardstick), torch._int_mm alone and bf16 F.linear
     shapes = []
     for label, (m, gemms) in W8A8_SHAPES.items():
-        for gemm, (k, n) in zip(GEMMS, gemms):
+        for gemm, (k, n) in gemms.items():
             x, w, b = w8a8_inputs(m, k, n, bf16, gen)
             q = quantize_weight(w)
             xq = quantize_rows(x)[0]
@@ -1991,6 +2178,7 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
           qkv["M"] * qkv["K"] * 2 + qkv["N"] * qkv["K"] + qkv["N"] * 8 + qkv["M"] * qkv["N"] * 2,
           launches=qcounts["w8a8"], rate=PEAK_INT8_OPS, shape="ViT-L 518^2 bs8 qkv",
           shapes=shapes, launches_per_forward=4 * qmodel.cfg.encoder.depth,
+          vitg_launches_per_forward=path7["int8_pallas_counts"]["w8a8"],
           library_note="the int8 route (ops/quant.int8_matmul): a row-quant pass, "
                        "torch._int_mm (cuBLASLt int8) and the dequant; bf16_linear_ms per shape")
     kernels.append(tail_v1)
@@ -2092,10 +2280,45 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"[timing] int8_pallas teacher step {step_ms:.1f} ms (windows {step_windows}); bf16 "
         f"teacher step {train['step_ms']:.1f} ms")
+
+    # end to end, path 7: the ViT-g 518^2 bs8 forward with each quant mode
+    # (the int8 route on the same weights), and the step of the ViT-B
+    # student under the ViT-g register teacher
+    giant, qgiant = path7["giant"], path7["qgiant"]
+    x = preprocess_on_device(torch.from_numpy(qims[:GIANT_BATCH]).cuda(), GIANT_RES, dtype=bf16)
+    gint8 = create_model(GIANT, dtype=bf16, device="cuda", seed=None, quant="int8")
+    gint8.load_state_dict(giant.state_dict())
+    vitg = {"arch": GIANT, "res": GIANT_RES, "batch": GIANT_BATCH, "dtype": "bfloat16",
+            "phase_18_s": path7["phase_s"]}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        for mode, m in (("none", giant), ("int8", gint8), ("int8_pallas", qgiant)):
+            windows = [cuda_ms(lambda: m(x), iters=3, warmup=1) for _ in range(3)]
+            fwd = statistics.median(windows)
+            vitg[f"forward_ms_{mode}"] = fwd
+            vitg[f"forward_ms_windows_{mode}"] = windows
+            vitg[f"forward_images_per_s_{mode}"] = GIANT_BATCH / fwd * 1e3
+            log(f"[timing] {GIANT} {GIANT_RES}^2 bs{GIANT_BATCH} forward, quant {mode}: "
+                f"{fwd:.3f} ms ({GIANT_BATCH / fwd * 1e3:.1f} img/s; windows {windows})")
+    vitg["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del gint8
+    torch.cuda.empty_cache()
+    rtrainer = path7["trainer"]
+    xs = torch.from_numpy(train_images(TRAIN_BATCH, seed=3)).cuda().permute(0, 3, 1, 2)
+    torch.cuda.reset_peak_memory_stats()
+    step_windows = [cuda_ms(lambda: rtrainer.train_step(rtrainer.state, 0, xs, xs), iters=3,
+                            warmup=1) for _ in range(3)]
+    step_ms = statistics.median(step_windows)
+    reg_train = {"student": ARCH, "teacher": GIANT_REG, "res": RES, "batch": TRAIN_BATCH,
+                 "dtype": "bfloat16", "step_ms": step_ms, "step_ms_windows": step_windows,
+                 "steps_per_s": 1e3 / step_ms, "images_per_s": TRAIN_BATCH * 1e3 / step_ms,
+                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[timing] {GIANT_REG} teacher step {step_ms:.1f} ms (windows {step_windows})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"end_to_end": e2e, "train_step": train, "window": window,
                       "window_train": window_train, "pseudo_label": pseudo,
-                      "int8_teacher_train_step": int8_train}), flush=True)
+                      "int8_teacher_train_step": int8_train, "vitg": vitg,
+                      "vitg_reg_teacher_train_step": reg_train}), flush=True)
 
 
 def main() -> None:
@@ -2124,8 +2347,9 @@ def main() -> None:
     qmodel, qplain, qcounts, qims = phase_pseudo_label()
     qtrainer, qtrain_counts = phase_train("int8_pallas")
     evals = phase_checkpoints_and_eval(trainer, qplain)
+    path7 = phase_register_family(images, qims)
     phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts, wtrain,
-                 qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, evals, gen)
+                 qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, evals, path7, gen)
     log(f"[smoke] all phases passed in {time.time() - t0:.1f} s")
     print(gpu_line(), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,10 +12,11 @@ Run: ``python -m distill_any_depth_tpu_torch.cli.infer --device cuda
 --arch_name depthanything-base --input IMAGES --output_dir OUT``; the
 windowed high-resolution teacher is ``--arch_name depthanything-base-window
 --processing_res 1036`` (518 runs the biased attention kernel, 1036 the
-banded one). ``--quant int8`` or ``int8_pallas`` runs the encoder GEMMs as
-dynamic W8A8 int8 (the latter through kernel 9 on the card). Not ported
-yet: ``--fused_tail`` (the tail kernel always runs on the card) and
-multi-device sharding of the batch.
+banded one); ViT-g is ``--arch_name depthanything-giant --processing_res
+518`` (SwiGLU, DPT features 384). ``--quant int8`` or ``int8_pallas`` runs
+the encoder GEMMs as dynamic W8A8 int8 (the latter through kernel 9 on the
+card). Not ported yet: ``--fused_tail`` (the tail kernel always runs on the
+card) and multi-device sharding of the batch.
 """
 from __future__ import annotations
 

@@ -54,12 +54,22 @@ def _w8a8(m: int, k: int, n: int) -> tuple[float, float]:
     return 2.0 * m * k * n, m * k * 2 + k * n + n * 8 + m * n * 2
 
 
-def _w8a8_encoder(name: str, m: int, dim: int, depth: int) -> dict:
-    """Kernel 9 at each of a ViT's four block GEMMs (qkv, proj, fc1, fc2 at
-    ``m`` tokens) and over the whole encoder (4 * depth launches, the bound
-    of their summed work)."""
-    gemms = {"qkv": (dim, 3 * dim), "proj": (dim, dim), "fc1": (dim, 4 * dim),
-             "fc2": (4 * dim, dim)}
+def vit_gemms(dim: int, ffn: str = "mlp") -> dict:
+    """A ViT block's four GEMMs, name -> (K, N): qkv, proj and the FFN's
+    two (fc1 and fc2, or SwiGLU's packed w12 and w3, whose hidden width is
+    2/3 of 4 dim rounded up to a multiple of 8)."""
+    gemms = {"qkv": (dim, 3 * dim), "proj": (dim, dim)}
+    if ffn == "swiglu":
+        hidden = (int(4 * dim * 2 / 3) + 7) // 8 * 8
+        return {**gemms, "w12": (dim, 2 * hidden), "w3": (hidden, dim)}
+    return {**gemms, "fc1": (dim, 4 * dim), "fc2": (4 * dim, dim)}
+
+
+def _w8a8_encoder(name: str, m: int, dim: int, depth: int, ffn: str = "mlp") -> dict:
+    """Kernel 9 at each of a ViT's four block GEMMs (``vit_gemms`` at ``m``
+    tokens) and over the whole encoder (4 * depth launches, the bound of
+    their summed work)."""
+    gemms = vit_gemms(dim, ffn)
     rows, ops, nbytes = {}, 0.0, 0.0
     for gemm, (k, n) in gemms.items():
         o, by = _w8a8(m, k, n)
@@ -75,6 +85,8 @@ def bounds() -> dict:
     win = 49  # live keys per query row under the 7x7 clamped-centre window
     return {
         "1 packed attention fwd, ViT-B 392^2 bs8": _attention(8, n392, 12, n392, False),
+        # ViT-g's 24 heads at 518^2 (path 7; with 4 registers N = 1374)
+        "1 packed attention fwd, ViT-g 518^2 bs8": _attention(8, n518 + 1, 24, n518 + 1, False),
         "2 DPT tail v2, C=128 392^2 bs8": _tail(8, 392, 128),
         # kernel 2 at the other paths' shapes: the ViT-L teacher of path 2
         # (C 256 at 392^2), the windowed teacher (path 3), pseudo-labelling
@@ -84,6 +96,9 @@ def bounds() -> dict:
         "2 DPT tail v2, C=128 1036^2 bs8": _tail(8, 1036, 128),
         "2 DPT tail v2, C=256 518^2 bs8": _tail(8, 518, 256),
         "2 DPT tail v2, C=256 1036^2 bs8": _tail(8, 1036, 256),
+        # ViT-g's DPT features (the giant presets, path 7)
+        "2 DPT tail v2, C=384 392^2 bs8": _tail(8, 392, 384),
+        "2 DPT tail v2, C=384 518^2 bs8": _tail(8, 518, 384),
         "3 packed attention bwd, ViT-B 392^2 bs16": _attention(16, n392, 12, n392, True),
         "4 kth select, [112, 153664] int32": _bound(0.0, 112 * 153664 * 4 + 112 * 8),
         # the windowed student's 1036^2 step (path 4)
@@ -99,6 +114,7 @@ def bounds() -> dict:
         # the int8 teacher of the distillation step: ViT-L in bs8 chunks at 392^2
         **_w8a8_encoder("ViT-L 392^2 bs8", 8 * n392, 1024, 24),
         **_w8a8_encoder("ViT-B 392^2 bs8", 8 * n392, 768, 12),
+        **_w8a8_encoder("ViT-g 518^2 bs8", 8 * (n518 + 1), 1536, 40, "swiglu"),
         "10 DPT tail v1, C=128 392^2 bs8": _tail(8, 392, 128),
     }
 

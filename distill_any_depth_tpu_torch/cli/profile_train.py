@@ -4,6 +4,7 @@ Run on a machine with a CUDA card:
 
     python -m distill_any_depth_tpu_torch.cli.profile_train [--out DIR]
         [--student_arch ARCH] [--image_size RES] [--teacher_quant none]
+        [--teacher ARCH]
 
 It builds ``train.loop.Trainer`` at the configuration of the JAX package's
 ``bench.py`` train step by default (student ``depthanything-base``, teacher
@@ -11,7 +12,8 @@ It builds ``train.loop.Trainer`` at the configuration of the JAX package's
 stack, shared views, the teacher in bs8 chunks); ``--student_arch
 depthanything-base-window --image_size 518`` (or ``1036``) breaks down the
 windowed student's step instead; ``--teacher_quant int8_pallas`` runs the
-teacher's GEMMs through kernel 9. It reports:
+teacher's GEMMs through kernel 9; ``--teacher depthanything-giant-reg``
+breaks down the step under the ViT-g register teacher. It reports:
 
 - the pieces of the step timed alone with CUDA events on the same batch:
   the teacher forward, the student forward, the loss stack forward and
@@ -54,12 +56,13 @@ def main(argv=None) -> dict:
     p.add_argument("--student_arch", default=STUDENT)
     p.add_argument("--image_size", type=int, default=RES)
     p.add_argument("--teacher_quant", default="none", choices=["none", "int8", "int8_pallas"])
+    p.add_argument("--teacher", default=TEACHER)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
     arch, res, batch = args.student_arch, args.image_size, BATCH
 
-    cfg = TrainConfig(student=model_config(arch), teachers=(TEACHER,),
+    cfg = TrainConfig(student=model_config(arch), teachers=(args.teacher,),
                       batch_size=batch, image_size=res, log_interval=10 ** 6,
                       teacher_quant=args.teacher_quant, output_dir=os.path.join(args.out, "train"))
     trainer = Trainer(cfg, "cuda")
@@ -121,7 +124,8 @@ def main(argv=None) -> dict:
             step()
         torch.cuda.synchronize()
     os.makedirs(args.out, exist_ok=True)
-    trace_path = os.path.join(args.out, f"train_{arch}_{res}_bs{batch}_{args.teacher_quant}.json")
+    trace_path = os.path.join(
+        args.out, f"train_{arch}_{args.teacher}_{res}_bs{batch}_{args.teacher_quant}.json")
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
@@ -139,7 +143,7 @@ def main(argv=None) -> dict:
     per_step = ITERS * 1e3  # us -> ms per step
     report = {
         "device": torch.cuda.get_device_name(0),
-        "student": arch, "teacher": TEACHER, "teacher_quant": args.teacher_quant, "res": res,
+        "student": arch, "teacher": args.teacher, "teacher_quant": args.teacher_quant, "res": res,
         "batch": batch,
         "pieces_ms": times,
         "host_enqueue_ms_per_step": enqueue_ms, "device_drain_ms_after_enqueue": drain_ms,

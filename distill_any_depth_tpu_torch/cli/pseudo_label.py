@@ -15,7 +15,9 @@ parts:
 
 Run: ``python -m distill_any_depth_tpu_torch.cli.pseudo_label --device cuda
 --input IMAGES --output_dir OUT [--quant int8_pallas]``; ``--quant
-int8_pallas`` runs the encoder's 96 GEMMs a forward through kernel 9. Not
+int8_pallas`` runs the encoder's 96 GEMMs a forward through kernel 9.
+``--arch_name depthanything-giant-reg`` labels with the ViT-g register
+teacher (160 GEMMs a forward under ``int8_pallas``). Not
 ported yet: ``--fused_tail`` (the tail kernel always runs on the card) and
 multi-device sharding of the batch.
 """

@@ -9,6 +9,8 @@ backward is kernel 6 at fewer than 3000 tokens, e.g. ``--image_size 518``,
 and kernel 8 above, e.g. ``--image_size 1036``). ``--teacher_quant int8``
 or ``int8_pallas`` runs the teachers' encoder GEMMs as dynamic W8A8 int8
 (the latter through kernel 9 on the card); the student trains unquantized.
+``--teacher_models`` takes any preset: ``depthanything-large-reg`` and
+``depthanything-giant-reg`` are the reference's register teachers.
 ``--teacher_checkpoints`` loads teacher i from a reference-layout
 safetensors file; ``--checkpoint_interval`` (default 1000) writes
 ``student_checkpoint_{step}.safetensors`` and ``train_state/`` every that

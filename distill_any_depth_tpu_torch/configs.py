@@ -3,10 +3,13 @@ JAX package's configs (distill_any_depth_tpu/configs.py:14-281).
 
 Only the fields the ported paths read are kept; the presets' values and
 the defaults are identical, so a preset name or a default config means the
-same network and the same training in both packages. The training fields
-of features not ported yet (native loader, adapters, the dp/tp mesh, remat,
-attention implementation, device preprocessing) are not fields here: the
-training CLI refuses their flags.
+same network and the same training in both packages. Every preset of the
+JAX package is here, the DINOv2 register/SwiGLU family (``vitg``,
+``vitl_reg``, ``vitg_reg``) included. Not fields here, because their
+features are not ported yet: the encoder's LoRA/SSF adapters, and the
+training fields of the native loader, the dp/tp mesh, remat, the attention
+implementation and device preprocessing (the training CLI refuses their
+flags).
 """
 from __future__ import annotations
 
@@ -24,7 +27,10 @@ class EncoderConfig:
     patch_size: int = 14
     base_img_size: int = 518
     mlp_ratio: float = 4.0
+    ffn: str = "mlp"  # "mlp" | "swiglu"
     init_values: float | None = 1.0  # LayerScale init; None disables
+    # DINOv2 register tokens, between the cls token and the patch tokens
+    num_register_tokens: int = 0
     interpolate_offset: float = 0.1
     out_indices: tuple[int, int, int, int] = (2, 5, 8, 11)
     # Local-window attention (odd window width in patches; None = global).
@@ -38,6 +44,9 @@ class EncoderConfig:
     pe_start_step: int = 2000
     pe_total_step: int = 10000
     final_taps: bool = False
+    # False: the taps are the blocks' pre-norm outputs (vit_giant2_reg's
+    # evenly spaced multi_output taps); the final norm keeps its parameters
+    tap_norm: bool = True
 
 
 def _enc(name, dim, depth, heads, idx, **kw) -> EncoderConfig:
@@ -50,6 +59,18 @@ ENCODERS: dict[str, EncoderConfig] = {
     "vits": _enc("vits", 384, 12, 6, (2, 5, 8, 11)),
     "vitb": _enc("vitb", 768, 12, 12, (2, 5, 8, 11)),
     "vitl": _enc("vitl", 1024, 24, 16, (4, 11, 17, 23)),
+    "vitg": _enc("vitg", 1536, 40, 24, (9, 19, 29, 39), ffn="swiglu"),
+    # the DINOv2-with-registers teachers: vit_large_reg, and vit_giant2_reg
+    # with its pre-norm taps after every 10 blocks
+    "vitl_reg": _enc(
+        "vitl_reg", 1024, 24, 16, (4, 11, 17, 23),
+        num_register_tokens=4, init_values=1e-5,
+    ),
+    "vitg_reg": _enc(
+        "vitg_reg", 1536, 40, 24, (9, 19, 29, 39),
+        num_register_tokens=4, init_values=1e-5,
+        ffn="swiglu", tap_norm=False,
+    ),
     # the windowed high-resolution ViT-B: window 7, PEG, no cls token, a
     # 224-based pos-embed grid, four identical final-layer taps
     "vitb_window": _enc(
@@ -93,6 +114,27 @@ MODELS: dict[str, ModelConfig] = {
         dataclasses.replace(ENCODERS["vitl"], init_values=1e-5),
         256,
         (256, 512, 1024, 1024),
+        trailing_head_relu=False,
+        interp_to_input=True,
+    ),
+    "depthanything-giant": ModelConfig(
+        "depthanything-giant", ENCODERS["vitg"], 384, (1536, 1536, 1536, 1536)
+    ),
+    # the register teachers (the reference's use_registers family); their
+    # DPT heads are those of the matching arch without registers
+    "depthanything-large-reg": ModelConfig(
+        "depthanything-large-reg",
+        ENCODERS["vitl_reg"],
+        256,
+        (256, 512, 1024, 1024),
+        trailing_head_relu=False,
+        interp_to_input=True,
+    ),
+    "depthanything-giant-reg": ModelConfig(
+        "depthanything-giant-reg",
+        ENCODERS["vitg_reg"],
+        384,
+        (1536, 1536, 1536, 1536),
         trailing_head_relu=False,
         interp_to_input=True,
     ),

@@ -9,6 +9,7 @@
 //     -> 1x1 32->1 + bd [-> ReLU]                         -> depth [B,oh,ow]
 //
 // Both 3x3 convs zero-pad by one pixel. Layouts are channels-last (NHWC).
+// C is 64, 128, 256 or 384 (the DPT features of ViT-S, B, L and g).
 //
 // Launch 1 (conv1): 2x upsample + conv1 + b1 -> v [B,2ht,2wt,C/2] in the
 //   input type (the plain version rounds v there too).
@@ -19,14 +20,17 @@
 // Bound: the convs' products on the tensor cores. At the ViT-B 392^2 bs8
 // shape (t [8,112,112,128]) conv1 59.2 GFLOP + conv2 45.3 GFLOP is ~106 us
 // at 989 TFLOP/s; at the ViT-L teacher's 1036^2 bs8 chunk (t [8,296,296,256])
-// 1.654 + 0.633 TFLOP, 2.31 ms. The bytes (one read of t, the depth write)
+// 1.654 + 0.633 TFLOP, 2.31 ms; at ViT-g's 518^2 bs8 (t [8,148,148,384])
+// 0.930 + 0.237 TFLOP, 1.18 ms. The bytes (one read of t, the depth write)
 // are a tenth of that, and the v round trip between the launches (~0.43 ms
 // of bytes at 1036^2) stays under the compute bound.
 //
 // bf16 design, one kernel body for both launches: each conv is an implicit
 // GEMM (M = output pixels, N = C_out, K = 9 taps x C_in) on wgmma with fp32
 // accumulators, in a persistent grid (one block per SM walks output tiles of
-// 2 kMT rows x 64 columns). The block's warps:
+// 2 kMT rows x 64 columns; kMT is 4 for C_out 32 and 64, 2 for 128 and 1 for
+// ViT-g's 192, so that a consumer's kMT x C_out / 2 accumulators stay within
+// its registers). The block's warps:
 //   - warps 0-7, two consumer warpgroups, own kMT output rows of 64 pixels
 //     each. wgmma reads A by descriptor straight from the halo (the resized
 //     input over the tile and its one-pixel conv border, one 64-channel
@@ -60,12 +64,20 @@
 //     PyTorch's order with its align_corners taps. A head whose source step
 //     exceeds the patch's (not a DPT grid) gathers each piece from device
 //     memory instead.
-// setmaxnreg gives the consumers 160 registers where they hold 128
+// setmaxnreg gives the consumers 160 registers where they hold 96 or 128
 // accumulators. Measured on an H100 (PERF.md): the fill, not the products,
 // sets the pace; the consumers wait on it a fifth to a third of their time.
+// At C_out 192 (conv1 of ViT-g, one wgmma m64n192k16 per row and k-step) a
+// tile is 2 x 64 pixels: kMT = 2 would need 192 accumulators a consumer
+// thread, and splitting C_out between the warpgroups over the same 4 rows
+// would too; fewer fill warps for more consumer registers would slow the
+// fill, which sets the pace. So the halo is 4 rows for 2 output rows, 1.33x
+// the halo per output pixel of the 4-row tiles.
 // Two calls give the same bits: every output is summed in one fixed order.
 // fp32 keeps the scalar-FMA kernels (8x16 tiles whose halo is built in
-// shared memory, weights as a plain [9*C_in, C_out] matrix).
+// shared memory, weights as a plain [9*C_in, C_out] matrix); at C = 384 the
+// halo is staged 128 channels at a time and the output channels are split
+// over two blocks (F32Conv1).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -186,6 +198,28 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_ss<192>(float (&d)[96], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // Descriptor of a K-major operand without swizzle at shared address `addr`:
 // 8-row x 16-byte core matrices, `lbo` bytes apart along K and `sbo` bytes
 // apart along M (or N); layout type 0.
@@ -202,7 +236,9 @@ template <int CIN, int COUT, bool kHead>
 struct Shape {
   static constexpr int kCinP = CIN < 64 ? 64 : CIN;  // channels in 64-wide chunks
   static constexpr int kChunks = kCinP / 64;
-  static constexpr int kMT = COUT >= 128 ? 2 : 4;    // output rows per consumer warpgroup
+  // output rows per consumer warpgroup: the rows' accumulators (kMT x COUT
+  // / 2 a thread) stay within the consumers' registers
+  static constexpr int kMT = COUT > 128 ? 1 : COUT == 128 ? 2 : 4;
   static constexpr int kTH = 2 * kMT, kTW = 64;      // output tile
   static constexpr int kHC = kTW + 2;                // halo columns
   static constexpr int kNPix = (kTH + 2) * kHC;      // halo pixels
@@ -223,8 +259,9 @@ struct Shape {
                                   kPatchBytes + (2 * kStages + 5) * 8 +
                                   (kTH + 2) * 16;
   // Registers: the consumers hold kMT x COUT / 2 fp32 accumulators. With 64
-  // (COUT 32), 20 warps fit at 96 registers each: 11 fill warps. With 128,
-  // setmaxnreg gives the consumers 160 and the other 8 warps 96.
+  // (COUT 32), 20 warps fit at 96 registers each: 11 fill warps. With 96
+  // (COUT 192) or 128, setmaxnreg gives the consumers 160 and the other 8
+  // warps 96.
   static constexpr bool kWide = kMT * COUT / 2 > 64;
   static constexpr int kThreads = kWide ? 512 : 640;
   static constexpr int kFillers = kThreads - 256 - 32;  // the fill warps' threads
@@ -669,16 +706,17 @@ constexpr int kTH = 8, kTW = 16;             // output tile
 constexpr int kHH = kTH + 2, kHW = kTW + 2;  // with the conv halo
 constexpr int kF32Threads = 128;             // 4 warps, 2 tile rows each
 
-// Fill the (kHH x kHW) halo tile, rows of CIN + 4 floats, with src [hs, ws,
-// CIN] bilinearly resized to (ho, wo).
-template <int CIN>
+// Fill the (kHH x kHW) halo tile, rows of CK + 4 floats, with CK channels of
+// src [hs, ws, CIN] (src already offset to the chunk's first channel)
+// bilinearly resized to (ho, wo).
+template <int CK, int CIN>
 __device__ __forceinline__ void fill_halo_f32(float* halo, const float* src, int hs, int ws,
                                               int ho, int wo, int y0, int x0) {
-  constexpr int kRow = CIN + 4;
-  constexpr int kChunks = CIN / 8;
+  constexpr int kRow = CK + 4;
+  constexpr int kGroups = CK / 8;
   const float sh = ac_scale(hs, ho), sw = ac_scale(ws, wo);
-  for (int i = threadIdx.x; i < kHH * kHW * kChunks; i += kF32Threads) {
-    int pix = i / kChunks, c8 = (i % kChunks) * 8;
+  for (int i = threadIdx.x; i < kHH * kHW * kGroups; i += kF32Threads) {
+    int pix = i / kGroups, c8 = (i % kGroups) * 8;
     int hy = pix / kHW, hx = pix % kHW;
     float r[8];
     resized8<CIN>(r, src, hs, ws, ho, wo, sh, sw, y0 - 1 + hy, x0 - 1 + hx, c8);
@@ -686,26 +724,22 @@ __device__ __forceinline__ void fill_halo_f32(float* halo, const float* src, int
   }
 }
 
-// acc[mt][j][e] += the 3x3 conv of the halo tile with w, the plain [9*CIN,
-// COUT] matrix (k = tap*CIN + ci). Warp w owns tile rows 2w+mt (mt = 0,1);
-// element e of n-tile j sits at column g + 8*(e>>1), channel 8j + 2t + (e&1).
-template <int CIN, int COUT>
+// acc[mt][j][e] += the 3x3 conv of a halo tile of CK channels with w, the
+// plain [9*CIN, COUT] matrix (k = tap*CIN + ci), offset to the chunk's first
+// input channel and the block's first output channel; NB output channels.
+// Warp w owns tile rows 2w+mt (mt = 0,1); element e of n-tile j sits at
+// column g + 8*(e>>1), channel 8j + 2t + (e&1).
+template <int CK, int CIN, int COUT, int NB>
 __device__ __forceinline__ void conv3x3_f32(const float* halo, const float* wf,
-                                            float (&acc)[2][COUT / 8][4]) {
-  constexpr int kRow = CIN + 4;
+                                            float (&acc)[2][NB / 8][4]) {
+  constexpr int kRow = CK + 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int j = 0; j < COUT / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
 #pragma unroll 1
   for (int tap = 0; tap < 9; ++tap) {
     const int dy = tap / 3, dx = tap % 3;
 #pragma unroll 1
-    for (int ci = 0; ci < CIN; ++ci) {
+    for (int ci = 0; ci < CK; ++ci) {
       float alo[2], ahi[2];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
@@ -715,7 +749,7 @@ __device__ __forceinline__ void conv3x3_f32(const float* halo, const float* wf,
       }
       const float* wr = wf + (long)(tap * CIN + ci) * COUT + 2 * t;
 #pragma unroll
-      for (int j = 0; j < COUT / 8; ++j) {
+      for (int j = 0; j < NB / 8; ++j) {
         float2 wv = *reinterpret_cast<const float2*>(wr + 8 * j);
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
@@ -729,20 +763,37 @@ __device__ __forceinline__ void conv3x3_f32(const float* halo, const float* wf,
   }
 }
 
+// conv1 in fp32. Up to C = 256 a block stages all C channels of its halo at
+// once and computes every output channel. At C = 384 the halo (279 KB) would
+// not fit in shared memory and 192 output channels would not fit in
+// registers: a block stages CK = 128 channels at a time, and the output
+// channels are split over NB = 96-wide blocks (blockIdx.z = image x split).
+template <int C>
+struct F32Conv1 {
+  static constexpr int kCK = C > 256 ? 128 : C;     // channels staged at a time
+  static constexpr int kNB = C > 256 ? 96 : C / 2;  // output channels a block
+  static constexpr int kSplit = C / 2 / kNB;
+};
+
 template <int C>
 __global__ void __launch_bounds__(kF32Threads)
     tail_conv1_f32(const float* __restrict__ t, const float* __restrict__ w1,
                    const float* __restrict__ b1, float* __restrict__ v, int ht, int wt) {
+  using P = F32Conv1<C>;
   constexpr int CM = C / 2;
   extern __shared__ __align__(16) unsigned char smem[];
   float* halo = reinterpret_cast<float*>(smem);
   const int hu = 2 * ht, wu = 2 * wt;
-  const int x0 = blockIdx.x * kTW, y0 = blockIdx.y * kTH, b = blockIdx.z;
-  fill_halo_f32<C>(halo, t + (long)b * ht * wt * C, ht, wt, hu, wu, y0, x0);
-  __syncthreads();
-
-  float acc[2][CM / 8][4];
-  conv3x3_f32<C, CM>(halo, w1, acc);
+  const int x0 = blockIdx.x * kTW, y0 = blockIdx.y * kTH;
+  const int b = blockIdx.z / P::kSplit, n0 = (blockIdx.z % P::kSplit) * P::kNB;
+  float acc[2][P::kNB / 8][4] = {};
+#pragma unroll 1
+  for (int c0 = 0; c0 < C; c0 += P::kCK) {
+    if (c0) __syncthreads();  // every warp is done with the last chunk
+    fill_halo_f32<P::kCK, C>(halo, t + (long)b * ht * wt * C + c0, ht, wt, hu, wu, y0, x0);
+    __syncthreads();
+    conv3x3_f32<P::kCK, C, CM, P::kNB>(halo, w1 + (long)c0 * CM + n0, acc);
+  }
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -754,12 +805,12 @@ __global__ void __launch_bounds__(kF32Threads)
     for (int half = 0; half < 2; ++half) {
       const int ox = x0 + g + 8 * half;
       if (ox >= wu) continue;
-      float* dst = v + (((long)b * hu + oy) * wu + ox) * CM;
+      float* dst = v + (((long)b * hu + oy) * wu + ox) * CM + n0;
 #pragma unroll
-      for (int j = 0; j < CM / 8; ++j) {
+      for (int j = 0; j < P::kNB / 8; ++j) {
         const int co = 8 * j + 2 * tq;
-        *reinterpret_cast<float2*>(dst + co) = make_float2(acc[mt][j][2 * half] + b1[co],
-                                                           acc[mt][j][2 * half + 1] + b1[co + 1]);
+        *reinterpret_cast<float2*>(dst + co) =
+            make_float2(acc[mt][j][2 * half] + b1[n0 + co], acc[mt][j][2 * half + 1] + b1[n0 + co + 1]);
       }
     }
   }
@@ -774,11 +825,11 @@ __global__ void __launch_bounds__(kF32Threads)
   extern __shared__ __align__(16) unsigned char smem[];
   float* halo = reinterpret_cast<float*>(smem);
   const int x0 = blockIdx.x * kTW, y0 = blockIdx.y * kTH, b = blockIdx.z;
-  fill_halo_f32<CM>(halo, v + (long)b * hv * wv * CM, hv, wv, oh, ow, y0, x0);
+  fill_halo_f32<CM, CM>(halo, v + (long)b * hv * wv * CM, hv, wv, oh, ow, y0, x0);
   __syncthreads();
 
-  float acc[2][kC2 / 8][4];
-  conv3x3_f32<CM, kC2>(halo, w2, acc);
+  float acc[2][kC2 / 8][4] = {};
+  conv3x3_f32<CM, CM, kC2, kC2>(halo, w2, acc);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -810,19 +861,22 @@ __global__ void __launch_bounds__(kF32Threads)
     }
 }
 
-template <int CIN>
+// a halo tile of CK channels
+template <int CK>
 size_t halo_bytes_f32() {
-  return (size_t)kHH * kHW * (CIN + 4) * sizeof(float);
+  return (size_t)kHH * kHW * (CK + 4) * sizeof(float);
 }
 
 template <int C>
 int launch_conv1_f32(const void* t, const void* w1, const float* b1, void* v, int batch, int ht,
                      int wt, cudaStream_t st) {
-  const size_t smem = halo_bytes_f32<C>();
+  using P = F32Conv1<C>;
+  if ((long)batch * P::kSplit > 65535) return -1;
+  const size_t smem = halo_bytes_f32<P::kCK>();
   cudaError_t err = cudaFuncSetAttribute(tail_conv1_f32<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((2 * wt + kTW - 1) / kTW, (2 * ht + kTH - 1) / kTH, batch);
+  dim3 grid((2 * wt + kTW - 1) / kTW, (2 * ht + kTH - 1) / kTH, batch * P::kSplit);
   tail_conv1_f32<C><<<grid, kF32Threads, smem, st>>>(static_cast<const float*>(t),
                                                      static_cast<const float*>(w1), b1,
                                                      static_cast<float*>(v), ht, wt);
@@ -863,12 +917,14 @@ extern "C" int dad_tail_conv1(const void* t, const void* w1, const void* b1, voi
       case 64: return conv1(launch_wgmma<64, 32, false>);
       case 128: return conv1(launch_wgmma<128, 64, false>);
       case 256: return conv1(launch_wgmma<256, 128, false>);
+      case 384: return conv1(launch_wgmma<384, 192, false>);
     }
   } else if (dtype == 1) {
     switch (c) {
       case 64: return launch_conv1_f32<64>(t, w1, b, v, batch, ht, wt, st);
       case 128: return launch_conv1_f32<128>(t, w1, b, v, batch, ht, wt, st);
       case 256: return launch_conv1_f32<256>(t, w1, b, v, batch, ht, wt, st);
+      case 384: return launch_conv1_f32<384>(t, w1, b, v, batch, ht, wt, st);
     }
   }
   return -1;
@@ -892,12 +948,14 @@ extern "C" int dad_tail_head(const void* v, const void* w2, const void* b2, cons
       case 32: return head(launch_wgmma<32, kC2, true>);
       case 64: return head(launch_wgmma<64, kC2, true>);
       case 128: return head(launch_wgmma<128, kC2, true>);
+      case 192: return head(launch_wgmma<192, kC2, true>);
     }
   } else if (dtype == 1) {
     switch (cm) {
       case 32: return head(launch_head_f32<32>);
       case 64: return head(launch_head_f32<64>);
       case 128: return head(launch_head_f32<128>);
+      case 192: return head(launch_head_f32<192>);
     }
   }
   return -1;

@@ -3,8 +3,9 @@
 Counterpart of distill_any_depth_tpu/models/factory.py. The random init is
 seeded with a ``torch.Generator`` on the CPU before the move to the device,
 so one seed gives the same weights on every device. It follows flax's
-initialisers in kind (truncated-normal LeCun kernels, zero biases, LayerScale
-at ``init_values``) but not in bits: for parity with the JAX package, load
+initialisers in kind (truncated-normal LeCun kernels, SwiGLU's included,
+zero biases, LayerScale at ``init_values``, register tokens normal with std
+1e-6) but not in bits: for parity with the JAX package, load
 its params through ``utils/convert.params_from_jax``.
 """
 from __future__ import annotations
@@ -71,6 +72,8 @@ def init_params(model: nn.Module, seed: int = 0) -> None:
             _trunc_normal(m.pos_embed, 0.02, gen)
             if m.cls_token is not None:
                 m.cls_token.normal_(0.0, 1e-6, generator=gen)
+            if m.register_tokens is not None:
+                m.register_tokens.normal_(0.0, 1e-6, generator=gen)
         elif isinstance(m, LayerScale):
             pass  # keeps init_values
         elif isinstance(m, nn.LayerNorm):

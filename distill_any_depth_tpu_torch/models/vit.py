@@ -1,20 +1,24 @@
-"""DINOv2-style ViT encoder: global attention with a cls token, or the
-windowed high-resolution variant.
+"""DINOv2-style ViT encoder: global attention with a cls token (and, in the
+register family, register tokens and a SwiGLU FFN), or the windowed
+high-resolution variant.
 
 Counterpart of distill_any_depth_tpu/models/vit.py (``PatchEmbed``, ``Mlp``,
-``Attention``, ``Block``, ``_interp_pos_embed``, ``PosConv``, ``DinoViT``).
-Submodules carry the reference state-dict names
-(``pretrained.blocks.{i}.attn.qkv``, ``pretrained.pos_conv.proj.0`` ...), so
-a state dict from ``utils/convert.params_from_jax`` loads with
+``SwiGLU``, ``Attention``, ``Block``, ``_interp_pos_embed``, ``PosConv``,
+``DinoViT``). Submodules carry the reference state-dict names
+(``pretrained.blocks.{i}.attn.qkv``, ``pretrained.blocks.{i}.mlp.w12``,
+``pretrained.register_tokens``, ``pretrained.pos_conv.proj.0`` ...), so a
+state dict from ``utils/convert.params_from_jax`` loads with
 ``strict=True``.
 
 Parameters stay fp32; every layer casts its weights to the dtype of its
 input, as flax does with ``kernel.astype(dtype)``, so bf16 activations reach
 the attention kernels. ``quant`` ("int8" or "int8_pallas") runs the
-blocks' qkv, proj, fc1 and fc2 as dynamic W8A8 int8 GEMMs
-(``ops/quant.QuantLinear``, inference only; the patch embedding and the PEG
-conv stay unquantized, as in the JAX package). Not ported yet: register
-tokens, LoRA/SSF adapters, SwiGLU and ``tap_norm=False`` taps.
+blocks' qkv, proj and FFN GEMMs (fc1 and fc2, or SwiGLU's w12 and w3) as
+dynamic W8A8 int8 GEMMs (``ops/quant.QuantLinear``, inference only; the
+patch embedding and the PEG conv stay unquantized, as in the JAX package).
+The JAX encoder's 8-row pad of the token count is a TPU tiling and is not
+ported: the attention kernels take any N. Not ported yet: the LoRA/SSF
+adapters.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from distill_any_depth_tpu_torch.ops.resize import resize_matrix
 from distill_any_depth_tpu_torch.ops.window import local_window_bias
 
 __all__ = ["QUANT_MODES", "Linear", "LayerNorm", "Conv2d", "gelu", "PatchEmbed", "Mlp",
-           "Attention", "Block", "interp_pos_embed", "PosConv", "DinoViT"]
+           "SwiGLU", "Attention", "Block", "interp_pos_embed", "PosConv", "DinoViT"]
 
 QUANT_MODES = ("none", "int8", "int8_pallas")
 
@@ -91,6 +95,22 @@ class Mlp(nn.Module):
         return self.fc2(gelu(self.fc1(x)))
 
 
+class SwiGLU(nn.Module):
+    """DINOv2's fused SwiGLU FFN: ``w3(silu(x1) * x2)`` with ``x1 | x2`` the
+    halves of the packed ``w12`` output, and the hidden width ``2/3`` of
+    ``dim * mlp_ratio`` rounded up to a multiple of 8 (4096 for ViT-g)."""
+
+    def __init__(self, dim: int, mlp_ratio: float, quant: str = "none"):
+        super().__init__()
+        hidden = (int(int(dim * mlp_ratio) * 2 / 3) + 7) // 8 * 8
+        self.w12 = _linear(dim, 2 * hidden, quant)
+        self.w3 = _linear(hidden, dim, quant)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3(F.silu(x1) * x2)
+
+
 class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, quant: str = "none"):
         super().__init__()
@@ -117,13 +137,16 @@ class Block(nn.Module):
     """Pre-norm transformer block with LayerScale (eval path)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, init_values: float | None,
-                 quant: str = "none"):
+                 quant: str = "none", ffn: str = "mlp"):
         super().__init__()
+        if ffn not in ("mlp", "swiglu"):
+            raise ValueError(f"ffn must be 'mlp' or 'swiglu', not {ffn!r}")
         self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, quant)
         self.ls1 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
         self.norm2 = LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), quant)
+        self.mlp = (SwiGLU(dim, mlp_ratio, quant) if ffn == "swiglu"
+                    else Mlp(dim, int(dim * mlp_ratio), quant))
         self.ls2 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor | None = None,
@@ -168,10 +191,13 @@ class DinoViT(nn.Module):
 
     ``forward(x [B, 3, H, W], pe_step=None)`` returns ``(taps, cls_tokens)``:
     for each index in ``cfg.out_indices`` the final-normed patch tokens
-    ``[B, N, C]`` and the cls token ``[B, C]``. The windowed variant
-    (``cfg.final_taps``) returns the final post-norm tokens four times, its
-    "cls token" being patch token 0 (it has no cls token). ``quant``
-    selects the blocks' GEMMs (see the module docstring).
+    ``[B, N, C]`` and the cls token ``[B, C]`` (the register tokens, which
+    sit between them in the token stream, are in neither). With
+    ``cfg.tap_norm`` False the taps and cls tokens are the blocks' outputs
+    before the final norm. The windowed variant (``cfg.final_taps``)
+    returns the final post-norm tokens four times, its "cls token" being
+    patch token 0 (it has no cls token). ``quant`` selects the blocks'
+    GEMMs (see the module docstring).
     """
 
     def __init__(self, cfg: EncoderConfig, quant: str = "none"):
@@ -185,9 +211,11 @@ class DinoViT(nn.Module):
         self.patch_embed = PatchEmbed(cfg.patch_size, d)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d)) if cfg.use_cls_token else None
         self.pos_embed = nn.Parameter(torch.zeros(1, n_base + n_cls, d))
+        self.register_tokens = (nn.Parameter(torch.zeros(1, cfg.num_register_tokens, d))
+                                if cfg.num_register_tokens else None)
         self.pos_conv = PosConv(d) if cfg.use_pos_conv else None
         self.blocks = nn.ModuleList(
-            Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.init_values, quant)
+            Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.init_values, quant, cfg.ffn)
             for _ in range(cfg.depth)
         )
         self.norm = LayerNorm(d, eps=1e-6)
@@ -229,7 +257,7 @@ class DinoViT(nn.Module):
         window = self.cfg.window_size
         if window is None:
             return None, None
-        n_prefix = 1 if self.cfg.use_cls_token else 0
+        n_prefix = (1 if self.cfg.use_cls_token else 0) + self.cfg.num_register_tokens
         band = (gw, window) if n_prefix == 0 else None
         if banded_eligible(n, band):
             return None, band
@@ -260,11 +288,17 @@ class DinoViT(nn.Module):
                 coef = ((step - cfg.pe_start_step) / (cfg.pe_total_step - cfg.pe_start_step))
                 coef = coef.clamp(0.0, 1.0).to(x.dtype)
                 tokens = tokens + (1.0 - coef) * self._pos_embed(gh, gw, x.dtype) + coef * gpe
+        n_prefix = 1 if cfg.use_cls_token else 0
+        if self.register_tokens is not None:
+            # the registers go between the cls token and the patch tokens,
+            # after the position embedding (which has no entries for them)
+            reg = self.register_tokens.to(x.dtype).expand(b, -1, -1)
+            tokens = torch.cat([tokens[:, :n_prefix], reg, tokens[:, n_prefix:]], dim=1)
+            n_prefix += cfg.num_register_tokens
         # a token-major residual stream: without a cls token to concatenate,
         # the patch embedding's tokens are a transposed view, and every
         # elementwise op of the blocks would run strided
         tokens = tokens.contiguous()
-        n_prefix = 1 if cfg.use_cls_token else 0
         bias, band = self._attention_mask(gh, gw, tokens.shape[1], x.device, x.dtype)
         raw = {}
         for i, blk in enumerate(self.blocks):
@@ -276,7 +310,7 @@ class DinoViT(nn.Module):
             return [t[:, n_prefix:]] * 4, [t[:, 0]] * 4
         taps, cls_tokens = [], []
         for i in cfg.out_indices:
-            t = self.norm(raw[i])
+            t = self.norm(raw[i]) if cfg.tap_norm else raw[i]
             cls_tokens.append(t[:, 0])
             taps.append(t[:, n_prefix:])
         return taps, cls_tokens

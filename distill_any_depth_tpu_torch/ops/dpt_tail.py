@@ -10,8 +10,9 @@ Counterpart of distill_any_depth_tpu/ops/dpt_tail.py ``fused_dpt_tail_v2``
 
 Layouts follow the JAX contract: ``t`` channels-last, ``k1``/``k2`` HWIO,
 ``kd`` ``[32, 1]``. The kernel (``csrc/dpt_tail.cu``, two launches) takes
-C in {64, 128, 256}; its header states its bound on the H100 and its
-design. Its bf16 convs read the weights packed by ``pack_conv_weight``;
+C in {64, 128, 256, 384}, the DPT features of every preset (384: ViT-g's),
+and raises on any other width; its header states its bound on the H100
+and its design. Its bf16 convs read the weights packed by ``pack_conv_weight``;
 ``WeightCache`` keeps the packing until a weight changes. Forward only.
 """
 from __future__ import annotations
@@ -28,7 +29,7 @@ __all__ = ["fused_dpt_tail", "tail_reference", "pack_conv_weight", "prepare_weig
            "TailWeights", "WeightCache"]
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_CHANNELS = (64, 128, 256)
+_CHANNELS = (64, 128, 256, 384)
 _C2 = 32
 
 

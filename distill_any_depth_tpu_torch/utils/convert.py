@@ -6,7 +6,9 @@ modules this package has. It takes the flax param tree as nested dicts of
 numpy arrays, so the weights of one JAX model load into the port with
 ``load_state_dict(strict=True)``:
 
-- Dense ``[I, O]`` -> Linear ``[O, I]``, or a 1x1 conv ``[O, I, 1, 1]``;
+- Dense ``[I, O]`` -> Linear ``[O, I]`` (SwiGLU's ``mlp/w12`` and
+  ``mlp/w3`` too), or a 1x1 conv ``[O, I, 1, 1]``;
+- ``cls_token``, ``pos_embed`` and ``register_tokens`` as they are;
 - conv HWIO ``[kh, kw, I, O]`` -> OIHW ``[O, I, kh, kw]``;
 - patch-embed matmul ``[p*p*C, D]`` ((ph, pw, c) order) -> conv OIHW;
 - the PEG depthwise conv ``pos_conv/proj`` HWIO ``[37, 37, 1, C]`` ->
@@ -48,7 +50,7 @@ def _dense_as_conv(k: np.ndarray) -> np.ndarray:
 
 def _encoder_key(path: tuple[str, ...], v: np.ndarray, patch: int) -> tuple[str, np.ndarray]:
     name = path[0]
-    if name in ("cls_token", "pos_embed"):
+    if name in ("cls_token", "pos_embed", "register_tokens"):
         return f"pretrained.{name}", v
     if name == "patch_embed":
         if path[1] == "kernel":
@@ -66,7 +68,7 @@ def _encoder_key(path: tuple[str, ...], v: np.ndarray, patch: int) -> tuple[str,
             return f"{base}.{rest[0][:3]}.gamma", v
         if rest[0] in ("norm1", "norm2"):
             return f"{base}.{rest[0]}.{'weight' if rest[1] == 'scale' else 'bias'}", v
-        mod = ".".join(rest[:-1])  # attn.qkv, attn.proj, mlp.fc1, mlp.fc2
+        mod = ".".join(rest[:-1])  # attn.qkv, attn.proj, mlp.fc1/fc2 or mlp.w12/w3
         return (f"{base}.{mod}.weight", v.T) if rest[-1] == "kernel" else (f"{base}.{mod}.bias", v)
     raise KeyError(f"unmapped encoder param {'/'.join(path)}")
 

@@ -35,6 +35,9 @@ def _tiny(models, arch, **head):
     ("depthanything-base", {}),
     ("depthanything-large", {"use_clstoken": True}),  # LayerScale 1e-5, cls readout
     ("depthanything-base-window", {}),  # PEG conv, no cls token, 224-based pos-embed
+    ("depthanything-giant", {}),  # SwiGLU: mlp.w12, mlp.w3
+    ("depthanything-large-reg", {}),  # register tokens
+    ("depthanything-giant-reg", {}),  # registers, SwiGLU, pre-norm taps
 ])
 def test_params_from_jax_matches_params_to_torch(arch, head):
     jcfg, tcfg = _tiny(JAX_MODELS, arch, **head), _tiny(MODELS, arch, **head)
@@ -75,5 +78,5 @@ def test_params_from_jax_serves_quantized_models(quant):
 
 def test_unknown_param_raises():
     with pytest.raises(KeyError, match="unmapped"):
-        params_from_jax({"pretrained": {"register_tokens": np.zeros((1, 4, 64))}},
+        params_from_jax({"pretrained": {"mask_token": np.zeros((1, 64))}},
                         MODELS["depthanything-base"])

@@ -165,8 +165,8 @@ def _tail_inputs(c, b, ht, wt, dtype, device, seed):
     return rnd(b, ht, wt, c).to(dtype), w
 
 
-# the bf16 kernel's tiles are 64 output columns by 4 (C = 256's conv1) or 8
-# rows; ht or wt = 1, an (oh, ow) off those multiples, and a head step
+# the bf16 kernel's tiles are 64 output columns by 2 (C = 384's conv1), 4
+# (C = 256's conv1) or 8 rows; ht or wt = 1, an (oh, ow) off those multiples, and a head step
 # (2 ht - 1) / (oh - 1) above the staged source patch's 4/7 (the gather path).
 # The trailing ReLU only at the larger shapes: where it clips most of a small
 # output, max |ref| is tiny and any bf16 chain's relative error passes 2e-2.
@@ -176,6 +176,8 @@ def _tail_inputs(c, b, ht, wt, dtype, device, seed):
     (64, 1, 9, 15, 65, False), (128, 9, 1, 63, 14, False), (256, 1, 1, 14, 14, False),
     (64, 33, 32, 129, 70, True), (128, 37, 33, 131, 200, False), (256, 28, 28, 98, 98, True),
     (128, 20, 20, 30, 30, False),
+    (384, 8, 8, 28, 28, True), (384, 3, 4, 17, 30, False), (384, 1, 9, 15, 65, False),
+    (384, 33, 32, 129, 70, True), (384, 37, 33, 131, 200, False),
 ])
 def test_tail_kernel_matches_plain(cuda_device, c, ht, wt, oh, ow, relu, dtype, tol):
     t, w = _tail_inputs(c, 2, ht, wt, dtype, cuda_device, c + ht)
@@ -188,7 +190,7 @@ def test_tail_kernel_matches_plain(cuda_device, c, ht, wt, oh, ow, relu, dtype, 
     assert err <= tol * ref.float().abs().max().item()
 
 
-@pytest.mark.parametrize("c", [64, 128, 256])
+@pytest.mark.parametrize("c", [64, 128, 256, 384])
 def test_tail_kernel_is_deterministic(cuda_device, c):
     """Every output of the bf16 kernel is summed in one fixed order: two calls
     on the same inputs, with weights prepared once and packed per call, give
@@ -200,6 +202,14 @@ def test_tail_kernel_is_deterministic(cuda_device, c):
     prep = prepare_weights(*w.values(), torch.bfloat16)
     assert torch.equal(first, fused_dpt_tail(t, (518, 518), trailing_relu=False, weights=prep,
                                              **w))
+
+
+def test_tail_kernel_refuses_other_widths(cuda_device):
+    """A width the kernel has no instance for raises on the card: no plain
+    fallback."""
+    t, w = _tail_inputs(512, 1, 8, 8, torch.bfloat16, cuda_device, 0)
+    with pytest.raises(ValueError, match="takes C in"):
+        fused_dpt_tail(t, (28, 28), trailing_relu=True, **w)
 
 
 def test_model_runs_kernels_in_grad_mode_or_raises(cuda_device):
@@ -492,7 +502,10 @@ def test_windowed_model_runs_masked_kernels(cuda_device, monkeypatch, res, kerne
 @pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no_bias"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(1, 96, 200), (100, 96, 200), (300, 768, 2304),
-                                   (130, 4096, 1024)])
+                                   (130, 4096, 1024),
+                                   # ViT-g's qkv, proj, SwiGLU w12 and w3
+                                   (300, 1536, 4608), (300, 1536, 1536), (300, 1536, 8192),
+                                   (300, 4096, 1536)])
 def test_w8a8_kernel_matches_plain(cuda_device, m, k, n, dtype, with_bias):
     gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
     x = (torch.randn(m, k, generator=gen, device=cuda_device) * 3).to(dtype)
@@ -571,5 +584,34 @@ def test_quant_model_runs_w8a8_kernel(cuda_device):
         ref, _ = plain(x)
     assert w8a8_matmul.launches - before == 8
     assert torch.isfinite(depth).all()
+    corr = torch.corrcoef(torch.stack([depth.float().flatten(), ref.float().flatten()]))[0, 1]
+    assert corr > 0.99
+
+
+def test_register_swiglu_model_runs_kernels(cuda_device):
+    """A tiny ``depthanything-giant-reg`` (registers, SwiGLU, pre-norm taps,
+    DPT features 384) in bf16 runs kernel 1 once a block, kernel 2 at C =
+    384 once, and, with ``int8_pallas``, kernel 9 at qkv, proj, w12 and w3
+    of every block; its int8 depth follows the unquantized depth. Width 192:
+    SwiGLU's hidden width is then 512, within kernel 9's K % 16 (at 128 it
+    would be 344)."""
+    cfg = model_config("depthanything-giant-reg")
+    enc = dataclasses.replace(cfg.encoder, embed_dim=192, depth=2, num_heads=3,
+                              out_indices=(0, 0, 1, 1))
+    cfg = dataclasses.replace(cfg, encoder=enc, out_channels=(32, 64, 96, 128))
+    plain = create_model(cfg, dtype=torch.bfloat16, device=cuda_device)
+    model = create_model(cfg, dtype=torch.bfloat16, device=cuda_device, seed=None,
+                         quant="int8_pallas")
+    model.load_state_dict(plain.state_dict())
+    x = torch.rand(2, 3, 98, 98, device=cuda_device)
+    fns = (mha_flash_packed, fused_dpt_tail, w8a8_matmul)
+    with torch.no_grad():
+        before = [f.launches for f in fns]
+        ref, feat = plain(x)
+        assert [f.launches - b for f, b in zip(fns, before)] == [2, 1, 0]
+        before = [f.launches for f in fns]
+        depth, _ = model(x)
+        assert [f.launches - b for f, b in zip(fns, before)] == [2, 1, 8]
+    assert feat.shape == (2, 49, 192) and torch.isfinite(depth).all()
     corr = torch.corrcoef(torch.stack([depth.float().flatten(), ref.float().flatten()]))[0, 1]
     assert corr > 0.99
