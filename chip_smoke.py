@@ -117,12 +117,33 @@ Phases, each of which fails the run if it fails:
    as the teacher of a ``Trainer`` with the ViT-B student at bs16 392^2
    bf16 for 3 steps (launches per step, finite losses and gradient norm,
    moved parameters); two steps of ``cli.train --teacher_models
-   depthanything-large-reg`` over ``data/smoke``; the phase's time.
+   depthanything-large-reg`` over ``data/smoke``; the phase's time;
+19. main path 8, the rest of single-card ``cli.train`` (run between phases
+   18 and 16; every Trainer and CLI run loads phase 7's ViT-L teacher from
+   a file instead of seeding one): 3 ``Trainer`` steps at bs16 392^2 bf16
+   over a folder of 40 synthetic 480 x 640 PNGs through
+   ``ImageFolderDataset`` and ``train/loop.image_batches`` (two student
+   views a step: kernel 1 72 times, kernel 3 24, kernel 2 2, kernel 4 2),
+   finite losses with a non-zero LG, moved parameters; the two-view step
+   and path 2's shared-view step timed in turns with their peak memory;
+   2 steps of ``cli.train --data_mode images`` over the folder; 3
+   adapter-only steps (LoRA rank 8 on qkv and proj, SSF at four taps) with
+   path 2's launches, every frozen parameter bit-equal and every adapter
+   moved, ``student_final`` read back into a fresh model equal in
+   parameters and forward bit for bit, the step timed in turns with path
+   2's; one fp32 bs2 adapter-only step on the card against the CPU with
+   phase 8's limits; 2 steps each of ``cli.train`` with the adapter
+   flags, with ``--device_preprocess`` (the uint8 frames reach the card's
+   resize as they are), with ``--profile_dir`` (the Chrome trace names
+   kernel 1's ``packed_attn_wgmma``) and with ``--visualize_interval 1``
+   (the panels of both steps and the loss and LR plots; a student and a
+   teacher forward a step more).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -1249,7 +1270,7 @@ def step_vs_cpu(tag: str, cfg: TrainConfig, x: np.ndarray, tol: dict, want=None)
         if dev == "cuda" and want is not None:
             got = {k: read_counts()[k] for k in want}
             check(got == want, f"{tag}: launches {got}, expected {want}")
-        params = trainer.state.params
+        params = trainer.state.trained  # every parameter, or the adapters alone
         qkv = [p for name, p in trainer.student.named_parameters() if ".attn.qkv." in name]
         runs[dev] = ({k: float(v) for k, v in metrics.items() if k != "teacher_idx"},
                      torch.cat([p.detach().reshape(-1).cpu() for p in params]),
@@ -1869,10 +1890,262 @@ def phase_register_family(images, qims) -> dict:
     return dict(out, giant=giant, qgiant=qgiant, trainer=trainer)
 
 
+# ---------------------------------------------------------------- phase 19
+# path 8: the two-view step over an image folder (IMAGES_N seeded 480 x 640
+# PNGs; the split leaves no full validation batch), and adapter-only
+# training with LoRA (rank ADAPTER_RANK) on the ViT-B student's qkv and proj
+# and SSF at its four taps
+IMAGES_N, ADAPTER_RANK = 40, 8
+
+
+def expected_two_view_counts(batch: int, chunk: int = 8) -> dict:
+    """Per step of the image-folder path: path 2's step with one more
+    student forward and backward (the global view's)."""
+    want = expected_step_counts(batch, chunk)
+    s = model_config(ARCH).encoder.depth
+    return dict(want, attention=want["attention"] + s, attention_bwd=want["attention_bwd"] + s)
+
+
+def adapter_student():
+    cfg = model_config(ARCH)
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, lora_rank=ADAPTER_RANK, use_ssf=True))
+
+
+def steps_with_counts(tag: str, trainer: Trainer, batches, steps: int, want: dict) -> list:
+    """``steps`` steps of ``trainer`` from its state on, every launch count
+    set to 0 just before and read after each step: each step's launches
+    equal ``want``, its losses and gradient norm are finite. Returns the
+    metrics of each step and the last step's launches."""
+    seen, last, per_step = [], {}, []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now = read_counts()
+        per = {k: now[k] - last.get(k, 0) for k in now}
+        last.update(now)
+        vals = {k: float(v) for k, v in metrics.items() if k != "teacher_idx"}
+        seen.append(vals)
+        per_step.append(per)
+        log(f"[{tag}] step {step}: {json.dumps({k: round(v, 5) for k, v in vals.items()})} "
+            f"launches {per}")
+        check(per == want, f"{tag} step {step}: launches {per}, expected {want}")
+        check(all(np.isfinite(v) for v in vals.values()), f"{tag} step {step}: non-finite")
+
+    reset_counts()
+    trainer.run(batches, max_steps=int(trainer.state.step) + steps, on_step=on_step)
+    torch.cuda.synchronize()
+    check(len(seen) == steps, f"{tag}: {len(seen)} steps ran")
+    return seen, per_step[-1]
+
+
+def step_times(steps: dict, batch: int) -> dict:
+    """Each ``steps[name]()`` (one train step on device-resident images)
+    timed with CUDA events in A B B A order over the names, 3 steps a
+    window after one warm-up: per name the median window, the windows, and
+    the peak memory of the card (every model of the run is resident) and
+    its excess over what was allocated before the window (the step's own
+    working set)."""
+    order = list(steps) + list(steps)[::-1]
+    windows = {name: [] for name in steps}
+    peaks = {name: [0.0, 0.0] for name in steps}
+    for name in order:
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        windows[name].append(cuda_ms(steps[name], iters=3, warmup=1))
+        peak = torch.cuda.max_memory_allocated()
+        peaks[name] = [max(peaks[name][0], peak / 1e9),
+                       max(peaks[name][1], (peak - resident) / 1e9)]
+    return {name: {"step_ms": statistics.median(w), "step_ms_windows": w,
+                   "images_per_s": batch * 1e3 / statistics.median(w),
+                   "peak_memory_gb": peaks[name][0], "step_working_set_gb": peaks[name][1]}
+            for name, w in windows.items()}
+
+
+def run_cli(tag: str, argv: list[str], want_per_step: dict, steps: int = 2) -> dict:
+    """``cli.train`` on the card for ``steps`` steps at bs2 392^2 with the
+    counts set to 0 just before and read just after: launches ``steps``
+    times ``want_per_step``, finite losses. Returns the history."""
+    from distill_any_depth_tpu_torch.cli import train as train_cli
+
+    reset_counts()
+    t0 = time.time()
+    history = train_cli.main(["--device", "cuda", "--batch_size", "2", "--num_iterations",
+                              str(steps), "--image_size", str(RES), "--use_hdn_loss",
+                              "--log_interval", "1", "--checkpoint_interval", "0", *argv])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[{tag}] cli.train {' '.join(argv)}: {time.time() - t0:.1f} s, history {history}, "
+        f"launches {counts}")
+    check(counts == {k: steps * v for k, v in want_per_step.items()},
+          f"{tag}: launches {counts}, expected {steps} x {want_per_step}")
+    check(len(history["lr"]) == steps and all(np.isfinite(history["train_loss"])),
+          f"{tag}: history {history}")
+    return history
+
+
+def phase_images_and_adapters(trainer: Trainer) -> dict:
+    """Main path 8: the image-folder two-view step and adapter-only
+    training (``Trainer`` at bs16 392^2 bf16 under the ViT-L teacher, each
+    beside ``trainer``'s, path 2's, step), their CLI flags, device
+    preprocessing, the profiler and the visualisation. ``trainer``'s
+    teacher is saved once and every Trainer here loads it
+    (``--teacher_checkpoints``) rather than seeding a ViT-L again."""
+    import cv2
+
+    from distill_any_depth_tpu_torch.data.images import ImageFolderDataset
+    from distill_any_depth_tpu_torch.models.adapters import adapter_parameters, is_adapter_name
+    from distill_any_depth_tpu_torch.train import loop as train_loop
+    from distill_any_depth_tpu_torch.utils import checkpoint as ckpt_io
+    from distill_any_depth_tpu_torch.utils.profiling import TRACE_FILE
+
+    t_phase = time.time()
+    out = {}
+    OUT.mkdir(parents=True, exist_ok=True)
+    teacher_file = OUT / "path8_teacher.safetensors"
+    ckpt_io.save_safetensors(str(teacher_file), trainer.teachers[0])
+    with_teacher = ["--teacher_checkpoints", str(teacher_file)]
+    folder = OUT / "images_folder"
+    folder.mkdir(parents=True, exist_ok=True)
+    for i, im in enumerate(synthetic_images(IMAGES_N, seed=8)):
+        cv2.imwrite(str(folder / f"{i:03d}.png"), cv2.cvtColor(im, cv2.COLOR_RGB2BGR))
+    base = dict(student=model_config(ARCH), teachers=(TEACHER,), batch_size=TRAIN_BATCH,
+                image_size=RES, teacher_checkpoints=(str(teacher_file),), log_interval=10 ** 6,
+                visualize_interval=0, checkpoint_interval=0)
+    xs = torch.from_numpy(train_images(2 * TRAIN_BATCH, seed=3)).cuda().permute(0, 3, 1, 2)
+    xg, xl = xs[:TRAIN_BATCH], xs[TRAIN_BATCH:]
+
+    # the two-view step: the image folder through its dataset and batches,
+    # as train_images() reads them (no full validation batch among 40)
+    cfg = TrainConfig(**base, output_dir=str(OUT / "train_images"))
+    itrainer = Trainer(cfg, "cuda")
+    ds = ImageFolderDataset(str(folder), global_size=RES, local_size=RES,
+                            min_local_crop=min(384, RES), seed=cfg.seed)
+    watched = itrainer.student.pretrained.blocks[0].attn.qkv.weight
+    before = watched.detach().clone()
+    metrics, out["two_view_counts"] = steps_with_counts(
+        "images", itrainer,
+        lambda epoch: train_loop.image_batches(ds, range(len(ds)), TRAIN_BATCH, cfg.seed + epoch),
+        TRAIN_STEPS, expected_two_view_counts(TRAIN_BATCH, cfg.teacher_chunk))
+    moved = (watched.detach() - before).abs().max().item()
+    check(moved > 0, "images: the student's parameters did not move")
+    check(all(m["lg"] > 0 for m in metrics), "images: LG is 0 on two views")
+    times = step_times({"shared_view": lambda: trainer.train_step(trainer.state, 0, xg, xg),
+                        "two_view": lambda: itrainer.train_step(itrainer.state, 0, xg, xl)},
+                       TRAIN_BATCH)
+    log(f"[images] bs{TRAIN_BATCH} {RES}^2 step: {json.dumps(times)}")
+    out["two_view_step"], out["shared_view_step"] = times["two_view"], times["shared_view"]
+    del itrainer
+    torch.cuda.empty_cache()
+    run_cli("images cli", ["--data_mode", "images", "--dataset_dir", str(folder),
+                           "--output_dir", str(OUT / "train_images_cli"), *with_teacher],
+            expected_two_view_counts(2))
+
+    # adapter-only: LoRA + SSF on the student, everything else frozen
+    cfg = TrainConfig(**dict(base, student=adapter_student()), adapter_only=True,
+                      output_dir=str(OUT / "train_adapters"))
+    atrainer = Trainer(cfg, "cuda")
+    student = atrainer.student
+    frozen = {n: p.detach().clone() for n, p in student.named_parameters()
+              if not is_adapter_name(n)}
+    adapters = [p.detach().clone() for p in adapter_parameters(student)]
+    images = train_images(TRAIN_BATCH * TRAIN_STEPS, seed=1)
+    _, out["adapter_counts"] = steps_with_counts("adapters", atrainer,
+                      lambda epoch: ({"image": images[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]}
+                                     for i in range(TRAIN_STEPS)),
+                      TRAIN_STEPS, expected_step_counts(TRAIN_BATCH, cfg.teacher_chunk))
+    still = all(torch.equal(p.detach(), frozen[n]) for n, p in student.named_parameters()
+                if n in frozen)
+    n_moved = sum(not torch.equal(p.detach(), a)
+                  for p, a in zip(adapter_parameters(student), adapters))
+    log(f"[adapters] {len(frozen)} frozen tensors bit-equal after {TRAIN_STEPS} steps: {still}; "
+        f"{n_moved} of {len(adapters)} adapter tensors moved "
+        f"({sum(p.numel() for p in adapters) / 1e6:.3f} M adapter parameters)")
+    check(still, "adapters: a frozen parameter changed")
+    check(n_moved == len(adapters), "adapters: an adapter parameter did not move")
+    loaded = create_model(cfg.student, dtype=torch.bfloat16, device="cuda", seed=None,
+                          fused_tail=False)
+    ckpt_io.load_state_dict_file(loaded, str(OUT / "train_adapters" / "student_final.safetensors"))
+    same = all(torch.equal(a, b) for a, b in zip(loaded.parameters(), student.parameters()))
+    with torch.no_grad():
+        same_fwd = torch.equal(loaded(xg[:2])[0], student(xg[:2])[0])
+    log(f"[adapters] student_final read back: parameters {same}, bs2 forward {same_fwd} "
+        f"(bit for bit)")
+    check(same and same_fwd, "adapters: student_final does not give the trained model")
+    del loaded
+    times = step_times({"full": lambda: trainer.train_step(trainer.state, 0, xg, xg),
+                        "adapter_only": lambda: atrainer.train_step(atrainer.state, 0, xg, xg)},
+                       TRAIN_BATCH)
+    log(f"[adapters] bs{TRAIN_BATCH} {RES}^2 step: {json.dumps(times)}")
+    out["adapter_only_step"], out["full_step"] = times["adapter_only"], times["full"]
+    del atrainer, student
+    torch.cuda.empty_cache()
+    fp32 = TrainConfig(**dict(base, student=adapter_student(), batch_size=2), adapter_only=True,
+                       student_compute_dtype="float32", teacher_dtype="float32",
+                       output_dir=str(OUT / "train_adapters_fp32"))
+    out["adapter_fp32_vs_cpu"] = step_vs_cpu("adapter fp32 step", fp32, train_images(2, seed=2),
+                                             FP32_STEP_TOL)
+    run_cli("adapters cli", ["--dataset_dir", "data/smoke", "--lora_rank", str(ADAPTER_RANK),
+                             "--use_ssf", "--adapter_only",
+                             "--output_dir", str(OUT / "train_adapters_cli"), *with_teacher],
+            expected_step_counts(2))
+
+    # device preprocessing: the uint8 frames reach the card as they are
+    seen = []
+    resize = train_loop.preprocess_on_device
+
+    def recorded(x, *args, **kwargs):
+        seen.append((x.dtype, x.device.type, tuple(x.shape)))
+        return resize(x, *args, **kwargs)
+
+    train_loop.preprocess_on_device = recorded
+    try:
+        run_cli("device_preprocess cli", ["--dataset_dir", "data/smoke", "--device_preprocess",
+                                          "--output_dir", str(OUT / "train_device_prep"),
+                                          *with_teacher], expected_step_counts(2))
+    finally:
+        train_loop.preprocess_on_device = resize
+    log(f"[device_preprocess] inputs of the device resize: {seen}")
+    check(len(seen) == 2 and all(s == (torch.uint8, "cuda", (2, 120, 160, 3)) for s in seen),
+          f"device_preprocess: the batches did not reach the card as uint8 frames: {seen}")
+
+    # the profiler: a Chrome trace of the first steps that names kernel 1
+    prof = OUT / "train_profile"
+    run_cli("profile cli", ["--dataset_dir", "data/smoke", "--profile_dir", str(prof / "trace"),
+                            "--output_dir", str(prof), *with_teacher], expected_step_counts(2))
+    trace_file = prof / "trace" / TRACE_FILE
+    text = trace_file.read_text() if trace_file.exists() else ""
+    out["trace_mb"] = len(text) / 1e6
+    log(f"[profile] {trace_file}: {out['trace_mb']:.1f} MB, names packed_attn_wgmma "
+        f"{text.count('packed_attn_wgmma')} times")
+    check("packed_attn_wgmma" in text, "profile: the trace does not name kernel 1")
+    del text
+
+    # the visualisation: the panels every step, the curves at the end (each
+    # step's drawing runs a student and a teacher forward)
+    vis = OUT / "train_visualize"
+    s, t = model_config(ARCH).encoder.depth, model_config(TEACHER).encoder.depth
+    want = expected_step_counts(2)
+    run_cli("visualize cli", ["--dataset_dir", "data/smoke", "--visualize_interval", "1",
+                              "--output_dir", str(vis), *with_teacher],
+            dict(want, attention=want["attention"] + s + t, tail=want["tail"] + 1))
+    files = [vis / "visualizations" / f"depth_step_{k}.png" for k in (1, 2)] + [
+        vis / "plots" / "loss_curves.png", vis / "plots" / "lr_schedule.png"]
+    shapes = {f.name: getattr(cv2.imread(str(f)), "shape", None) for f in files}
+    log(f"[visualize] {json.dumps(shapes)}")
+    check(all(shapes.values()), f"visualize: files missing or unreadable: {shapes}")
+    teacher_file.unlink()
+    out["phase_s"] = time.time() - t_phase
+    log(f"[path 8] phase 19 passed in {out['phase_s']:.1f} s")
+    print(json.dumps({"path8": out, "gpu": gpu_line()}), flush=True)
+    return out
+
+
 # ---------------------------------------------------------------- phase 16
 def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts,
                  wtrain, qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, evals, path7,
-                 gen) -> None:
+                 path8, gen) -> None:
     kernels = []
     bf16 = torch.bfloat16
     runs = {"infer_forward": counts, "train_step": train_counts,
@@ -1884,7 +2157,9 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
                for k in ("nyu_float32", "nyu_bfloat16", "kitti_float32")},
             "vitg_forward": path7["counts"], "vitg_int8_pallas_forward": path7["int8_pallas_counts"],
             f"vitg_reg_pseudo_label_{GIANT_IMAGES}_images": path7["label_counts"],
-            "vitg_reg_teacher_train_step": path7["train_counts"]}
+            "vitg_reg_teacher_train_step": path7["train_counts"],
+            "two_view_train_step": path8["two_view_counts"],
+            "adapter_only_train_step": path8["adapter_counts"]}
 
     def entry(name, key, source, replaces, err, ms, plain, lib, flops, nbytes, launches=None,
               rate=PEAK_BF16_FLOPS, **extra):
@@ -2318,7 +2593,10 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
     print(json.dumps({"end_to_end": e2e, "train_step": train, "window": window,
                       "window_train": window_train, "pseudo_label": pseudo,
                       "int8_teacher_train_step": int8_train, "vitg": vitg,
-                      "vitg_reg_teacher_train_step": reg_train}), flush=True)
+                      "vitg_reg_teacher_train_step": reg_train,
+                      "path8": {k: path8[k] for k in ("two_view_step", "shared_view_step",
+                                                      "adapter_only_step", "full_step")}}),
+          flush=True)
 
 
 def main() -> None:
@@ -2348,8 +2626,9 @@ def main() -> None:
     qtrainer, qtrain_counts = phase_train("int8_pallas")
     evals = phase_checkpoints_and_eval(trainer, qplain)
     path7 = phase_register_family(images, qims)
+    path8 = phase_images_and_adapters(trainer)
     phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts, wtrain,
-                 qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, evals, path7, gen)
+                 qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, evals, path7, path8, gen)
     log(f"[smoke] all phases passed in {time.time() - t0:.1f} s")
     print(gpu_line(), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,7 @@ Run on a machine with a CUDA card:
 
     python -m distill_any_depth_tpu_torch.cli.profile_train [--out DIR]
         [--student_arch ARCH] [--image_size RES] [--teacher_quant none]
-        [--teacher ARCH]
+        [--teacher ARCH] [--two_views] [--adapters]
 
 It builds ``train.loop.Trainer`` at the configuration of the JAX package's
 ``bench.py`` train step by default (student ``depthanything-base``, teacher
@@ -13,7 +13,11 @@ stack, shared views, the teacher in bs8 chunks); ``--student_arch
 depthanything-base-window --image_size 518`` (or ``1036``) breaks down the
 windowed student's step instead; ``--teacher_quant int8_pallas`` runs the
 teacher's GEMMs through kernel 9; ``--teacher depthanything-giant-reg``
-breaks down the step under the ViT-g register teacher. It reports:
+breaks down the step under the ViT-g register teacher; ``--two_views``
+times the image-folder step (the student on a global and a local view);
+``--adapters`` the adapter-only step of ``cli.train --lora_rank 8 --use_ssf
+--adapter_only``. The pieces below are the shared-view step's in every
+case. It reports:
 
 - the pieces of the step timed alone with CUDA events on the same batch:
   the teacher forward, the student forward, the loss stack forward and
@@ -30,6 +34,7 @@ The step's wall time and steps/s are ``chip_smoke.py``'s to measure.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -40,6 +45,7 @@ import torch
 from distill_any_depth_tpu_torch.cli.profile_infer import busy_share, classify, cuda_ms
 
 ITERS, TOP = 5, 30  # steps traced, kernels listed
+ADAPTER_RANK = 8  # --adapters: LoRA rank 8 and SSF, adapter-only
 STUDENT, TEACHER, RES, BATCH = "depthanything-base", "depthanything-large", 392, 16
 
 
@@ -57,22 +63,30 @@ def main(argv=None) -> dict:
     p.add_argument("--image_size", type=int, default=RES)
     p.add_argument("--teacher_quant", default="none", choices=["none", "int8", "int8_pallas"])
     p.add_argument("--teacher", default=TEACHER)
+    p.add_argument("--two_views", action="store_true")
+    p.add_argument("--adapters", action="store_true")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
     arch, res, batch = args.student_arch, args.image_size, BATCH
 
-    cfg = TrainConfig(student=model_config(arch), teachers=(args.teacher,),
+    student_cfg = model_config(arch)
+    if args.adapters:
+        student_cfg = dataclasses.replace(student_cfg, encoder=dataclasses.replace(
+            student_cfg.encoder, lora_rank=ADAPTER_RANK, use_ssf=True))
+    cfg = TrainConfig(student=student_cfg, teachers=(args.teacher,),
                       batch_size=batch, image_size=res, log_interval=10 ** 6,
-                      teacher_quant=args.teacher_quant, output_dir=os.path.join(args.out, "train"))
+                      teacher_quant=args.teacher_quant, adapter_only=args.adapters,
+                      output_dir=os.path.join(args.out, "train"))
     trainer = Trainer(cfg, "cuda")
-    trainer._build_steps(views_shared=True)
+    trainer._build_steps(views_shared=not args.two_views)
     student, teacher, state = trainer.student, trainer.teachers[0], trainer.state
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(batch, 3, res, res, generator=gen, device="cuda")
+    x_global = torch.randn(batch, 3, res, res, generator=gen, device="cuda")
 
     def step():
-        trainer.train_step(state, 0, x, x)
+        trainer.train_step(state, 0, x_global if args.two_views else x, x)
 
     def teacher_fwd():
         with torch.no_grad():
@@ -124,8 +138,9 @@ def main(argv=None) -> dict:
             step()
         torch.cuda.synchronize()
     os.makedirs(args.out, exist_ok=True)
+    variant = ("_two_views" if args.two_views else "") + ("_adapters" if args.adapters else "")
     trace_path = os.path.join(
-        args.out, f"train_{arch}_{args.teacher}_{res}_bs{batch}_{args.teacher_quant}.json")
+        args.out, f"train_{arch}_{args.teacher}_{res}_bs{batch}_{args.teacher_quant}{variant}.json")
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
@@ -144,7 +159,7 @@ def main(argv=None) -> dict:
     report = {
         "device": torch.cuda.get_device_name(0),
         "student": arch, "teacher": args.teacher, "teacher_quant": args.teacher_quant, "res": res,
-        "batch": batch,
+        "batch": batch, "two_views": args.two_views, "adapters": args.adapters,
         "pieces_ms": times,
         "host_enqueue_ms_per_step": enqueue_ms, "device_drain_ms_after_enqueue": drain_ms,
         "traced_kernel_ms_per_step": sum(by_class.values()) / per_step,

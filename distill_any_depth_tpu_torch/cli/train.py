@@ -15,29 +15,32 @@ or ``int8_pallas`` runs the teachers' encoder GEMMs as dynamic W8A8 int8
 safetensors file; ``--checkpoint_interval`` (default 1000) writes
 ``student_checkpoint_{step}.safetensors`` and ``train_state/`` every that
 many steps; ``--resume DIR`` continues the run saved in ``DIR`` (its output
-directory or its ``train_state``). The flags of features not ported yet are
-accepted by name and refuse any value but their default: visualisation,
-the profiler, the dp/tp mesh, image-folder data, LoRA/SSF adapters and
-device preprocessing.
+directory or its ``train_state``). ``--data_mode images`` distils on an
+unlabeled folder of ``.jpg``/``.png`` files (``--dataset_dir``) with a
+global view and a random local crop of each (``train/loop.train_images``;
+the student runs on both views). ``--lora_rank R`` and ``--use_ssf`` add
+LoRA (on the student's attention qkv and proj) and SSF adapters to the
+student, and ``--adapter_only`` trains those alone. ``--device_preprocess``
+sends the decoded uint8 NYU frames to the device, which resizes and
+normalizes them. ``--profile_dir DIR`` writes a ``torch.profiler`` trace of
+the first 3 steps to ``DIR/trace.json``; ``--visualize_interval N`` (default
+500, 0 = never) draws the student's and the teacher's depth every N steps
+under ``visualizations/``, and the loss and LR curves are drawn under
+``plots/`` at the end. The mesh flags ``--dp`` and ``--tp`` are accepted by
+name and refuse any value but 1 (not ported yet).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 
 __all__ = ["argument_parser", "main"]
 
 # flag -> (its default, what is not ported)
 _NOT_PORTED = {
-    "visualize_interval": (0, "visualisation"),
-    "profile_dir": (None, "the profiler hook"),
     "dp": (1, "data parallelism"),
     "tp": (1, "tensor parallelism"),
-    "data_mode": ("nyu", "image-folder data"),
-    "lora_rank": (0, "LoRA adapters"),
-    "use_ssf": (False, "SSF adapters"),
-    "adapter_only": (False, "adapter-only training"),
-    "device_preprocess": (False, "device preprocessing"),
 }
 
 
@@ -84,13 +87,29 @@ def argument_parser() -> argparse.ArgumentParser:
                    help="int8: the teachers' encoder GEMMs as dynamic W8A8 int8 (plain "
                         "PyTorch around torch._int_mm); int8_pallas: the same through the "
                         "W8A8 kernel, which quantizes activations inside the kernel")
+    p.add_argument("--data_mode", default="nyu", choices=["nyu", "images"],
+                   help="'nyu' CSV pairs, or 'images': an unlabeled folder with a global "
+                        "view and a random local crop of each image")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of the first 3 steps to "
+                        "PROFILE_DIR/trace.json")
+    p.add_argument("--visualize_interval", type=int, default=500,
+                   help="draw the student's and the teacher's depth every this many steps "
+                        "(0 = never)")
+    p.add_argument("--lora_rank", type=int, default=0,
+                   help="LoRA rank on the student's attention qkv/proj (0 = off)")
+    p.add_argument("--use_ssf", action="store_true",
+                   help="SSF scale/shift adapters on the student")
+    p.add_argument("--adapter_only", action="store_true",
+                   help="train only the student's LoRA/SSF adapters; the rest stays frozen")
+    p.add_argument("--device_preprocess", action="store_true",
+                   help="send the decoded uint8 NYU frames to the device and resize and "
+                        "normalize them there")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--debug", action="store_true")
     for flag, (default, what) in _NOT_PORTED.items():
-        kw = {"action": "store_true"} if default is False else {"default": default}
-        if isinstance(default, int) and default is not False:
-            kw["type"] = int
-        p.add_argument(f"--{flag}", help=f"not ported yet ({what}): only the default", **kw)
+        p.add_argument(f"--{flag}", type=int, default=default,
+                       help=f"not ported yet ({what}): only {default}")
     return p
 
 
@@ -101,7 +120,7 @@ def main(args=None) -> dict:
         TrainConfig,
         model_config,
     )
-    from distill_any_depth_tpu_torch.train.loop import train_nyu
+    from distill_any_depth_tpu_torch.train.loop import train_images, train_nyu
 
     if args is None or isinstance(args, list):
         args = argument_parser().parse_args(args)
@@ -111,9 +130,13 @@ def main(args=None) -> dict:
                                       f"package yet")
     logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO)
 
+    student = model_config(args.student_arch)
+    if args.lora_rank or args.use_ssf:
+        student = dataclasses.replace(student, encoder=dataclasses.replace(
+            student.encoder, lora_rank=args.lora_rank, use_ssf=args.use_ssf))
     total_steps = args.num_iterations or args.num_epochs * 1000
     cfg = TrainConfig(
-        student=model_config(args.student_arch),
+        student=student,
         teachers=tuple(args.teacher_models),
         teacher_checkpoints=tuple(args.teacher_checkpoints),
         loss=LossConfig(
@@ -140,8 +163,12 @@ def main(args=None) -> dict:
         dataset_dir=args.dataset_dir,
         teacher_dtype=args.teacher_dtype,
         teacher_quant=args.teacher_quant,
+        visualize_interval=args.visualize_interval,
+        device_preprocess=args.device_preprocess,
+        adapter_only=args.adapter_only,
     )
-    return train_nyu(cfg, device=args.device, resume=args.resume)
+    run = train_images if args.data_mode == "images" else train_nyu
+    return run(cfg, device=args.device, resume=args.resume, profile_dir=args.profile_dir)
 
 
 if __name__ == "__main__":

@@ -6,10 +6,9 @@ the defaults are identical, so a preset name or a default config means the
 same network and the same training in both packages. Every preset of the
 JAX package is here, the DINOv2 register/SwiGLU family (``vitg``,
 ``vitl_reg``, ``vitg_reg``) included. Not fields here, because their
-features are not ported yet: the encoder's LoRA/SSF adapters, and the
-training fields of the native loader, the dp/tp mesh, remat, the attention
-implementation and device preprocessing (the training CLI refuses their
-flags).
+features are not ported yet: the training fields of the native loader, the
+dp/tp mesh, remat and the attention implementation (the training CLI
+refuses ``--dp`` and ``--tp``).
 """
 from __future__ import annotations
 
@@ -47,6 +46,10 @@ class EncoderConfig:
     # False: the taps are the blocks' pre-norm outputs (vit_giant2_reg's
     # evenly spaced multi_output taps); the final norm keeps its parameters
     tap_norm: bool = True
+    # parameter-efficient tuning (models/adapters): LoRA rank on the blocks'
+    # attention qkv/proj (0 = off) and SSF scale/shift adapters
+    lora_rank: int = 0
+    use_ssf: bool = False
 
 
 def _enc(name, dim, depth, heads, idx, **kw) -> EncoderConfig:
@@ -211,6 +214,15 @@ class TrainConfig:
     teacher_chunk: int = 8
     # bf16 student compute; parameters and optimizer state stay fp32
     student_compute_dtype: str = "bfloat16"
+    # depth panels of the student and the first teacher every this many
+    # steps (0 = never); the loss and LR curves are drawn at the end anyway
+    visualize_interval: int = 500
+    # NYU samples carry the decoded uint8 frame at its native size; the
+    # square resize and the ImageNet normalization run on the device
+    device_preprocess: bool = False
+    # train only the student's LoRA/SSF parameters (the student's encoder
+    # config must enable lora_rank or use_ssf); the rest stays frozen
+    adapter_only: bool = False
 
 
 def model_config(arch_name: str) -> ModelConfig:

@@ -7,8 +7,12 @@ depth /255 and uint16 /65535, ImageNet normalization, and a bounded retry
 on unreadable files. ``raw_255=True`` feeds the unnormalized 0-255 images
 (the reference loader's behaviour, for parity runs). Batches are NHWC
 float32 numpy, as in the JAX package; the train step moves them to the
-card. ``cv2`` is imported where an image is read. Not ported yet: the
-multi-process shards of an epoch.
+card. With ``device_preprocess`` the image is the decoded uint8 RGB frame
+at its native size (every frame of a batch must share it, as NYU's 640 x
+480 do) and the Trainer resizes and normalizes it on the device
+(``ops/preprocess``); the depth is still resized on the host. ``cv2`` is
+imported where an image is read. Not ported yet: the multi-process shards
+of an epoch.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ def epoch_order(indices, seed: int = 0, shuffle: bool = True) -> np.ndarray:
 
 @dataclass
 class NYUSample:
-    image: np.ndarray  # [H, W, 3] float32
+    image: np.ndarray  # [H, W, 3] float32 (uint8 at its native size with device_preprocess)
     depth: np.ndarray  # [H, W] float32 in [0, 1]
     rgb_path: str
 
@@ -43,10 +47,12 @@ class NYUDataset:
     MAX_ATTEMPTS = 10  # reads of other random rows after an unreadable one
 
     def __init__(self, mode: str, dataset_dir: str = "data/nyu", image_size: int = 392,
-                 raw_255: bool = False, root_dir: str | None = None):
+                 raw_255: bool = False, root_dir: str | None = None,
+                 device_preprocess: bool = False):
         self.mode = mode
         self.image_size = image_size
         self.raw_255 = raw_255
+        self.device_preprocess = device_preprocess
         self.root = os.path.abspath(root_dir or os.getcwd())
         csv_name = f"nyu2_{mode}.csv"
         candidates = [os.path.join(dataset_dir, csv_name), os.path.join("data", csv_name),
@@ -71,7 +77,8 @@ class NYUDataset:
         if rgb is None:
             raise FileNotFoundError(rgb_path)
         rgb = cv2.cvtColor(rgb, cv2.COLOR_BGR2RGB)
-        rgb = cv2.resize(rgb, size, interpolation=cv2.INTER_CUBIC).astype(np.float32)
+        if not self.device_preprocess:
+            rgb = cv2.resize(rgb, size, interpolation=cv2.INTER_CUBIC).astype(np.float32)
         depth = cv2.imread(depth_path, cv2.IMREAD_UNCHANGED)
         if depth is None:
             raise FileNotFoundError(depth_path)
@@ -79,7 +86,10 @@ class NYUDataset:
         depth = depth.astype(np.float32) / (65535.0 if depth.dtype == np.uint16 else 255.0)
         if depth.ndim == 3:
             depth = depth[..., 0]
-        image = rgb if self.raw_255 else (rgb / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+        if self.device_preprocess or self.raw_255:
+            image = rgb  # uint8 at its native size, or unnormalized 0-255 floats
+        else:
+            image = (rgb / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
         return NYUSample(image=image, depth=depth, rgb_path=rgb_rel)
 
     def __getitem__(self, idx: int) -> NYUSample:

@@ -5,7 +5,8 @@ seeded with a ``torch.Generator`` on the CPU before the move to the device,
 so one seed gives the same weights on every device. It follows flax's
 initialisers in kind (truncated-normal LeCun kernels, SwiGLU's included,
 zero biases, LayerScale at ``init_values``, register tokens normal with std
-1e-6) but not in bits: for parity with the JAX package, load
+1e-6, LoRA's A normal with std 1/r and B zero, SSF the identity) but not in
+bits: for parity with the JAX package, load
 its params through ``utils/convert.params_from_jax``.
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from distill_any_depth_tpu_torch.configs import ModelConfig, model_config
+from distill_any_depth_tpu_torch.models.adapters import SSF, LoRALinear
 from distill_any_depth_tpu_torch.models.dpt import DepthModel
 from distill_any_depth_tpu_torch.models.vit import DinoViT, LayerScale
 
@@ -74,8 +76,8 @@ def init_params(model: nn.Module, seed: int = 0) -> None:
                 m.cls_token.normal_(0.0, 1e-6, generator=gen)
             if m.register_tokens is not None:
                 m.register_tokens.normal_(0.0, 1e-6, generator=gen)
-        elif isinstance(m, LayerScale):
-            pass  # keeps init_values
+        elif isinstance(m, (LayerScale, SSF)):
+            pass  # keeps init_values; SSF keeps the identity
         elif isinstance(m, nn.LayerNorm):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
@@ -92,3 +94,8 @@ def init_params(model: nn.Module, seed: int = 0) -> None:
                 nn.init.zeros_(m.bias)
     # the patch embedding follows the JAX package: truncated normal, std 0.02
     _trunc_normal(model.pretrained.patch_embed.proj.weight, 0.02, gen)
+    # LoRA last, so that a seed gives the same base weights with adapters
+    # as without
+    for m in model.modules():
+        if isinstance(m, LoRALinear):
+            m.reset_lora(gen)

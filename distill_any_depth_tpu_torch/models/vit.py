@@ -16,9 +16,13 @@ the attention kernels. ``quant`` ("int8" or "int8_pallas") runs the
 blocks' qkv, proj and FFN GEMMs (fc1 and fc2, or SwiGLU's w12 and w3) as
 dynamic W8A8 int8 GEMMs (``ops/quant.QuantLinear``, inference only; the
 patch embedding and the PEG conv stay unquantized, as in the JAX package).
-The JAX encoder's 8-row pad of the token count is a TPU tiling and is not
-ported: the attention kernels take any N. Not ported yet: the LoRA/SSF
-adapters.
+``cfg.lora_rank`` puts LoRA on the blocks' attention qkv and proj (a
+``models/adapters.LoRALinear`` in place of the plain or quantized layer, as
+the JAX ``LoRADense``; the qkv output with its update goes to the
+attention kernels as it is), and ``cfg.use_ssf`` an SSF adapter at the four
+taps ``ssf_norm1`` (after norm1), ``ssf_attn`` (after the attention),
+``ssf_norm2`` and ``ssf_mlp``. The JAX encoder's 8-row pad of the token
+count is a TPU tiling and is not ported: the attention kernels take any N.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distill_any_depth_tpu_torch.configs import EncoderConfig
+from distill_any_depth_tpu_torch.models.adapters import SSF, LoRALinear
 from distill_any_depth_tpu_torch.ops.attention import multi_head_attention_packed
 from distill_any_depth_tpu_torch.ops.flash_attention import banded_eligible
 from distill_any_depth_tpu_torch.ops.resize import resize_matrix
@@ -112,11 +117,15 @@ class SwiGLU(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, quant: str = "none"):
+    def __init__(self, dim: int, num_heads: int, quant: str = "none", lora_rank: int = 0):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = _linear(dim, 3 * dim, quant)
-        self.proj = _linear(dim, dim, quant)
+        if lora_rank > 0:
+            self.qkv = LoRALinear(dim, 3 * dim, lora_rank)
+            self.proj = LoRALinear(dim, dim, lora_rank)
+        else:
+            self.qkv = _linear(dim, 3 * dim, quant)
+            self.proj = _linear(dim, dim, quant)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor | None = None,
                 band: tuple[int, int] | None = None) -> torch.Tensor:
@@ -134,25 +143,29 @@ class LayerScale(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block with LayerScale (eval path)."""
+    """Pre-norm transformer block with LayerScale (eval path), optionally
+    with LoRA on the attention and SSF adapters at four taps."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, init_values: float | None,
-                 quant: str = "none", ffn: str = "mlp"):
+                 quant: str = "none", ffn: str = "mlp", lora_rank: int = 0,
+                 use_ssf: bool = False):
         super().__init__()
         if ffn not in ("mlp", "swiglu"):
             raise ValueError(f"ffn must be 'mlp' or 'swiglu', not {ffn!r}")
         self.norm1 = LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, quant)
+        self.attn = Attention(dim, num_heads, quant, lora_rank)
         self.ls1 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
         self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = (SwiGLU(dim, mlp_ratio, quant) if ffn == "swiglu"
                     else Mlp(dim, int(dim * mlp_ratio), quant))
         self.ls2 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
+        self.ssf_norm1, self.ssf_attn, self.ssf_norm2, self.ssf_mlp = (
+            SSF(dim) if use_ssf else nn.Identity() for _ in range(4))
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor | None = None,
                 band: tuple[int, int] | None = None) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x), bias, band))
-        return x + self.ls2(self.mlp(self.norm2(x)))
+        x = x + self.ls1(self.ssf_attn(self.attn(self.ssf_norm1(self.norm1(x)), bias, band)))
+        return x + self.ls2(self.ssf_mlp(self.mlp(self.ssf_norm2(self.norm2(x)))))
 
 
 def interp_pos_embed(pos_embed: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor,
@@ -215,7 +228,8 @@ class DinoViT(nn.Module):
                                 if cfg.num_register_tokens else None)
         self.pos_conv = PosConv(d) if cfg.use_pos_conv else None
         self.blocks = nn.ModuleList(
-            Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.init_values, quant, cfg.ffn)
+            Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.init_values, quant, cfg.ffn,
+                  cfg.lora_rank, cfg.use_ssf)
             for _ in range(cfg.depth)
         )
         self.norm = LayerNorm(d, eps=1e-6)

@@ -1,8 +1,9 @@
 """Distillation training loop for one process and one device.
 
 Counterpart of distill_any_depth_tpu/train/loop.py (``Trainer.__init__``,
-``run``, ``validate``, ``resume``, ``train_nyu``): epochs, ``max_steps``,
-the history, log lines, validation, early stopping, ``history.json`` and
+``run``, ``validate``, ``resume``, ``train_nyu``, ``train_images``): epochs,
+``max_steps``, the history, log lines (images/s over ``utils/profiling.
+StepTimer``'s window), validation, early stopping, ``history.json`` and
 the checkpoints: ``student_best`` on a validation improvement,
 ``student_checkpoint_{step}`` and the train state every
 ``checkpoint_interval`` steps, ``student_final`` and the train state at the
@@ -13,12 +14,19 @@ stopped in its data (``steps_per_epoch``). The loss stays on the device
 between log steps (a host read every step would stall the queue of
 launches); a save reads the parameters and nothing else.
 ``cfg.teacher_quant`` builds the teachers with int8 encoder GEMMs
-(``ops/quant``), as the JAX Trainer does. Not ported yet: visualisation,
-the profiler hook, the device mesh, adapters, the native loader and the
-image-folder mode.
+(``ops/quant``), as the JAX Trainer does; ``cfg.adapter_only`` trains the
+student's LoRA/SSF parameters alone (``train/state``). A batch of uint8
+images (``cfg.device_preprocess``) is copied to the device as it is and
+resized and normalized there (``ops/preprocess``). ``run(profile_dir=...)``
+traces the first ``PROFILE_STEPS`` steps (``utils/profiling.trace``); every
+``cfg.visualize_interval`` steps the student's and the first teacher's
+depth of the local view are drawn, and the loss and LR curves at the end
+(``utils/visualize``; a drawing error is logged and the run goes on). Not
+ported yet: the device mesh and the native loader.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import logging
@@ -30,15 +38,20 @@ import numpy as np
 import torch
 
 from distill_any_depth_tpu_torch.configs import TrainConfig, model_config
+from distill_any_depth_tpu_torch.data.images import ImageFolderDataset
 from distill_any_depth_tpu_torch.data.nyu import NYUDataset, iterate_batches
 from distill_any_depth_tpu_torch.models.factory import create_model, resolve_device
+from distill_any_depth_tpu_torch.ops.preprocess import preprocess_on_device
 from distill_any_depth_tpu_torch.train.state import create_train_state
 from distill_any_depth_tpu_torch.train.step import make_eval_loss_fn, make_train_step
 from distill_any_depth_tpu_torch.utils import checkpoint as ckpt_io
+from distill_any_depth_tpu_torch.utils.profiling import StepTimer, trace
 
 logger = logging.getLogger("distill_any_depth_tpu_torch.train")
 
-__all__ = ["Trainer", "train_nyu"]
+__all__ = ["PROFILE_STEPS", "Trainer", "train_nyu", "image_batches", "train_images"]
+
+PROFILE_STEPS = 3  # steps a run traces with profile_dir, as in the JAX Trainer
 
 
 class Trainer:
@@ -67,7 +80,7 @@ class Trainer:
             if path:
                 ckpt_io.load_state_dict_file(teacher, path)
             self.teachers.append(teacher.requires_grad_(False))
-        self.state = create_train_state(self.student, cfg.optimizer)
+        self.state = create_train_state(self.student, cfg.optimizer, cfg.adapter_only)
         # the steps are built on the first batch: whether it carries one view
         # or two decides whether the second student forward is skipped
         self.train_step = None
@@ -93,9 +106,13 @@ class Trainer:
 
     def _views(self, batch: dict):
         """Global and local views ``[B, 3, H, W]`` on the device: NYU batches
-        use one image for both."""
+        use one image for both. uint8 images go to the device as they are
+        and are resized to ``cfg.image_size`` and normalized there."""
         def put(x):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device).permute(0, 3, 1, 2)
+            x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            if x.dtype == torch.uint8:
+                return preprocess_on_device(x, self.cfg.image_size)
+            return x.permute(0, 3, 1, 2)
 
         if "global_image" in batch:
             return put(batch["global_image"]), put(batch["local_image"])
@@ -106,7 +123,7 @@ class Trainer:
             val_batches: Callable[[], Iterable[dict]] | None = None,
             max_steps: int | None = None,
             on_step: Callable[[int, dict], None] | None = None,
-            steps_per_epoch: int | None = None) -> dict:
+            steps_per_epoch: int | None = None, profile_dir: str | None = None) -> dict:
         """Train. ``train_batches(epoch)`` yields dicts with ``image`` (or
         ``global_image`` and ``local_image``), NHWC. ``on_step(step,
         metrics)`` is called after each step. Returns the history.
@@ -114,13 +131,15 @@ class Trainer:
         A run that starts at step s > 0 (after ``resume``) with
         ``steps_per_epoch`` starts at epoch ``s // steps_per_epoch`` and
         skips its first ``s % steps_per_epoch`` batches, so it continues the
-        saved run's data order; without it the data restarts at epoch 0."""
+        saved run's data order; without it the data restarts at epoch 0.
+        With ``profile_dir``, the first ``PROFILE_STEPS`` steps of the run
+        are traced into ``profile_dir/trace.json``."""
         cfg = self.cfg
         os.makedirs(cfg.output_dir, exist_ok=True)
         try:
             history = self._epochs(train_batches, val_batches,
                                    max_steps or (cfg.num_iterations or None), on_step,
-                                   steps_per_epoch)
+                                   steps_per_epoch, profile_dir)
         except Exception:
             self._save_weights("student_emergency")
             logger.exception("training failed; emergency checkpoint written")
@@ -129,9 +148,16 @@ class Trainer:
         ckpt_io.save_train_state(os.path.join(cfg.output_dir, "train_state"), self.state)
         with open(os.path.join(cfg.output_dir, "history.json"), "w") as f:
             json.dump(history, f)
+        try:
+            from distill_any_depth_tpu_torch.utils.visualize import plot_history
+
+            plot_history(history, cfg.output_dir)
+        except Exception:  # drawing must never fail a run
+            logger.exception("history plotting failed")
         return history
 
-    def _epochs(self, train_batches, val_batches, max_steps, on_step, steps_per_epoch) -> dict:
+    def _epochs(self, train_batches, val_batches, max_steps, on_step, steps_per_epoch,
+                profile_dir) -> dict:
         """``run``'s epochs, from the state's step on; returns the history."""
         cfg = self.cfg
         history = {"train_loss": [], "val_loss": [], "lr": []}
@@ -139,7 +165,7 @@ class Trainer:
         epochs_without_improvement = 0
         start = time.time()
         step = int(self.state.step)
-        images, t_images = 0, time.time()
+        timer = StepTimer()
         start_epoch, skip_batches = 0, 0
         if step > 0:
             if steps_per_epoch:
@@ -149,54 +175,77 @@ class Trainer:
             else:
                 logger.warning("resuming at step %d without steps_per_epoch: the optimizer "
                                "state is exact but the data order restarts at epoch 0", step)
-        for epoch in range(start_epoch, cfg.num_epochs):
-            epoch_loss, nbatches = None, 0
-            batches = train_batches(epoch)
-            if epoch == start_epoch and skip_batches:
-                batches = itertools.islice(batches, skip_batches, None)
-            for batch in batches:
+        tracing = contextlib.ExitStack()
+        if profile_dir:
+            tracing.enter_context(trace(profile_dir, self.device))
+        profile_until = step + PROFILE_STEPS
+        with tracing:
+            for epoch in range(start_epoch, cfg.num_epochs):
+                epoch_loss, nbatches = None, 0
+                batches = train_batches(epoch)
+                if epoch == start_epoch and skip_batches:
+                    batches = itertools.islice(batches, skip_batches, None)
+                for batch in batches:
+                    if max_steps and step >= max_steps:
+                        break
+                    if self.train_step is None:
+                        self._build_steps("global_image" not in batch)
+                    g, l = self._views(batch)
+                    metrics = self.train_step(self.state, self._teacher_idx(cfg.seed, step), g,
+                                              l)
+                    step += 1
+                    total = metrics["total"]
+                    epoch_loss = total if epoch_loss is None else epoch_loss + total
+                    nbatches += 1
+                    timer.tick(g.shape[0])
+                    if profile_dir and step == profile_until:
+                        tracing.close()
+                        logger.info("profiler trace written to %s", profile_dir)
+                    if on_step is not None:
+                        on_step(step, metrics)
+                    if step % cfg.log_interval == 0 or step == 1:
+                        lr_now = float(self.state.schedule(step))
+                        history["lr"].append(lr_now)
+                        comp = {k: round(float(v), 4) for k, v in metrics.items()
+                                if k != "teacher_idx"}
+                        logger.info("step %d | epoch %d | %s | lr %.2e | %.2f img/s | %.1fs",
+                                    step, epoch + 1, comp, lr_now, timer.images_per_sec,
+                                    time.time() - start)
+                    if cfg.checkpoint_interval and step % cfg.checkpoint_interval == 0:
+                        self._save_step_checkpoint(step)
+                    if cfg.visualize_interval and step % cfg.visualize_interval == 0:
+                        self._visualize(l, step)
+                if nbatches:
+                    history["train_loss"].append(float(epoch_loss) / nbatches)
                 if max_steps and step >= max_steps:
                     break
-                if self.train_step is None:
-                    self._build_steps("global_image" not in batch)
-                g, l = self._views(batch)
-                metrics = self.train_step(self.state, self._teacher_idx(cfg.seed, step), g, l)
-                step += 1
-                total = metrics["total"]
-                epoch_loss = total if epoch_loss is None else epoch_loss + total
-                nbatches += 1
-                images += g.shape[0]
-                if on_step is not None:
-                    on_step(step, metrics)
-                if step % cfg.log_interval == 0 or step == 1:
-                    lr_now = float(self.state.schedule(step))
-                    history["lr"].append(lr_now)
-                    comp = {k: round(float(v), 4) for k, v in metrics.items()
-                            if k != "teacher_idx"}
-                    rate = images / max(time.time() - t_images, 1e-9)
-                    logger.info("step %d | epoch %d | %s | lr %.2e | %.2f img/s | %.1fs",
-                                step, epoch + 1, comp, lr_now, rate, time.time() - start)
-                    images, t_images = 0, time.time()
-                if cfg.checkpoint_interval and step % cfg.checkpoint_interval == 0:
-                    self._save_step_checkpoint(step)
-            if nbatches:
-                history["train_loss"].append(float(epoch_loss) / nbatches)
-            if max_steps and step >= max_steps:
-                break
-            if val_batches is not None:
-                val = self.validate(val_batches())
-                history["val_loss"].append(val["total"])
-                logger.info("epoch %d validation: %s", epoch + 1, val)
-                if val["total"] < best_val:
-                    best_val = val["total"]
-                    epochs_without_improvement = 0
-                    self._save_weights("student_best")
-                else:
-                    epochs_without_improvement += 1
-                    if cfg.early_stopping and epochs_without_improvement >= cfg.early_stopping:
-                        logger.info("early stopping at epoch %d", epoch + 1)
-                        break
+                if val_batches is not None:
+                    val = self.validate(val_batches())
+                    history["val_loss"].append(val["total"])
+                    logger.info("epoch %d validation: %s", epoch + 1, val)
+                    if val["total"] < best_val:
+                        best_val = val["total"]
+                        epochs_without_improvement = 0
+                        self._save_weights("student_best")
+                    else:
+                        epochs_without_improvement += 1
+                        if cfg.early_stopping and epochs_without_improvement >= cfg.early_stopping:
+                            logger.info("early stopping at epoch %d", epoch + 1)
+                            break
         return history
+
+    @torch.no_grad()
+    def _visualize(self, local_image: torch.Tensor, step: int) -> None:
+        """The student's and the first teacher's depth of the local view,
+        drawn by ``utils/visualize``; an error is logged, not raised."""
+        try:
+            from distill_any_depth_tpu_torch.utils.visualize import visualize_depth_predictions
+
+            s_depth = self.student(local_image)[0].float().cpu().numpy()
+            t_depth = self.teachers[0](local_image)[0].float().cpu().numpy()
+            visualize_depth_predictions(s_depth, t_depth, step, self.cfg.output_dir)
+        except Exception:  # drawing must never fail a run
+            logger.exception("visualization failed")
 
     def _save_weights(self, name: str) -> str:
         path = os.path.join(self.cfg.output_dir, f"{name}.safetensors")
@@ -237,13 +286,16 @@ class Trainer:
 
 
 def train_nyu(cfg: TrainConfig, root_dir: str | None = None,
-              device: str | torch.device = "cuda", resume: str | None = None) -> dict:
+              device: str | torch.device = "cuda", resume: str | None = None,
+              profile_dir: str | None = None) -> dict:
     """NYU distillation run: a seeded train/validation split of
     ``nyu2_train.csv``, shuffled epochs, validation when it holds a full
     batch. ``resume`` (a run's output directory or its ``train_state``)
-    continues a saved run in its parameters, optimizer and data order."""
+    continues a saved run in its parameters, optimizer and data order;
+    ``profile_dir`` traces the first 3 steps. With ``cfg.device_preprocess``
+    the batches carry uint8 frames at their native size."""
     ds = NYUDataset("train", dataset_dir=cfg.dataset_dir, image_size=cfg.image_size,
-                    root_dir=root_dir)
+                    root_dir=root_dir, device_preprocess=cfg.device_preprocess)
     n_val = int(len(ds) * cfg.val_split)
     indices = list(range(len(ds)))
     np.random.RandomState(cfg.seed).shuffle(indices)
@@ -260,4 +312,53 @@ def train_nyu(cfg: TrainConfig, root_dir: str | None = None,
                      if len(val_idx) >= cfg.batch_size else None),
         max_steps=cfg.num_iterations or None,
         steps_per_epoch=len(train_idx) // cfg.batch_size,
+        profile_dir=profile_dir,
+    )
+
+
+def image_batches(ds: ImageFolderDataset, indices: list[int], batch_size: int,
+                  shuffle_seed: int | None = None):
+    """The full batches of ``indices`` (shuffled with ``shuffle_seed`` if
+    given) as ``{'global_image', 'local_image'}`` NHWC float32 numpy. Each
+    sample is read when its batch is asked for, on the caller's thread: the
+    dataset's crops follow the order of access."""
+    order = list(indices)
+    if shuffle_seed is not None:
+        np.random.RandomState(shuffle_seed).shuffle(order)
+    n = (len(order) // batch_size) * batch_size
+    for start in range(0, n, batch_size):
+        samples = [ds[i] for i in order[start:start + batch_size]]
+        yield {"global_image": np.stack([s.global_image for s in samples]),
+               "local_image": np.stack([s.local_image for s in samples])}
+
+
+def train_images(cfg: TrainConfig, image_dir: str | None = None, min_local_crop: int = 384,
+                 device: str | torch.device = "cuda", resume: str | None = None,
+                 profile_dir: str | None = None) -> dict:
+    """The paper's distillation on an unlabeled image folder
+    (``image_dir``, by default ``cfg.dataset_dir``): a global view and a
+    random local crop of each image, both ``cfg.image_size`` square, so the
+    step runs the student on both views. The split and the per-epoch
+    shuffles are those of ``train_nyu``; validation runs when it holds a
+    full batch. A resumed run is data-exact within its first epoch: the
+    dataset's crop generator starts afresh in every process, as in the JAX
+    package."""
+    ds = ImageFolderDataset(image_dir or cfg.dataset_dir, global_size=cfg.image_size,
+                            local_size=cfg.image_size,
+                            min_local_crop=min(min_local_crop, cfg.image_size), seed=cfg.seed)
+    n_val = int(len(ds) * cfg.val_split)
+    indices = list(range(len(ds)))
+    np.random.RandomState(cfg.seed).shuffle(indices)
+    val_idx, train_idx = indices[:n_val], indices[n_val:]
+    trainer = Trainer(cfg, device)
+    if resume:
+        trainer.resume(resume)
+    return trainer.run(
+        train_batches=lambda epoch: image_batches(ds, train_idx, cfg.batch_size,
+                                                  cfg.seed + epoch),
+        val_batches=((lambda: image_batches(ds, val_idx, cfg.batch_size))
+                     if n_val >= cfg.batch_size else None),
+        max_steps=cfg.num_iterations or None,
+        steps_per_epoch=len(train_idx) // cfg.batch_size,
+        profile_dir=profile_dir,
     )

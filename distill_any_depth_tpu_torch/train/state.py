@@ -17,6 +17,14 @@ Everything stays on the device, with no host read per step: Adam is the
 fused implementation, whose ``found_inf`` input skips the update and leaves
 its step count alone, and its learning rate is a tensor set from the
 schedule at the count of applied updates.
+
+Adapter-only training (the JAX Trainer's ``optax.multi_transform`` of the
+optimizer on the adapters and ``set_to_zero`` elsewhere): Adam, the decay,
+the clip and the guard own the LoRA/SSF parameters alone, and their norm is
+the adapters' norm; the frozen parameters are never updated. The state
+still holds every parameter, so that a resume is exact, and the frozen
+parameters keep their gradients: the reported gradient norm is, as in the
+JAX step, the global norm of every parameter's gradient.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import math
 import torch
 
 from distill_any_depth_tpu_torch.configs import OptimizerConfig
+from distill_any_depth_tpu_torch.models.adapters import adapter_parameters
 
 __all__ = ["TrainState", "make_lr_schedule", "make_optimizer", "create_train_state",
            "apply_gradients"]
@@ -70,9 +79,11 @@ def make_optimizer(params, cfg: OptimizerConfig) -> torch.optim.Adam:
 
 @dataclasses.dataclass
 class TrainState:
-    """The student's optimizer and the guard's counters, all on the device.
-    ``step`` counts train steps (skipped ones too), ``applied`` the updates
-    that were applied (the schedule's and Adam's count)."""
+    """The student's parameters, its optimizer and the guard's counters,
+    all on the device. ``params`` holds every parameter of the student, the
+    optimizer those it trains (``trained``). ``step`` counts train steps
+    (skipped ones too), ``applied`` the updates that were applied (the
+    schedule's and Adam's count)."""
 
     params: list
     optimizer: torch.optim.Adam
@@ -86,6 +97,10 @@ class TrainState:
     _COUNTERS = ("step", "applied", "notfinite_count", "last_norm")
     _ADAM = ("exp_avg", "exp_avg_sq", "step")
 
+    @property
+    def trained(self) -> list:
+        return self.optimizer.param_groups[0]["params"]
+
     def state_dict(self) -> dict:
         """CPU copies of the parameters, Adam's moments and step counts, the
         learning-rate tensor and the counters: what an exact resume needs
@@ -96,7 +111,7 @@ class TrainState:
             return t.detach().to("cpu", copy=True)
 
         return {"params": [cpu(p) for p in self.params],
-                "adam": [{k: cpu(opt.state[p][k]) for k in self._ADAM} if opt.state[p] else {}
+                "adam": [{k: cpu(opt.state[p][k]) for k in self._ADAM} if opt.state.get(p) else {}
                          for p in self.params],
                 "lr": cpu(opt.param_groups[0]["lr"]),
                 **{k: cpu(getattr(self, k)) for k in self._COUNTERS}}
@@ -114,7 +129,7 @@ class TrainState:
         for p, saved, adam in zip(self.params, state["params"], state["adam"]):
             p.copy_(saved)
             if not adam:
-                opt.state[p] = {}
+                opt.state.pop(p, None)
                 continue
             held = opt.state[p]
             for k in self._ADAM:
@@ -126,31 +141,51 @@ class TrainState:
             getattr(self, k).copy_(state[k])
 
 
-def create_train_state(model: torch.nn.Module, cfg: OptimizerConfig) -> TrainState:
+def create_train_state(model: torch.nn.Module, cfg: OptimizerConfig,
+                       adapter_only: bool = False) -> TrainState:
+    """The train state of ``model``: every parameter that requires a
+    gradient, with Adam on all of them or, with ``adapter_only``, on the
+    LoRA/SSF parameters alone (``ValueError`` if the model has none)."""
     params = [p for p in model.parameters() if p.requires_grad]
+    trained = params
+    if adapter_only:
+        trained = adapter_parameters(model)
+        if not trained:
+            raise ValueError("adapter_only=True but the student has no LoRA/SSF parameters: "
+                             "set lora_rank or use_ssf on its encoder config")
     dev = params[0].device
 
     def zero(dtype):
         return torch.zeros((), dtype=dtype, device=dev)
 
-    return TrainState(params, make_optimizer(params, cfg), make_lr_schedule(cfg), cfg,
+    return TrainState(params, make_optimizer(trained, cfg), make_lr_schedule(cfg), cfg,
                       zero(torch.int64), zero(torch.float32), zero(torch.int64),
                       zero(torch.float32))
 
 
+def _global_norm(tensors: list) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
 @torch.no_grad()
 def apply_gradients(state: TrainState) -> torch.Tensor:
-    """Clip, guard and apply the gradients held in the parameters' ``.grad``;
-    returns the unclipped global norm (a device scalar)."""
+    """Clip, guard and apply the gradients held in the trained parameters'
+    ``.grad``; returns the unclipped global norm of every parameter's
+    gradient (a device scalar), which is the clip's norm unless the state
+    trains the adapters alone."""
     cfg = state.cfg
-    for p in state.params:
+    trained = state.trained
+    for p in trained:
         if p.grad is None:
             # a parameter the loss does not reach (the windowed encoder's
             # pos-embed past the PE schedule): JAX differentiates it to 0,
             # and the L2 decay and Adam still move it
             p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in state.params]
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    grads = [p.grad for p in trained]
+    norm = _global_norm(grads)
+    reported = norm
+    if len(trained) < len(state.params):
+        reported = _global_norm([p.grad for p in state.params if p.grad is not None])
     if cfg.max_grad_norm and cfg.max_grad_norm > 0:
         torch._foreach_mul_(grads, cfg.max_grad_norm / torch.clamp(norm, min=cfg.max_grad_norm))
     opt = state.optimizer
@@ -162,4 +197,4 @@ def apply_gradients(state: TrainState) -> torch.Tensor:
     state.applied += 1.0 - skip
     state.step += 1
     state.last_norm = norm
-    return norm
+    return reported

@@ -63,10 +63,12 @@ def make_train_step(student: torch.nn.Module, teachers: Sequence[torch.nn.Module
     """``step(state, teacher_idx, global_image, local_image) -> metrics``:
     one update of ``state`` (which holds ``student``'s optimizer); images
     are ``[B, 3, H, W]`` on the student's device. ``metrics`` holds the
-    loss components, ``grad_norm`` (unclipped) and ``teacher_idx``."""
+    loss components, ``grad_norm`` (unclipped, over every parameter's
+    gradient, frozen ones included) and ``teacher_idx``."""
 
     def step(state: TrainState, teacher_idx: int, global_image, local_image) -> dict:
-        state.optimizer.zero_grad()
+        for p in state.params:
+            p.grad = None
         total, components = _loss_fn(student, teachers, loss_cfg, teacher_idx, global_image,
                                      local_image, views_shared, teacher_chunk)
         total.backward()

@@ -17,6 +17,13 @@ and loads and refuses the same files:
 - any other key the model does not hold, and any key it holds that the
   file lacks, raises ``KeyError``.
 
+Adapters (``models/adapters``) are written as the JAX package's
+``params_to_torch`` writes them and read back from the same layout: a
+block's ``lora_A`` as it is and its ``lora_B`` times ``LORA_B_FILE_SCALE``
+(the reference LoRALinear's convention), and an SSF parameter
+``pretrained.blocks.{i}.ssf_*.{gamma,beta}`` under
+``adapters.pretrained.blocks_{i}.ssf_*.{gamma,beta}``.
+
 The safetensors reader and writer are the port's own (no ``safetensors``
 package): an 8-byte little-endian header length, a JSON header mapping each
 name to ``{dtype, shape, data_offsets}`` (and an optional
@@ -37,9 +44,9 @@ from typing import Mapping
 
 import torch
 
-__all__ = ["normalize_keys", "load_state_dict", "load_state_dict_file", "read_safetensors",
-           "write_safetensors", "save_safetensors", "convert_checkpoint", "save_train_state",
-           "restore_train_state"]
+__all__ = ["LORA_B_FILE_SCALE", "reference_state", "normalize_keys", "load_state_dict",
+           "load_state_dict_file", "read_safetensors", "write_safetensors", "save_safetensors",
+           "convert_checkpoint", "save_train_state", "restore_train_state"]
 
 _CHUNKED = re.compile(r"^pretrained\.blocks\.0\.(\d+)\.")
 _UNUSED = re.compile(r"^(pretrained\.mask_token|depth_head\.scratch\.refinenet\d\.resConfUnit1\..+)$")
@@ -51,6 +58,11 @@ _DTYPES = {"I64": torch.int64, "F32": torch.float32, "I32": torch.int32,
 _NAMES = {v: k for k, v in _DTYPES.items()}
 _ORDER = {name: i for i, name in enumerate(_DTYPES)}
 _STATE_FILE = "state.pt"  # inside a train-state directory
+# a file's lora_B is the port's times 8: the reference LoRALinear scales its
+# update by alpha / r with alpha 1, the port (and the JAX package) with 8
+LORA_B_FILE_SCALE = 8.0
+_SSF_PORT = re.compile(r"^pretrained\.blocks\.(\d+)\.(ssf_\w+\.(?:gamma|beta))$")
+_SSF_FILE = re.compile(r"^adapters\.pretrained\.blocks_(\d+)\.(ssf_\w+\.(?:gamma|beta))$")
 
 
 def _little_endian() -> None:
@@ -120,21 +132,37 @@ def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor]) -> None:
     os.replace(tmp, path)
 
 
+def reference_state(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """``model``'s parameters in the reference layout, fp32: the key set
+    and values that JAX ``params_to_torch`` emits (buffers are left out)."""
+    out = {}
+    for k, p in model.named_parameters():
+        v = p.detach().float()
+        if k.endswith(".lora_B"):
+            v = v * LORA_B_FILE_SCALE
+        out[_SSF_PORT.sub(r"adapters.pretrained.blocks_\1.\2", k)] = v
+    return out
+
+
 def save_safetensors(path: str, model: torch.nn.Module) -> None:
-    """``model``'s weights as a reference-layout fp32 safetensors file: its
-    parameters under their names, the key set that JAX ``params_to_torch``
-    emits (buffers are not written)."""
-    write_safetensors(path, {k: p.detach().float() for k, p in model.named_parameters()})
+    """``model``'s weights as a reference-layout fp32 safetensors file
+    (``reference_state``)."""
+    write_safetensors(path, reference_state(model))
 
 
 def normalize_keys(state: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """``state`` with the reference's key variants mapped onto the
-    ``pretrained.blocks.{i}`` namespace."""
+    ``pretrained.blocks.{i}`` namespace, and the adapters onto the port's
+    parameters (``lora_B`` divided by ``LORA_B_FILE_SCALE``, the SSF keys
+    out of ``adapters.``)."""
     out = {}
     for k, v in state.items():
         if k.startswith("backbone."):
             k = "pretrained." + k[len("backbone."):]
         k = _CHUNKED.sub(r"pretrained.blocks.\1.", k)
+        k = _SSF_FILE.sub(r"pretrained.blocks.\1.\2", k)
+        if k.endswith(".lora_B"):
+            v = v / LORA_B_FILE_SCALE
         out[k] = v
     return out
 

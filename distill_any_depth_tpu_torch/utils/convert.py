@@ -16,7 +16,17 @@ numpy arrays, so the weights of one JAX model load into the port with
 - PatchExpand ``[I, k*k*O]`` ((kh, kw, o) order) -> ConvTranspose2d
   ``[I, O, k, k]``;
 - LayerNorm ``scale`` -> ``weight``; LayerScale ``ls{1,2}_gamma`` ->
-  ``ls{1,2}.gamma``.
+  ``ls{1,2}.gamma``;
+- the adapters as ``params_to_torch`` writes them: a block's LoRA
+  ``lora_a`` ``[in, r]`` -> ``lora_A`` ``[r, in]`` and ``lora_b`` ``[r,
+  out]`` -> ``lora_B`` ``[out, r]`` times 8 (the reference LoRALinear's
+  alpha 1 against the JAX package's 8: a power of two, so exact), and every
+  SSF parameter verbatim under ``adapters.<its JAX path>``.
+
+The result is the reference layout of a file, not the port's module state:
+``utils/checkpoint.load_state_dict`` loads it into a model (for a model
+without adapters the two are the same, and ``load_state_dict(strict=True)``
+takes it as it is).
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ import numpy as np
 import torch
 
 from distill_any_depth_tpu_torch.configs import ModelConfig
+from distill_any_depth_tpu_torch.utils.checkpoint import LORA_B_FILE_SCALE
 
 __all__ = ["params_from_jax"]
 
@@ -69,6 +80,10 @@ def _encoder_key(path: tuple[str, ...], v: np.ndarray, patch: int) -> tuple[str,
         if rest[0] in ("norm1", "norm2"):
             return f"{base}.{rest[0]}.{'weight' if rest[1] == 'scale' else 'bias'}", v
         mod = ".".join(rest[:-1])  # attn.qkv, attn.proj, mlp.fc1/fc2 or mlp.w12/w3
+        if rest[-1] == "lora_a":
+            return f"{base}.{mod}.lora_A", v.T
+        if rest[-1] == "lora_b":
+            return f"{base}.{mod}.lora_B", v.T * LORA_B_FILE_SCALE
         return (f"{base}.{mod}.weight", v.T) if rest[-1] == "kernel" else (f"{base}.{mod}.bias", v)
     raise KeyError(f"unmapped encoder param {'/'.join(path)}")
 
@@ -116,7 +131,9 @@ def params_from_jax(params: Mapping, cfg: ModelConfig) -> dict[str, torch.Tensor
     out: dict[str, torch.Tensor] = {}
     patch = cfg.encoder.patch_size
     for path, v in _flatten(params).items():
-        if path[0] == "pretrained":
+        if any(seg.startswith("ssf_") for seg in path):
+            key, arr = "adapters." + ".".join(path), v
+        elif path[0] == "pretrained":
             key, arr = _encoder_key(path[1:], v, patch)
         elif path[0] == "depth_head":
             key, arr = _head_key(path[1:], v)

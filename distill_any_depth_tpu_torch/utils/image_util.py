@@ -1,8 +1,10 @@
 """Depth visualization and file helpers used by the CLIs and the
 evaluation registry: the port's own copy of ``normalize_disparity``,
 ``colorize_depth_maps``, ``chw2hwc``, ``read_pfm`` and ``write_pfm`` from
-distill_any_depth_tpu/utils/image_util.py. The default colormap's table is
-the port's own, so the inference CLI runs where matplotlib is absent."""
+distill_any_depth_tpu/utils/image_util.py. The tables of the default
+colormap and of ``magma`` (the visualisation's error panels) are the port's
+own, so the CLIs and the training visualisation run where matplotlib is
+absent."""
 from __future__ import annotations
 
 import re
@@ -25,6 +27,14 @@ _SPECTRAL = ((0.6196078431372549, 0.00392156862745098, 0.25882352941176473),
              (0.19607843137254902, 0.5333333333333333, 0.7411764705882353),
              (0.3686274509803922, 0.30980392156862746, 0.6352941176470588))
 _LUT_SIZE = 256
+# matplotlib's "magma" at 17 of its 256 entries (0, 16, 32, ..., 239, 255):
+# linear interpolation between them stays within 0.01 of matplotlib's table
+_MAGMA = ((0.0015, 0.0005, 0.0139), (0.0396, 0.0311, 0.1335), (0.1131, 0.0655, 0.2768),
+          (0.2117, 0.0620, 0.4186), (0.3167, 0.0717, 0.4854), (0.4147, 0.1104, 0.5047),
+          (0.5128, 0.1482, 0.5076), (0.6136, 0.1818, 0.4985), (0.7164, 0.2150, 0.4753),
+          (0.8109, 0.2529, 0.4393), (0.8996, 0.3146, 0.3910), (0.9585, 0.4113, 0.3600),
+          (0.9857, 0.5281, 0.3794), (0.9958, 0.6463, 0.4414), (0.9970, 0.7624, 0.5288),
+          (0.9928, 0.8772, 0.6331), (0.9871, 0.9914, 0.7495))
 
 
 def _spectral_lut(reverse: bool) -> np.ndarray:
@@ -49,11 +59,18 @@ def _spectral_lut(reverse: bool) -> np.ndarray:
     return np.stack(lut, -1)
 
 
+def _magma_lut() -> np.ndarray:
+    """The ``[256, 3]`` table of ``magma`` from ``_MAGMA``."""
+    ctrl = np.array(_MAGMA)
+    at = np.round(np.linspace(0, _LUT_SIZE - 1, len(ctrl)))
+    return np.stack([np.interp(np.arange(_LUT_SIZE), at, ctrl[:, c]) for c in range(3)], -1)
+
+
 def colorize_depth_maps(depth_map, min_depth: float, max_depth: float,
                         cmap: str = "Spectral_r") -> np.ndarray:
     """Colorize ``[H, W]``, ``[B, H, W]`` or ``[B, 1, H, W]`` depth as
-    ``[B, 3, H, W]`` float in [0, 1]. ``Spectral`` and ``Spectral_r`` use
-    the port's copy of matplotlib's table; other maps need matplotlib."""
+    ``[B, 3, H, W]`` float in [0, 1]. ``Spectral``, ``Spectral_r`` and
+    ``magma`` use the port's tables; other maps need matplotlib."""
     depth = np.asarray(depth_map).astype(np.float32)
     if depth.ndim == 2:
         depth = depth[None]
@@ -63,12 +80,13 @@ def colorize_depth_maps(depth_map, min_depth: float, max_depth: float,
         raise ValueError(f"depth must be 2-, 3- or 4-D, got shape {depth.shape}")
     span = max(max_depth - min_depth, 1e-8)
     norm = np.clip((depth - min_depth) / span, 0, 1)
-    if cmap in ("Spectral", "Spectral_r"):
+    if cmap in ("Spectral", "Spectral_r", "magma"):
+        lut = _magma_lut() if cmap == "magma" else _spectral_lut(cmap.endswith("_r"))
         # matplotlib's float lookup: x * N truncated, 1.0 onto the last entry
         xa = norm * _LUT_SIZE
         xa[xa == _LUT_SIZE] = _LUT_SIZE - 1
         bad = np.isnan(xa)
-        colored = _spectral_lut(cmap.endswith("_r"))[np.where(bad, 0, xa).astype(int)]
+        colored = lut[np.where(bad, 0, xa).astype(int)]
         colored[bad] = 0.0  # matplotlib's "bad" color
     else:
         import matplotlib

@@ -14,14 +14,17 @@ the plain forward. Kernel 7 equals kernel 5 with the window bias bit for
 bit (out and lse), also with every logit below -60, and two calls of each
 agree bit for bit. The W8A8 GEMM (kernel 9) equals its plain version bit
 for bit: the same true divisions, an exact integer product, the same
-roundings in the dequant.
+roundings in the dequant. A two-view train step launches the kernels
+its two student forwards need, and an adapter-only step leaves every frozen
+parameter bit-equal.
 """
 import dataclasses
 
 import pytest
 import torch
 
-from distill_any_depth_tpu_torch.configs import model_config
+from distill_any_depth_tpu_torch.configs import LossConfig, OptimizerConfig, model_config
+from distill_any_depth_tpu_torch.models.adapters import adapter_parameters, is_adapter_name
 from distill_any_depth_tpu_torch.models.factory import create_model
 from distill_any_depth_tpu_torch.ops.dpt_tail import fused_dpt_tail, tail_reference
 from distill_any_depth_tpu_torch.ops.flash_attention import (
@@ -44,6 +47,8 @@ from distill_any_depth_tpu_torch.ops.window import local_window_bias, segment_bi
 from distill_any_depth_tpu_torch.ops.stats import _order_bits, kth_select, kth_select_reference
 from distill_any_depth_tpu_torch.ops.quant import quantize_weight
 from distill_any_depth_tpu_torch.ops.quant_matmul import w8a8_matmul, w8a8_reference
+from distill_any_depth_tpu_torch.train.state import create_train_state
+from distill_any_depth_tpu_torch.train.step import make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -615,3 +620,64 @@ def test_register_swiglu_model_runs_kernels(cuda_device):
     assert feat.shape == (2, 49, 192) and torch.isfinite(depth).all()
     corr = torch.corrcoef(torch.stack([depth.float().flatten(), ref.float().flatten()]))[0, 1]
     assert corr > 0.99
+
+
+def _tiny_train_pair(cuda_device, lora_rank=0, use_ssf=False):
+    """A tiny bf16 student (plain tail, optionally with LoRA and SSF) and a
+    wider teacher, as the Trainer builds them."""
+    base = model_config("depthanything-base")
+
+    def cfg(dim, heads, **enc_kw):
+        enc = dataclasses.replace(base.encoder, embed_dim=dim, depth=2, num_heads=heads,
+                                  out_indices=(0, 0, 1, 1), **enc_kw)
+        return dataclasses.replace(base, encoder=enc, features=64,
+                                   out_channels=(32, 64, 96, 128))
+
+    student = create_model(cfg(128, 2, lora_rank=lora_rank, use_ssf=use_ssf),
+                           dtype=torch.bfloat16, device=cuda_device, fused_tail=False)
+    teacher = create_model(dataclasses.replace(cfg(192, 3), trailing_head_relu=False,
+                                               interp_to_input=True),
+                           dtype=torch.bfloat16, device=cuda_device, seed=1)
+    return student, teacher.requires_grad_(False)
+
+
+def test_two_view_step_launches(cuda_device):
+    """A two-view step (image-folder batches) runs the student forward on
+    both views: kernel 1 in the teacher's 2 blocks and twice in the
+    student's 2, kernel 3 in both student backwards, kernel 2 once (the
+    teacher's tail) and kernel 4 twice (the HDN medians); LG is non-zero."""
+    student, teacher = _tiny_train_pair(cuda_device)
+    state = create_train_state(student, OptimizerConfig(lr=1e-4, warmup_steps=0))
+    step = make_train_step(student, [teacher], LossConfig(), views_shared=False)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    g, l = (torch.randn(2, 3, 98, 98, generator=gen, device=cuda_device) for _ in range(2))
+    fns = (mha_flash_packed, packed_attention_backward, fused_dpt_tail, kth_select)
+    for _ in range(2):
+        before = [f.launches for f in fns]
+        metrics = step(state, 0, g, l)
+        torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip(fns, before)] == [2 + 2 * 2, 2 * 2, 1, 2]
+        assert float(metrics["lg"]) > 0 and torch.isfinite(metrics["grad_norm"])
+
+
+def test_adapter_only_step_keeps_frozen_parameters(cuda_device):
+    """Adapter-only steps on the card in bf16: every frozen parameter is
+    bit-equal after two steps, every adapter moved, and the reported
+    gradient norm (every gradient) exceeds the adapters' own."""
+    student, teacher = _tiny_train_pair(cuda_device, lora_rank=4, use_ssf=True)
+    state = create_train_state(student, OptimizerConfig(lr=1e-3, warmup_steps=0,
+                                                        schedule="none"), adapter_only=True)
+    step = make_train_step(student, [teacher], LossConfig(), views_shared=True)
+    frozen = {n: p.detach().clone() for n, p in student.named_parameters()
+              if not is_adapter_name(n)}
+    adapters = [p.detach().clone() for p in adapter_parameters(student)]
+    x = torch.rand(2, 3, 98, 98, generator=torch.Generator(device=cuda_device).manual_seed(1),
+                   device=cuda_device)
+    for _ in range(2):
+        metrics = step(state, 0, x, x)
+        assert float(metrics["grad_norm"]) > float(state.last_norm)
+    for name, p in student.named_parameters():
+        if name in frozen:
+            assert torch.equal(p.detach(), frozen[name]), name
+    assert all(not torch.equal(p.detach(), a)
+               for p, a in zip(adapter_parameters(student), adapters))
