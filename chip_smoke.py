@@ -137,7 +137,30 @@ Phases, each of which fails the run if it fails:
    resize as they are), with ``--profile_dir`` (the Chrome trace names
    kernel 1's ``packed_attn_wgmma``) and with ``--visualize_interval 1``
    (the panels of both steps and the loss and LR plots; a student and a
-   teacher forward a step more).
+   teacher forward a step more);
+20. main path 9, data and tensor parallelism (run between phases 19 and
+   16; the card machine has one card, so nothing here is a multi-card
+   figure): ``parallel/launch.initialize_distributed`` on ``cuda:0`` as a
+   one-rank NCCL group, and the port's collectives over it on the card
+   (the gradient buckets of phase 7's student, f and g with their
+   backward, the MAX reduce, the gather of the student's state: each the
+   identity over one rank), timed; kernels 1 and 3 at a tp=2 rank's heads
+   (6 and 8 of ViT-B's 12 and ViT-L's 16, bs4 392^2) against their plain
+   versions; then two ranks sharing the card over gloo (NCCL refuses two
+   ranks of one communicator on one device), each its own process under
+   ``torchrun`` (this script with ``--path9-rank``): 3 ``Trainer`` steps
+   with ``dp=2`` (path 2's bs16, 8 rows a rank: path 2's launches a rank,
+   the ranks' parameters bit-equal after 3 steps) and with ``tp=2`` (bs4:
+   kernel 1 at 6 and 8 heads, kernel 3 at 6; the replicated parameters
+   bit-equal across the ranks after 3 steps), each step's time and each
+   rank's peak memory, the gloo gradient reduction and f/g timed; the fp32
+   bs2 ``dp=2`` and ``tp=2`` steps against one process with phase 8's
+   limits (tp=2 on a loss without order statistics, as phase 12); the tp=2 ``student_final`` in a one-process layout, read back
+   into one process and held against the two-rank forward; the
+   ``int8_pallas`` ViT-L teacher under tp=2 (96 launches of kernel 9, the
+   row-parallel layers at the global scales) against the one-process int8
+   depth (corr >= 0.99); ``cli.infer`` and ``cli.pseudo_label`` on the two
+   ranks, whose files' union equals one process's byte for byte.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1280,17 +1303,29 @@ def step_vs_cpu(tag: str, cfg: TrainConfig, x: np.ndarray, tol: dict, want=None)
             f" in {time.time() - t0:.1f} s")
         del trainer
     (mc, pc, gc, qc), (mr, pr, gr, qr) = runs["cuda"], runs["cpu"]
+    extra = {}
+    if "qkv grad rel L2" in tol:
+        extra["qkv grad rel L2"] = ((qc - qr).norm() / qr.norm()).item()
+    return compare_steps(f"[{tag}] card vs CPU", (mc, pc, gc), (mr, pr, gr), tol,
+                         cfg.optimizer.lr, extra)
+
+
+def compare_steps(label: str, got: tuple, ref: tuple, tol: dict, lr: float,
+                  extra: dict | None = None) -> dict:
+    """Readings of one step ``got`` against ``ref``, each ``(metrics, flat
+    parameters after the update, flat gradient)``: relative errors of the
+    loss components and the gradient norm, the relative L2 error of the
+    gradient and the parameters' differences in units of lr, each within
+    ``tol`` (with the ``extra`` readings)."""
+    (mc, pc, gc), (mr, pr, gr) = got, ref
     readings = {f"{k} rel": abs(mc[k] - mr[k]) / max(abs(mr[k]), 1e-12) for k in mr}
     readings["grad rel L2"] = ((gc - gr).norm() / gr.norm()).item()
-    if "qkv grad rel L2" in tol:
-        readings["qkv grad rel L2"] = ((qc - qr).norm() / qr.norm()).item()
-    lr = cfg.optimizer.lr
+    readings.update(extra or {})
     readings["param mean |diff|/lr"] = (pc - pr).abs().mean().item() / lr
     readings["param max |diff|/lr"] = (pc - pr).abs().max().item() / lr
     bad = {k: (v, tol[k]) for k, v in readings.items() if not v <= tol[k]}
-    log(f"[{tag}] card vs CPU: {json.dumps(readings)} tol {json.dumps(tol)} "
-        f"{'ok' if not bad else 'FAIL'}")
-    check(not bad, f"{tag}: card disagrees with the CPU: {bad}")
+    log(f"{label}: {json.dumps(readings)} tol {json.dumps(tol)} {'ok' if not bad else 'FAIL'}")
+    check(not bad, f"{label}: the steps disagree: {bad}")
     return readings
 
 
@@ -1912,15 +1947,19 @@ def adapter_student():
         cfg.encoder, lora_rank=ADAPTER_RANK, use_ssf=True))
 
 
-def steps_with_counts(tag: str, trainer: Trainer, batches, steps: int, want: dict) -> list:
+def steps_with_counts(tag: str, trainer: Trainer, batches, steps: int, want: dict,
+                      stamps: list | None = None) -> list:
     """``steps`` steps of ``trainer`` from its state on, every launch count
     set to 0 just before and read after each step: each step's launches
     equal ``want``, its losses and gradient norm are finite. Returns the
-    metrics of each step and the last step's launches."""
+    metrics of each step and the last step's launches; ``stamps`` gets the
+    host clock at the end of each step."""
     seen, last, per_step = [], {}, []
 
     def on_step(step, metrics):
         torch.cuda.synchronize()
+        if stamps is not None:
+            stamps.append(time.perf_counter())
         now = read_counts()
         per = {k: now[k] - last.get(k, 0) for k in now}
         last.update(now)
@@ -2142,10 +2181,401 @@ def phase_images_and_adapters(trainer: Trainer) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 20
+# main path 9: two ranks sharing the one card over gloo (NCCL refuses two
+# ranks of one communicator on one device), each its own process under
+# torchrun; the tp=2 global batch is cut to 4 for gloo's host-side reductions
+PATH9_TP_BATCH, PATH9_IMAGES = 4, 6
+PATH9_LABEL = "2 ranks on 1 card, gloo"
+NCCL_LABEL = "NCCL 1 rank"
+# the tp=2 student's saved weights read back into one process, bf16 depth of
+# 2 images against the two-rank forward: the row-parallel layers reduce fp32
+# partial products where one GEMM rounds once, and kernel 1 runs at 6 heads
+# where it ran at 12; max |diff| / max |ref| and 1 - corr
+# (about 3x the readings on an H100: 0.0123 and 2.6e-5)
+TP_READBACK_TOL = {"max": 4e-2, "1 - corr": 1e-4}
+# the tp=2 fp32 step is held against one process on a loss without order
+# statistics, as phase 12's windowed step is: the row-parallel sums round
+# activations apart by about 1e-7, enough for a median to pick another
+# near-tied pixel at random init (the gradient norm read 1.3e-4 apart with
+# the default loss, against 3.4e-6 for dp=2, whose shards round alike)
+PATH9_TP_LOSS = LossConfig(normalization="none", use_hdn=False)
+PATH9_TIMEOUT_S = 600
+
+
+def path9_cfg(tag: str, **kw) -> TrainConfig:
+    return TrainConfig(student=model_config(ARCH), teachers=(TEACHER,), image_size=RES,
+                       log_interval=10 ** 6, visualize_interval=0, checkpoint_interval=0,
+                       output_dir=str(OUT / f"path9_{tag}"), **kw)
+
+
+def params_sha(params) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in params:
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def path9_train(tag: str, cfg: TrainConfig, images: np.ndarray, want: dict) -> tuple:
+    """``TRAIN_STEPS`` steps of a ``Trainer`` of ``cfg`` on this data rank's
+    rows of each global batch of ``images``: launches per step (the counts
+    set to 0 just before the run), finite losses, each step's time and the
+    rank's peak memory. Returns the trainer and the readings."""
+    from distill_any_depth_tpu_torch.parallel.mesh import shard_batch
+
+    t0 = time.time()
+    trainer = Trainer(cfg, "cuda:0")
+    build_s = time.time() - t0
+    d, b = trainer.mesh.data_index, cfg.batch_size
+    batches = [shard_batch({"image": images[i * b:(i + 1) * b]}, d, cfg.dp)
+               for i in range(TRAIN_STEPS)]
+    stamps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    seen, counts = steps_with_counts(tag, trainer, lambda epoch: iter(batches), TRAIN_STEPS,
+                                     want, stamps)
+    torch.cuda.synchronize()
+    ms = [(t - s) * 1e3 for s, t in zip([start] + stamps[:-1], stamps)]
+    out = {"build_s": build_s, "step_ms": ms, "peak_memory_gb":
+           torch.cuda.max_memory_allocated() / 1e9, "counts": counts, "last": seen[-1]}
+    log(f"[{tag}] {PATH9_LABEL}: step ms {[round(t, 1) for t in ms]} (the first warms up), "
+        f"peak memory of this rank {out['peak_memory_gb']:.2f} GB")
+    return trainer, out
+
+
+def path9_fp32_step(tag: str, teacher_file: str, x: np.ndarray, **kw) -> tuple:
+    """One fp32 step at bs2 (phase 8's pair and batch, the teacher from
+    ``teacher_file``; ``kw``: the mesh and the loss) on this rank's share:
+    the metrics, and the full parameters after the update and the full
+    (clipped) gradient, flat."""
+    from distill_any_depth_tpu_torch.parallel.mesh import shard_batch
+
+    cfg = path9_cfg(tag, batch_size=2, teacher_checkpoints=(teacher_file,),
+                    student_compute_dtype="float32", teacher_dtype="float32", **kw)
+    trainer = Trainer(cfg, "cuda:0")
+    d = 0 if trainer.mesh is None else trainer.mesh.data_index
+    batch = shard_batch({"image": x}, d, cfg.dp)
+    metrics = {}
+    trainer.run(lambda epoch: iter([batch]), max_steps=1,
+                on_step=lambda step, m: metrics.update(m))
+    state = trainer.state
+    params = state._gather(state.trained)
+    grads = state._gather(state.trained, [p.grad for p in state.trained])
+    return ({k: float(v) for k, v in metrics.items() if k != "teacher_idx"},
+            torch.cat([p.reshape(-1).cpu() for p in params]),
+            torch.cat([g.reshape(-1).cpu() for g in grads]))
+
+
+def path9_rank(teacher_file: str, folder: str) -> None:
+    """One of phase 20's two ranks on the one card (under torchrun, gloo):
+    dp=2 and tp=2 Trainer steps in bf16 at full width, their fp32 bs2 steps,
+    the int8 teacher under tp=2, and the sharded cli.infer and
+    cli.pseudo_label; then rank 0, alone, runs the one-process references
+    and holds each two-rank result against them."""
+    import torch.distributed as dist
+
+    from distill_any_depth_tpu_torch.cli import infer as infer_cli
+    from distill_any_depth_tpu_torch.cli import pseudo_label as label_cli
+    from distill_any_depth_tpu_torch.ops import attention as attention_ops
+    from distill_any_depth_tpu_torch.parallel import launch
+    from distill_any_depth_tpu_torch.parallel.mesh import make_mesh
+    from distill_any_depth_tpu_torch.parallel.tp import copy_to_model, reduce_from_model, shard_model
+    from distill_any_depth_tpu_torch.train.step import all_reduce_gradients
+    from distill_any_depth_tpu_torch.utils import checkpoint as ckpt_io
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(launch.initialize_distributed(backend="gloo", device="cuda:0"), "path 9: no group")
+    rank = launch.process_index()
+    res = {"rank": rank, "label": PATH9_LABEL}
+    # the heads of every kernel 1 call, and of kernel 3 (the backward of the
+    # calls that take a gradient; the launch counts show it ran)
+    heads = set()
+    fwd = attention_ops.mha_flash_packed
+
+    def rec_fwd(qkv, h):
+        heads.add(("kernel 1", h))
+        if torch.is_grad_enabled() and qkv.requires_grad:
+            heads.add(("kernel 3", h))
+        return fwd(qkv, h)
+
+    attention_ops.mha_flash_packed = rec_fwd
+
+    # dp=2: path 2's global bs16, 8 rows a rank, path 2's launches a step
+    images = train_images(TRAIN_BATCH * TRAIN_STEPS, seed=1)
+    trainer, res["dp2"] = path9_train(
+        f"path 9 dp=2 rank {rank}", path9_cfg("dp2", batch_size=TRAIN_BATCH, dp=2,
+                                              teacher_checkpoints=(teacher_file,)),
+        images, expected_step_counts(TRAIN_BATCH))
+    res["dp2"]["params_sha256"] = params_sha(trainer.state.params)
+    res["dp2"]["grad_reduce_ms"] = cuda_ms(
+        lambda: all_reduce_gradients(trainer.state.params, trainer.mesh.data_group), iters=3,
+        warmup=1)
+    res["dp2"]["heads"] = sorted(heads)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # tp=2: global bs4, every rank on the whole batch at half the heads
+    heads.clear()
+    trainer, res["tp2"] = path9_train(
+        f"path 9 tp=2 rank {rank}", path9_cfg("tp2", batch_size=PATH9_TP_BATCH, tp=2,
+                                              teacher_checkpoints=(teacher_file,)),
+        images, expected_step_counts(PATH9_TP_BATCH))
+    res["tp2"]["heads"] = sorted(heads)
+    res["tp2"]["replicated_sha256"] = params_sha(
+        p for p in trainer.state.params if id(p) not in trainer.state.splits)
+    x = torch.from_numpy(train_images(2, seed=4)).cuda().permute(0, 3, 1, 2)
+    with torch.no_grad():
+        tp_depth = trainer.student(x)[0].float().cpu()
+    group = trainer.mesh.model_group
+    a = torch.randn(PATH9_TP_BATCH, (RES // 14) ** 2 + 1, 1024, device="cuda",
+                    requires_grad=True)
+    g = torch.randn_like(a)
+    res["tp2"]["f_fwd_bwd_ms"] = cuda_ms(lambda: copy_to_model(a, group).backward(g),
+                                         iters=5, warmup=1)
+    res["tp2"]["g_ms"] = cuda_ms(lambda: reduce_from_model(a.detach(), group), iters=5,
+                                 warmup=1)
+    res["tp2"]["fg_shape"] = list(a.shape)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # fp32 bs2 steps, held against one process below
+    x2 = train_images(2, seed=2)
+    fp32_modes = {"dp2": dict(dp=2), "tp2": dict(tp=2, loss=PATH9_TP_LOSS)}
+    fp32 = {mode: path9_fp32_step(f"{mode}_fp32", teacher_file, x2, **kw)
+            for mode, kw in fp32_modes.items()}
+
+    # the int8 teacher under tp=2: row-parallel layers at the global scales
+    teacher = create_model(TEACHER, dtype=torch.bfloat16, device="cuda:0", seed=None,
+                           quant="int8_pallas")
+    ckpt_io.load_state_dict_file(teacher, teacher_file)
+    shard_model(teacher, make_mesh(1, 2))
+    reset_counts()
+    with torch.no_grad():
+        int8_depth = teacher(x)[0].float().cpu()
+    torch.cuda.synchronize()
+    res["int8_tp2_counts"] = read_counts()
+    want = 4 * model_config(TEACHER).encoder.depth
+    check(res["int8_tp2_counts"]["w8a8"] == want,
+          f"path 9 int8 tp=2: kernel 9 ran {res['int8_tp2_counts']['w8a8']} times, not {want}")
+    del teacher
+
+    # the CLIs, each rank on its share of the images
+    common = ["--device", "cuda:0", "--arch_name", ARCH, "--input", folder,
+              "--processing_res", str(RES), "--batch_size", "1"]
+    res["infer"] = infer_cli.main([*common, "--save_npy",
+                                   "--output_dir", str(OUT / "path9_infer_ranks")])
+    res["label"] = label_cli.main([*common, "--output_dir", str(OUT / "path9_label_ranks")])
+    launch.synchronize()
+    dist.destroy_process_group()
+    attention_ops.mha_flash_packed = fwd
+
+    if rank == 0:
+        # one process: the fp32 step, the tp=2 student read back, the int8 teacher
+        res["fp32_readings"] = {
+            mode: compare_steps(f"[path 9 {mode} fp32 bs2] two ranks vs one process",
+                                fp32[mode], path9_fp32_step(
+                                    "one_fp32", teacher_file, x2,
+                                    **{k: v for k, v in kw.items() if k == "loss"}),
+                                FP32_STEP_TOL, path9_cfg("").optimizer.lr)
+            for mode, kw in fp32_modes.items()}
+        model = create_model(ARCH, dtype=torch.bfloat16, device="cuda:0", seed=None,
+                             fused_tail=False)
+        saved = ckpt_io.read_safetensors(str(OUT / "path9_tp2" / "student_final.safetensors"))
+        layout = {k: tuple(v.shape) for k, v in ckpt_io.reference_state(model).items()}
+        check({k: tuple(v.shape) for k, v in saved.items()} == layout,
+              "path 9 tp=2: student_final's keys and shapes differ from a one-process save")
+        ckpt_io.load_state_dict(model, saved)
+        with torch.no_grad():
+            one_depth = model(x)[0].float().cpu()
+        res["tp2"]["readback"] = {
+            "max": ((one_depth - tp_depth).abs().max() / one_depth.abs().max()).item(),
+            "1 - corr": 1 - float(np.corrcoef(one_depth.reshape(-1), tp_depth.reshape(-1))[0, 1])}
+        log(f"[path 9 tp=2] student_final in one process against the two-rank forward: "
+            f"{json.dumps(res['tp2']['readback'])} tol {json.dumps(TP_READBACK_TOL)}")
+        check(all(res["tp2"]["readback"][k] <= v for k, v in TP_READBACK_TOL.items()),
+              "path 9 tp=2: the saved student disagrees with the two-rank forward")
+        del model
+        teacher = create_model(TEACHER, dtype=torch.bfloat16, device="cuda:0", seed=None,
+                               quant="int8_pallas")
+        ckpt_io.load_state_dict_file(teacher, teacher_file)
+        with torch.no_grad():
+            int8_one = teacher(x)[0].float().cpu()
+        res["int8_tp2_corr"] = float(np.corrcoef(int8_one.reshape(-1),
+                                                 int8_depth.reshape(-1))[0, 1])
+        res["int8_tp2_max_rel"] = ((int8_one - int8_depth).abs().max()
+                                   / int8_one.abs().max()).item()
+        log(f"[path 9 int8 tp=2] depth against one process: corr {res['int8_tp2_corr']:.6f} "
+            f"(>= {QUANT_VS_PLAIN_CORR}), max rel {res['int8_tp2_max_rel']:.3e}")
+        check(res["int8_tp2_corr"] >= QUANT_VS_PLAIN_CORR, "path 9 int8 tp=2: corr too low")
+    (OUT / f"path9_rank{rank}.json").write_text(json.dumps(res))
+
+
+def nccl_one_rank(trainer: Trainer) -> dict:
+    """``parallel/launch.initialize_distributed`` on ``cuda:0`` with NCCL,
+    in this process as a one-rank group, and the port's collectives on the
+    card: the gradient buckets of ``trainer``'s ViT-B student, f and g with
+    their backward, the MAX reduce and the gather of the student's state
+    (each, over one rank, the identity)."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from distill_any_depth_tpu_torch.parallel import launch
+    from distill_any_depth_tpu_torch.parallel.tp import (
+        all_reduce_max,
+        copy_to_model,
+        gather_state_dict,
+        reduce_from_model,
+        tp_plan,
+    )
+    from distill_any_depth_tpu_torch.train.step import all_reduce_gradients
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port))
+    os.environ.update(env)
+    out = {"label": NCCL_LABEL}
+    try:
+        check(launch.initialize_distributed(device="cuda") and dist.get_backend() == "nccl",
+              "NCCL: no NCCL process group")
+        group = dist.group.WORLD
+        params = [p for p in trainer.student.parameters()]
+        gen = torch.Generator(device="cuda").manual_seed(20)
+        for p in params:
+            p.grad = torch.randn(p.shape, generator=gen, device="cuda")
+        want = [p.grad.clone() for p in params]
+        all_reduce_gradients(params, group)
+        check(all(torch.equal(p.grad, w) for p, w in zip(params, want)),
+              "NCCL: the gradient buckets changed a one-rank mean")
+        out["grad_reduce_ms"] = cuda_ms(lambda: all_reduce_gradients(params, group), iters=5)
+        out["grad_numel"] = sum(p.numel() for p in params)
+        for p in params:
+            p.grad = None
+        a = torch.randn(PATH9_TP_BATCH, (RES // 14) ** 2 + 1, 768, generator=gen,
+                        device="cuda", requires_grad=True)
+        g = torch.randn(a.shape, generator=gen, device="cuda")
+        copy_to_model(a, group).backward(g)
+        b = a.detach().requires_grad_()
+        reduced = reduce_from_model(b, group)
+        reduced.backward(g)
+        check(torch.equal(a.grad, g) and torch.equal(reduced, b) and torch.equal(b.grad, g),
+              "NCCL: f or g is not the identity over one rank")
+        check(torch.equal(all_reduce_max(g, group), g), "NCCL: the MAX reduce moved values")
+        out["f_fwd_bwd_ms"] = cuda_ms(lambda: copy_to_model(a, group).backward(g), iters=20)
+        out["g_ms"] = cuda_ms(lambda: reduce_from_model(b.detach(), group), iters=20)
+        out["fg_shape"] = list(a.shape)
+        state = {k: p.detach() for k, p in trainer.student.named_parameters()}
+        full = gather_state_dict(state, group)
+        check(len(tp_plan(state)) > 0 and all(torch.equal(full[k], v) for k, v in state.items()),
+              "NCCL: the gathered student differs")
+        torch.cuda.synchronize()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    log(f"[path 9] {NCCL_LABEL}: {json.dumps(out)}")
+    return out
+
+
+def phase_multi_rank(trainer: Trainer, gen) -> dict:
+    """Main path 9 (run after phase 19): the port's collectives over a
+    one-rank NCCL group; kernels 1 and 3 at a tp=2 rank's heads against
+    their plain versions; two ranks sharing the card over gloo
+    (``path9_rank``, spawned by torchrun) with dp=2 and tp=2; and the
+    sharded CLIs' files against one process's."""
+    import os
+    import signal
+
+    import cv2
+
+    from distill_any_depth_tpu_torch.cli import infer as infer_cli
+    from distill_any_depth_tpu_torch.cli import pseudo_label as label_cli
+    from distill_any_depth_tpu_torch.utils import checkpoint as ckpt_io
+
+    t_phase = time.time()
+    out = {"nccl": nccl_one_rank(trainer)}
+    n = (RES // 14) ** 2 + 1
+    out["tp_heads"] = {
+        f"{k} H={h}": {"B": PATH9_TP_BATCH, "N": n, "H": h, "max_abs_err": case(
+            f"tp=2 H={h}", PATH9_TP_BATCH, n, h, torch.bfloat16, tol, gen)}
+        for k, case, tol in (("kernel 1", attention_case, BF16_ATTN_TOL),
+                             ("kernel 3", attention_grad_case, BF16_GRAD_TOL))
+        for h in ((6, 8) if k == "kernel 1" else (6,))}
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    teacher_file = OUT / "path9_teacher.safetensors"
+    ckpt_io.save_safetensors(str(teacher_file), trainer.teachers[0])
+    folder = OUT / "path9_images"
+    folder.mkdir(parents=True, exist_ok=True)
+    for i, im in enumerate(synthetic_images(PATH9_IMAGES, seed=9)):
+        cv2.imwrite(str(folder / f"{i:03d}.png"), cv2.cvtColor(im, cv2.COLOR_RGB2BGR))
+    for r in range(2):
+        (OUT / f"path9_rank{r}.json").unlink(missing_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             "--nproc_per_node", "2", str(Path(__file__).resolve()),
+                             "--path9-rank", str(teacher_file), str(folder)],
+                            start_new_session=True)
+    try:
+        rc = proc.wait(PATH9_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        fail(f"path 9: the two ranks did not finish in {PATH9_TIMEOUT_S} s")
+    out["ranks_s"] = time.time() - t0
+    check(rc == 0, f"path 9: the two ranks exited with {rc}")
+    ranks = [json.loads((OUT / f"path9_rank{r}.json").read_text()) for r in range(2)]
+    check(ranks[0]["dp2"]["params_sha256"] == ranks[1]["dp2"]["params_sha256"],
+          "path 9 dp=2: the ranks' parameters differ after 3 steps")
+    check(ranks[0]["tp2"]["replicated_sha256"] == ranks[1]["tp2"]["replicated_sha256"],
+          "path 9 tp=2: the ranks' replicated parameters differ after 3 steps")
+    tp_heads = [["kernel 1", 6], ["kernel 1", 8], ["kernel 3", 6]]
+    for r in ranks:
+        check(r["tp2"]["heads"] == tp_heads, f"path 9 tp=2: kernel heads {r['tp2']['heads']}")
+        check(r["dp2"]["heads"] == [["kernel 1", 12], ["kernel 1", 16], ["kernel 3", 12]],
+              f"path 9 dp=2: kernel heads {r['dp2']['heads']}")
+        check(r["infer"] and r["label"], "path 9: a rank wrote no CLI output")
+
+    # the sharded CLIs' union against one process, file for file
+    common = ["--device", "cuda", "--arch_name", ARCH, "--input", str(folder),
+              "--processing_res", str(RES), "--batch_size", "1"]
+    for tag, main_fn, extra in (("infer", infer_cli.main, ["--save_npy"]),
+                                ("label", label_cli.main, [])):
+        one_dir, ranked = OUT / f"path9_{tag}_one", OUT / f"path9_{tag}_ranks"
+        single = [Path(p).relative_to(one_dir)
+                  for p in main_fn([*common, *extra, "--output_dir", str(one_dir)])]
+        shares = [{Path(p).relative_to(ranked) for p in r[tag]} for r in ranks]
+        check(not shares[0] & shares[1] and shares[0] | shares[1] == set(single),
+              f"path 9 {tag}: the ranks' shares {shares} are not one process's files")
+        same = all((ranked / p).read_bytes() == (one_dir / p).read_bytes() for p in single)
+        log(f"[path 9 {tag}] torchrun 2 ranks: {[len(s) for s in shares]} files, the union "
+            f"equal to one process's byte for byte: {same}")
+        check(same, f"path 9 {tag}: the ranks' files differ from one process's")
+    teacher_file.unlink()
+    out["ranks"] = ranks
+    out["phase_s"] = time.time() - t_phase
+    log(f"[path 9] phase 20 passed in {out['phase_s']:.1f} s ({PATH9_LABEL}: two ranks in "
+        f"{out['ranks_s']:.1f} s; no number of this phase is a multi-card scaling figure)")
+    print(json.dumps({"path9": {k: v for k, v in out.items() if k != "ranks"},
+                      "path9_ranks": [{k: r[k] for k in ("rank", "label", "dp2", "tp2")}
+                                      for r in ranks], "gpu": gpu_line()}), flush=True)
+    return out
+
+
 # ---------------------------------------------------------------- phase 16
 def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts,
                  wtrain, qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, evals, path7,
-                 path8, gen) -> None:
+                 path8, path9, gen) -> None:
     kernels = []
     bf16 = torch.bfloat16
     runs = {"infer_forward": counts, "train_step": train_counts,
@@ -2159,7 +2589,12 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
             f"vitg_reg_pseudo_label_{GIANT_IMAGES}_images": path7["label_counts"],
             "vitg_reg_teacher_train_step": path7["train_counts"],
             "two_view_train_step": path8["two_view_counts"],
-            "adapter_only_train_step": path8["adapter_counts"]}
+            "adapter_only_train_step": path8["adapter_counts"],
+            # path 9, per rank of the two that share the card
+            "dp2_train_step_per_rank": path9["ranks"][0]["dp2"]["counts"],
+            "tp2_train_step_per_rank": path9["ranks"][0]["tp2"]["counts"],
+            "int8_tp2_teacher_forward_per_rank": path9["ranks"][0]["int8_tp2_counts"]}
+    tp_heads = path9["tp_heads"]
 
     def entry(name, key, source, replaces, err, ms, plain, lib, flops, nbytes, launches=None,
               rate=PEAK_BF16_FLOPS, **extra):
@@ -2211,7 +2646,8 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
           a["library_ms"], 4.0 * BATCH * 12 * n * n * d, 4 * BATCH * n * 12 * d * 2,
           device_ms=a["device_ms"], library_device_ms=a["library_device_ms"],
           library_kernels=a["library_kernels"], teacher_shape=attn["teacher"],
-          teacher_1036_shape=attn["teacher_1036"], vitg_518_shape=attn["vitg_518"])
+          teacher_1036_shape=attn["teacher_1036"], vitg_518_shape=attn["vitg_518"],
+          tp_head_shapes=[v for k, v in tp_heads.items() if k.startswith("kernel 1")])
 
     # kernel 2 at every shape a path launches it (bf16; the weights prepared
     # once, as the model's WeightCache keeps them): CUDA events and the
@@ -2277,7 +2713,8 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
           launches=train_counts["attention_bwd"],
           device_ms=device_ms(lambda: packed_attention_backward(qkv, out, lse, g, h))[0],
           library_device_ms=fb_dev - f_dev, library_kernels=fb_kernels,
-          library_note="SDPA forward + backward less forward (events and device times)")
+          library_note="SDPA forward + backward less forward (events and device times)",
+          tp_head_shapes=[v for k, v in tp_heads.items() if k.startswith("kernel 3")])
 
     # kernel 4 at the HDN loss's shapes: both of a step's launches select
     # from [112, N] rows (the SSI alignment's medians of the student's and
@@ -2602,6 +3039,9 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on a card")
+    if sys.argv[1:2] == ["--path9-rank"]:  # one of phase 20's ranks, under torchrun
+        path9_rank(*sys.argv[2:4])
+        return
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     # fp32 comparisons on the card in full fp32: no TF32 in cuDNN or cuBLAS
     torch.backends.cudnn.allow_tf32 = False
@@ -2627,8 +3067,10 @@ def main() -> None:
     evals = phase_checkpoints_and_eval(trainer, qplain)
     path7 = phase_register_family(images, qims)
     path8 = phase_images_and_adapters(trainer)
+    path9 = phase_multi_rank(trainer, gen)
     phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts, wtrain,
-                 qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, evals, path7, path8, gen)
+                 qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, evals, path7, path8,
+                 path9, gen)
     log(f"[smoke] all phases passed in {time.time() - t0:.1f} s")
     print(gpu_line(), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

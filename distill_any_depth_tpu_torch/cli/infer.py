@@ -16,7 +16,11 @@ banded one); ViT-g is ``--arch_name depthanything-giant --processing_res
 518`` (SwiGLU, DPT features 384). ``--quant int8`` or ``int8_pallas`` runs
 the encoder GEMMs as dynamic W8A8 int8 (the latter through kernel 9 on the
 card). Not ported yet: ``--fused_tail`` (the tail kernel always runs on the
-card) and multi-device sharding of the batch.
+card). Under ``torchrun --nproc_per_node N -m
+distill_any_depth_tpu_torch.cli.infer ...`` each rank runs on
+``cuda:{LOCAL_RANK}`` and takes the paths ``paths[rank::N]`` of the sorted
+input, writing its own outputs (named by the input's stem, so no rank
+writes another's files).
 """
 from __future__ import annotations
 
@@ -97,6 +101,17 @@ def predict(model, images_u8: Sequence[np.ndarray], processing_res: int,
 
 
 def main(args=None) -> list[str]:
+    from distill_any_depth_tpu_torch.parallel import launch
+
+    if args is None or isinstance(args, list):
+        args = argument_parser().parse_args(args)
+    logging.basicConfig(level=logging.INFO)
+    with launch.process_group(args.device):
+        return _infer(args, launch.local_device(args.device), launch.process_index(),
+                      launch.process_count())
+
+
+def _infer(args, device: torch.device, rank: int, world: int) -> list[str]:
     import cv2
     from PIL import Image
 
@@ -109,11 +124,7 @@ def main(args=None) -> list[str]:
         chw2hwc, colorize_depth_maps, normalize_disparity,
     )
 
-    if args is None:
-        args = argument_parser().parse_args()
-    logging.basicConfig(level=logging.INFO)
-
-    model = create_model(args.arch_name, dtype=getattr(torch, args.dtype), device=args.device,
+    model = create_model(args.arch_name, dtype=getattr(torch, args.dtype), device=device,
                          seed=None if args.checkpoint else 0, quant=args.quant)
     if args.checkpoint:
         load_state_dict_file(model, args.checkpoint)
@@ -123,6 +134,7 @@ def main(args=None) -> list[str]:
     res = args.processing_res
     device_prep = res > 0 and not args.host_preprocess
     paths = sorted(glob(os.path.join(args.input, "*"))) if os.path.isdir(args.input) else [args.input]
+    paths = paths[rank::world]  # this rank's share
     out_dir = os.path.join(args.output_dir, "image_logs")
     os.makedirs(out_dir, exist_ok=True)
 

@@ -18,8 +18,13 @@ Run: ``python -m distill_any_depth_tpu_torch.cli.pseudo_label --device cuda
 int8_pallas`` runs the encoder's 96 GEMMs a forward through kernel 9.
 ``--arch_name depthanything-giant-reg`` labels with the ViT-g register
 teacher (160 GEMMs a forward under ``int8_pallas``). Not
-ported yet: ``--fused_tail`` (the tail kernel always runs on the card) and
-multi-device sharding of the batch.
+ported yet: ``--fused_tail`` (the tail kernel always runs on the card).
+Under ``torchrun --nproc_per_node N -m
+distill_any_depth_tpu_torch.cli.pseudo_label ...`` (the JAX CLI's split of
+the batch over one process's devices, with one process per device here)
+each rank runs on ``cuda:{LOCAL_RANK}`` and labels the images
+``paths[rank::N]`` of the sorted folder, once each; the union of the
+ranks' files is a single-process run's.
 """
 from __future__ import annotations
 
@@ -79,17 +84,24 @@ def label_batches(model, images_u8: np.ndarray, target: int, batch_size: int = 8
 
 
 def main(args=None) -> list[str]:
+    from distill_any_depth_tpu_torch.parallel import launch
+
+    if args is None or isinstance(args, list):
+        args = argument_parser().parse_args(args)
+    logging.basicConfig(level=logging.INFO)
+    with launch.process_group(args.device):
+        return _label(args, launch.local_device(args.device), launch.process_index(),
+                      launch.process_count())
+
+
+def _label(args, device: torch.device, rank: int, world: int) -> list[str]:
     import cv2
 
     from distill_any_depth_tpu_torch.models.factory import create_model
     from distill_any_depth_tpu_torch.ops.preprocess import snap_to_bucket
     from distill_any_depth_tpu_torch.utils.checkpoint import load_state_dict_file
 
-    if args is None or isinstance(args, list):
-        args = argument_parser().parse_args(args)
-    logging.basicConfig(level=logging.INFO)
-
-    model = create_model(args.arch_name, dtype=getattr(torch, args.dtype), device=args.device,
+    model = create_model(args.arch_name, dtype=getattr(torch, args.dtype), device=device,
                          seed=None if args.checkpoint else 0, quant=args.quant)
     if args.checkpoint:
         load_state_dict_file(model, args.checkpoint)
@@ -98,7 +110,7 @@ def main(args=None) -> list[str]:
     target = snap_to_bucket(args.processing_res)
 
     paths = sorted(p for p in glob(os.path.join(args.input, "*"))
-                   if p.lower().endswith((".jpg", ".jpeg", ".png")))
+                   if p.lower().endswith((".jpg", ".jpeg", ".png")))[rank::world]
     os.makedirs(args.output_dir, exist_ok=True)
     bs = max(args.batch_size, 1)
     written = []

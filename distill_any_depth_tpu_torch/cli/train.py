@@ -1,7 +1,6 @@
 """Distillation training CLI.
 
-Counterpart of distill_any_depth_tpu/cli/train.py, for one process and one
-device: ``python -m distill_any_depth_tpu_torch.cli.train --device cuda
+Counterpart of distill_any_depth_tpu/cli/train.py: ``python -m distill_any_depth_tpu_torch.cli.train --device cuda
 --output_dir OUT [--dataset_dir data/nyu ...]`` runs ``train/loop.train_nyu``
 (a ViT-L teacher and a ViT-B student at bs16 392^2 by default; ``--student_arch
 depthanything-base-window`` trains the windowed student, whose attention
@@ -37,15 +36,9 @@ import logging
 
 __all__ = ["argument_parser", "main"]
 
-# flag -> (its default, what is not ported)
-_NOT_PORTED = {
-    "dp": (1, "data parallelism"),
-    "tp": (1, "tensor parallelism"),
-}
-
 
 def argument_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Train depth distillation on one device.")
+    p = argparse.ArgumentParser(description="Train depth distillation.")
     p.add_argument("--dataset_dir", default="data/nyu")
     p.add_argument("--teacher_models", nargs="+", default=["depthanything-large"])
     p.add_argument("--teacher_checkpoints", nargs="+", default=[],
@@ -105,15 +98,36 @@ def argument_parser() -> argparse.ArgumentParser:
     p.add_argument("--device_preprocess", action="store_true",
                    help="send the decoded uint8 NYU frames to the device and resize and "
                         "normalize them there")
-    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cuda:{LOCAL_RANK} under torchrun)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks (under torchrun); --batch_size is the global batch")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks (under torchrun): the blocks' heads and FFN "
+                        "columns split over them")
     p.add_argument("--debug", action="store_true")
-    for flag, (default, what) in _NOT_PORTED.items():
-        p.add_argument(f"--{flag}", type=int, default=default,
-                       help=f"not ported yet ({what}): only {default}")
     return p
 
 
 def main(args=None) -> dict:
+    from distill_any_depth_tpu_torch.parallel import launch
+
+    if args is None or isinstance(args, list):
+        args = argument_parser().parse_args(args)
+    ranks = args.dp * args.tp
+    if ranks > 1 and not launch.launched():
+        raise RuntimeError(f"--dp {args.dp} --tp {args.tp} runs {ranks} processes, one per "
+                           f"device: launch it with torchrun --nproc_per_node {ranks} -m "
+                           f"distill_any_depth_tpu_torch.cli.train --dp {args.dp} --tp "
+                           f"{args.tp} ...")
+    with launch.process_group(args.device):
+        quiet = not launch.is_main_process() and not args.debug
+        logging.basicConfig(level=logging.WARNING if quiet else
+                            logging.DEBUG if args.debug else logging.INFO)
+        return _train(args, launch.local_device(args.device))
+
+
+def _train(args, device) -> dict:
     from distill_any_depth_tpu_torch.configs import (
         LossConfig,
         OptimizerConfig,
@@ -121,14 +135,6 @@ def main(args=None) -> dict:
         model_config,
     )
     from distill_any_depth_tpu_torch.train.loop import train_images, train_nyu
-
-    if args is None or isinstance(args, list):
-        args = argument_parser().parse_args(args)
-    for flag, (default, what) in _NOT_PORTED.items():
-        if getattr(args, flag) != default:
-            raise NotImplementedError(f"--{flag}: {what} is not ported to the PyTorch "
-                                      f"package yet")
-    logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO)
 
     student = model_config(args.student_arch)
     if args.lora_rank or args.use_ssf:
@@ -166,9 +172,11 @@ def main(args=None) -> dict:
         visualize_interval=args.visualize_interval,
         device_preprocess=args.device_preprocess,
         adapter_only=args.adapter_only,
+        dp=args.dp,
+        tp=args.tp,
     )
     run = train_images if args.data_mode == "images" else train_nyu
-    return run(cfg, device=args.device, resume=args.resume, profile_dir=args.profile_dir)
+    return run(cfg, device=device, resume=args.resume, profile_dir=args.profile_dir)
 
 
 if __name__ == "__main__":

@@ -5,10 +5,10 @@ Only the fields the ported paths read are kept; the presets' values and
 the defaults are identical, so a preset name or a default config means the
 same network and the same training in both packages. Every preset of the
 JAX package is here, the DINOv2 register/SwiGLU family (``vitg``,
-``vitl_reg``, ``vitg_reg``) included. Not fields here, because their
-features are not ported yet: the training fields of the native loader, the
-dp/tp mesh, remat and the attention implementation (the training CLI
-refuses ``--dp`` and ``--tp``).
+``vitl_reg``, ``vitg_reg``) included, and so is the data- and
+tensor-parallel rank grid (``TrainConfig.dp``, ``tp``). Not fields here,
+because their features are not ported yet: the training fields of the
+native loader, remat and the attention implementation.
 """
 from __future__ import annotations
 
@@ -223,6 +223,11 @@ class TrainConfig:
     # train only the student's LoRA/SSF parameters (the student's encoder
     # config must enable lora_rank or use_ssf); the rest stays frozen
     adapter_only: bool = False
+    # the rank grid, one process per device: dp data-parallel ranks, each
+    # stepping on batch_size / dp rows of the global batch, times tp
+    # tensor-parallel ranks, each with num_heads / tp heads of every block
+    dp: int = 1
+    tp: int = 1
 
 
 def model_config(arch_name: str) -> ModelConfig:

@@ -11,8 +11,13 @@ card. With ``device_preprocess`` the image is the decoded uint8 RGB frame
 at its native size (every frame of a batch must share it, as NYU's 640 x
 480 do) and the Trainer resizes and normalizes it on the device
 (``ops/preprocess``); the depth is still resized on the host. ``cv2`` is
-imported where an image is read. Not ported yet: the multi-process shards
-of an epoch.
+imported where an image is read. Data parallelism shards an epoch
+round-robin over the data ranks (``shard_index`` of ``num_shards``), after
+the seeded shuffle that every rank draws alike, truncated so that every
+shard yields the same number of batches (unequal counts would deadlock the
+collectives): at step ``s`` the shards' rows of a local batch ``b`` are,
+interleaved, the rows ``[s * b * num_shards, (s + 1) * b * num_shards)`` of
+the single-process order.
 """
 from __future__ import annotations
 
@@ -27,12 +32,16 @@ from distill_any_depth_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_
 __all__ = ["NYUDataset", "iterate_batches", "epoch_order"]
 
 
-def epoch_order(indices, seed: int = 0, shuffle: bool = True) -> np.ndarray:
+def epoch_order(indices, seed: int = 0, shuffle: bool = True, shard_index: int = 0,
+                num_shards: int = 1) -> np.ndarray:
     """The epoch order: ``indices`` (a list or a count), shuffled with
-    ``seed`` when ``shuffle``."""
+    ``seed`` when ``shuffle``, then shard ``shard_index`` of ``num_shards``
+    round-robin, truncated to ``len // num_shards`` entries."""
     idx = np.array(np.arange(indices) if np.isscalar(indices) else indices, dtype=np.int64)
     if shuffle:
         np.random.RandomState(seed).shuffle(idx)
+    if num_shards > 1:
+        idx = idx[shard_index::num_shards][:len(idx) // num_shards]
     return idx
 
 
@@ -110,14 +119,16 @@ PREFETCH = 2  # batches decoded ahead
 
 
 def iterate_batches(dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                    indices: list[int] | None = None):
+                    indices: list[int] | None = None, shard_index: int = 0,
+                    num_shards: int = 1):
     """Yield ``{'image': [B,H,W,3], 'depth': [B,H,W], 'rgb_path': [...]}``
-    for every full batch of the epoch (the remainder is dropped). A daemon
+    for every full batch of the epoch's shard ``shard_index`` of
+    ``num_shards`` (``epoch_order``; the remainder is dropped). A daemon
     thread decodes ``PREFETCH`` batches ahead, so host IO overlaps the
     card's work.
     """
     idx = epoch_order(indices if indices is not None else len(dataset), seed=seed,
-                      shuffle=shuffle)
+                      shuffle=shuffle, shard_index=shard_index, num_shards=num_shards)
     n = (len(idx) // batch_size) * batch_size
 
     def produce():

@@ -54,9 +54,13 @@ def combined_distillation_loss(
     teacher_local_feat: torch.Tensor | None = None,
     valid_mask: torch.Tensor | None = None,
     feat_loss: torch.Tensor | None = None,
+    data_group=None,
 ):
     """The whole stack; returns ``(total, components)``. Pass either
-    ``teacher_local_feat`` or a precomputed ``feat_loss``."""
+    ``teacher_local_feat`` or a precomputed ``feat_loss``. ``data_group``:
+    this batch is a data rank's share, and HDN's normalizer counts the
+    global batch (``losses/hdn``); every other term is a mean over images,
+    whose mean over the ranks is the global one."""
     sc = distillation_loss(student_local_depth, teacher_local_depth, cfg.normalization,
                            cfg.num_segments)
     lg = distillation_loss(student_global_depth, student_local_depth, cfg.normalization,
@@ -69,7 +73,8 @@ def combined_distillation_loss(
              + cfg.lambda_grad * grad)
     if cfg.use_hdn:
         contexts = _contexts(cfg, teacher_local_depth, valid_mask)
-        hdn = hdn_loss(student_local_depth, teacher_local_depth, contexts)
+        hdn = hdn_loss(student_local_depth, teacher_local_depth, contexts,
+                       data_group=data_group)
         components["hdn"] = hdn
         total = total + cfg.lambda_hdn * hdn
     components["total"] = total

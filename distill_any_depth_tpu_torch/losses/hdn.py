@@ -7,10 +7,17 @@ dense SSI runs once over the K*B rows folded together.
 Normalizers: ``"covered"`` divides by the pixels covered by at least one
 context (the training loop's), ``"valid"`` by ``valid_mask.sum()`` (the
 demo's).
+
+Under data parallelism (``data_group``) the normalizer is a count over the
+whole global batch, not over this rank's rows: the count is summed over the
+data group (it carries no gradient) and divided by the group's size, so
+that the mean of the ranks' losses, and of their gradients, is the
+single-process loss of the global batch.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from distill_any_depth_tpu_torch.losses.ssi import ssi_mae_loss
 from distill_any_depth_tpu_torch.ops.stats import masked_quantile
@@ -78,10 +85,21 @@ def get_contexts_ds(level: int, mask: torch.Tensor) -> torch.Tensor:
     return torch.stack(ctxs, dim=0)
 
 
+def _global_count(count: torch.Tensor, data_group) -> torch.Tensor:
+    """``count`` summed over ``data_group``, and the group's size."""
+    if data_group is None:
+        return count, 1
+    count = count.clone()
+    dist.all_reduce(count, group=data_group)
+    return count, dist.get_world_size(data_group)
+
+
 def hdn_loss(depth_pred: torch.Tensor, depth_gt: torch.Tensor, contexts: torch.Tensor,
-             normalizer: str = "covered", valid_mask: torch.Tensor | None = None) -> torch.Tensor:
+             normalizer: str = "covered", valid_mask: torch.Tensor | None = None,
+             data_group=None) -> torch.Tensor:
     """``depth_pred``/``depth_gt`` ``[B, H, W]``, ``contexts`` bool
-    ``[K, B, H, W]`` -> scalar."""
+    ``[K, B, H, W]`` -> scalar. ``data_group``: the normalizer counts the
+    global batch (see the module docstring)."""
     k, b = contexts.shape[:2]
     hw = depth_pred.shape[1:]
     dense = ssi_mae_loss(
@@ -95,11 +113,14 @@ def hdn_loss(depth_pred: torch.Tensor, depth_gt: torch.Tensor, contexts: torch.T
     covered = times > 0
     per_pixel = torch.where(covered, per_pixel_sum / times.clamp(min=1), per_pixel_sum)
     if normalizer == "covered":
-        denom = covered.sum() + 1e-6
+        count, ranks = _global_count(covered.sum(), data_group)
+        denom = count + 1e-6
     elif normalizer == "valid":
         if valid_mask is None:
             raise ValueError("normalizer='valid' needs valid_mask")
-        denom = valid_mask.sum()
+        denom, ranks = _global_count(valid_mask.sum(), data_group)
     else:
         raise ValueError(f"unknown normalizer {normalizer!r}")
+    if ranks > 1:
+        denom = denom / ranks
     return per_pixel.sum() / denom

@@ -13,12 +13,20 @@ Counterpart of distill_any_depth_tpu/models/adapters.py (``LoRADense``,
 - ``SSF``: ``x * gamma + beta`` on the channel axis, gamma 1 and beta 0 at
   init;
 - ``adapter_parameters``: the parameters an adapter-only run trains.
+
+Under tensor parallelism (``parallel/tp``) a ``LoRALinear`` on the
+column-parallel ``qkv`` keeps its rows of ``lora_B`` and sums ``lora_A``'s
+gradient over the model group (``a_group``); on the row-parallel ``proj``
+(``reduce_group``) ``lora_A`` takes the input shard and its rank-r output
+is reduced before the replicated ``lora_B``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from distill_any_depth_tpu_torch.parallel.tp import copy_to_model, row_parallel_linear
 
 __all__ = ["LORA_ALPHA", "LoRALinear", "SSF", "is_adapter_name", "adapter_parameters"]
 
@@ -28,6 +36,9 @@ LORA_ALPHA = 8.0
 class LoRALinear(nn.Linear):
     """``Linear`` with an additive rank-``rank`` update. Every weight is cast
     to the dtype of the input, as the encoder's ``Linear`` casts its own."""
+
+    reduce_group = None  # the model group of a row-parallel shard
+    a_group = None  # the model group of a column-parallel shard
 
     def __init__(self, in_features: int, out_features: int, rank: int):
         super().__init__(in_features, out_features)
@@ -46,9 +57,13 @@ class LoRALinear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
-        y = F.linear(x, self.weight.to(dt), self.bias.to(dt))
-        update = F.linear(F.linear(x, self.lora_A.to(dt)), self.lora_B.to(dt))
-        return y + update * (LORA_ALPHA / self.rank)
+        if self.reduce_group is not None:
+            y = row_parallel_linear(x, self.weight, self.bias, self.reduce_group)
+            u = row_parallel_linear(x, self.lora_A, None, self.reduce_group)
+        else:
+            y = F.linear(x, self.weight.to(dt), self.bias.to(dt))
+            u = F.linear(x, copy_to_model(self.lora_A, self.a_group).to(dt))
+        return y + F.linear(u, self.lora_B.to(dt)) * (LORA_ALPHA / self.rank)
 
 
 class SSF(nn.Module):

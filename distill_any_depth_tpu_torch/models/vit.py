@@ -23,6 +23,14 @@ attention kernels as it is), and ``cfg.use_ssf`` an SSF adapter at the four
 taps ``ssf_norm1`` (after norm1), ``ssf_attn`` (after the attention),
 ``ssf_norm2`` and ``ssf_mlp``. The JAX encoder's 8-row pad of the token
 count is a TPU tiling and is not ported: the attention kernels take any N.
+
+Tensor parallelism (``parallel/tp.shard_model``) keeps a rank's shard of
+each block's weights and sets the model group on its modules: ``Attention``
+runs its ``num_heads / tp`` local heads through the same attention kernels,
+``Mlp`` and ``SwiGLU`` their local columns, each after Megatron's *f*, and
+the row-parallel ``proj``, ``fc2`` and ``w3`` reduce their fp32 partial
+products before the bias (``reduce_group``). Without a group nothing
+changes.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from distill_any_depth_tpu_torch.ops.attention import multi_head_attention_packe
 from distill_any_depth_tpu_torch.ops.flash_attention import banded_eligible
 from distill_any_depth_tpu_torch.ops.resize import resize_matrix
 from distill_any_depth_tpu_torch.ops.window import local_window_bias
+from distill_any_depth_tpu_torch.parallel.tp import copy_to_model, model_size, row_parallel_linear
 
 __all__ = ["QUANT_MODES", "Linear", "LayerNorm", "Conv2d", "gelu", "PatchEmbed", "Mlp",
            "SwiGLU", "Attention", "Block", "interp_pos_embed", "PosConv", "DinoViT"]
@@ -44,7 +53,11 @@ QUANT_MODES = ("none", "int8", "int8_pallas")
 
 
 class Linear(nn.Linear):
+    reduce_group = None  # the model group of a row-parallel shard
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.reduce_group is not None:
+            return row_parallel_linear(x, self.weight, self.bias, self.reduce_group)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
 
@@ -91,19 +104,23 @@ class PatchEmbed(nn.Module):
 
 
 class Mlp(nn.Module):
+    tp_group = None  # the model group under tensor parallelism
+
     def __init__(self, dim: int, hidden: int, quant: str = "none"):
         super().__init__()
         self.fc1 = _linear(dim, hidden, quant)
         self.fc2 = _linear(hidden, dim, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x)))
+        return self.fc2(gelu(self.fc1(copy_to_model(x, self.tp_group))))
 
 
 class SwiGLU(nn.Module):
     """DINOv2's fused SwiGLU FFN: ``w3(silu(x1) * x2)`` with ``x1 | x2`` the
     halves of the packed ``w12`` output, and the hidden width ``2/3`` of
     ``dim * mlp_ratio`` rounded up to a multiple of 8 (4096 for ViT-g)."""
+
+    tp_group = None  # the model group under tensor parallelism
 
     def __init__(self, dim: int, mlp_ratio: float, quant: str = "none"):
         super().__init__()
@@ -112,11 +129,15 @@ class SwiGLU(nn.Module):
         self.w3 = _linear(hidden, dim, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        # a shard of w12 holds its columns of each half, so its output's
+        # halves are this rank's x1 and x2
+        x1, x2 = self.w12(copy_to_model(x, self.tp_group)).chunk(2, dim=-1)
         return self.w3(F.silu(x1) * x2)
 
 
 class Attention(nn.Module):
+    tp_group = None  # the model group under tensor parallelism
+
     def __init__(self, dim: int, num_heads: int, quant: str = "none", lora_rank: int = 0):
         super().__init__()
         self.num_heads = num_heads
@@ -129,8 +150,12 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor | None = None,
                 band: tuple[int, int] | None = None) -> torch.Tensor:
-        # qkv columns are (q|k|v, head, dim): the layout the kernels read as is
-        return self.proj(multi_head_attention_packed(self.qkv(x), self.num_heads, bias, band))
+        # qkv columns are (q|k|v, head, dim): the layout the kernels read as
+        # is, with this rank's heads of each of q, k and v under tensor
+        # parallelism
+        heads = self.num_heads // model_size(self.tp_group)
+        qkv = self.qkv(copy_to_model(x, self.tp_group))
+        return self.proj(multi_head_attention_packed(qkv, heads, bias, band))
 
 
 class LayerScale(nn.Module):

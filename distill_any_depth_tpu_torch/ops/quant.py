@@ -22,6 +22,17 @@ Two routes, as in the JAX package:
 
 The port's functions take the Linear's ``weight [out, in]`` (the JAX
 functions take ``[in, out]``); ``quantize_cols`` keeps the JAX contract.
+Under tensor parallelism a row-parallel ``QuantLinear`` (``reduce_group``
+set by ``parallel/tp.shard_model``) holds a slice of each row of x and of
+the weight. It quantizes with the global row absmax (the maximum of the
+ranks' row maxima) and the weight's scales of the unsharded rows, so that
+its integer products are those of the unsharded layer; the fp32 dequantized
+partial products are summed over the model group, then the bias is added
+as the route adds it. Kernel 9 quantizes x inside itself: it is handed x
+in fp32 with 16 more columns, the first holding the global absmax, against
+16 zero weight columns, so that its row scale is the global one and its
+product unchanged.
+
 Every division is a true division: on the card PyTorch divides a tensor by
 a Python number as a product with its reciprocal, which can differ in the
 last bit and flip a round-half-even tie, so the scales divide by a 0-dim
@@ -30,11 +41,13 @@ tensor.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from distill_any_depth_tpu_torch.models.vit import Linear
+from distill_any_depth_tpu_torch.parallel.tp import all_reduce_max
 
 __all__ = ["QUANT_IMPLS", "quantize_rows", "quantize_weight", "quantize_cols",
-           "int_product_exact", "int8_matmul", "QuantLinear"]
+           "int_product_exact", "int8_matmul", "shard_product", "QuantLinear"]
 
 _EPS = 1e-8
 # model-level ``quant`` mode -> QuantLinear impl
@@ -46,11 +59,14 @@ def _scale(amax: torch.Tensor) -> torch.Tensor:
     return amax.clamp_min(_EPS) / amax.new_full((), 127.0)
 
 
-def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor,
+                  amax: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int8 quantization along the last axis: ``(xq int8,
-    scale fp32 [..., 1])`` with ``x ~= xq * scale``."""
+    scale fp32 [..., 1])`` with ``x ~= xq * scale``; ``amax [..., 1]``, when
+    given, replaces the rows' own absmax (a shard's rows take the global
+    one)."""
     xf = x.float()
-    scale = _scale(xf.abs().amax(dim=-1, keepdim=True))
+    scale = _scale(xf.abs().amax(dim=-1, keepdim=True) if amax is None else amax)
     return torch.round(xf / scale).to(torch.int8), scale
 
 
@@ -76,6 +92,14 @@ def int_product_exact(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return xq.double() @ wq.double().t()
 
 
+def _int_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The int8 product as fp32: cuBLASLt's on the card, the exact one on
+    the CPU."""
+    if xq.device.type == "cuda":
+        return _int_mm(xq, wq).float()
+    return int_product_exact(xq, wq).float()
+
+
 def _int_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """cuBLASLt's int8 GEMM ``xq [M, K] @ wq [N, K]^T`` -> int32; it takes
     only M > 16, so fewer rows are padded with zeros."""
@@ -95,14 +119,29 @@ def int8_matmul(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None
     *lead, k = x.shape
     xq, xs = quantize_rows(x.reshape(-1, k))
     wq, ws = quantize_weight(weight) if quantized is None else quantized
-    if x.device.type == "cuda":
-        acc = _int_mm(xq, wq).float()
-    else:
-        acc = int_product_exact(xq, wq).float()
-    y = (acc * xs * ws).to(out_dtype)
+    y = (_int_product(xq, wq) * xs * ws).to(out_dtype)
     if bias is not None:
         y = y + bias.to(out_dtype)
     return y.reshape(*lead, wq.shape[0])
+
+
+def shard_product(x: torch.Tensor, amax: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                  impl: str) -> torch.Tensor:
+    """A row-parallel shard's dequantized product in fp32: ``x [M, k]`` (a
+    slice of each row) quantized at the global row absmax ``amax [M, 1]``,
+    times ``wq [N, k]`` (the same slice of the weight's rows, quantized at
+    the unsharded rows' scales ``ws [N]``). ``impl="pallas"`` runs kernel 9
+    on x in fp32 with 16 more columns, the first holding ``amax``, against
+    16 zero weight columns: its own row absmax is then the global one and
+    its product unchanged."""
+    if impl == "pallas":
+        from distill_any_depth_tpu_torch.ops.quant_matmul import w8a8_matmul
+
+        xa = torch.cat([x.float(), amax, amax.new_zeros(x.shape[0], 15)], -1)
+        padded = torch.cat([wq, wq.new_zeros(wq.shape[0], 16)], 1)
+        return w8a8_matmul(xa, None, None, torch.float32, quantized=(padded, ws))
+    xq, xs = quantize_rows(x, amax)
+    return _int_product(xq, wq) * xs * ws
 
 
 class QuantLinear(Linear):
@@ -117,6 +156,8 @@ class QuantLinear(Linear):
     storage and version counter, so an in-place update (``load_state_dict``,
     an optimizer step) quantizes anew."""
 
+    reduce_group = None  # the model group of a row-parallel shard
+
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  impl: str = "xla"):
         if impl not in ("xla", "pallas"):
@@ -130,13 +171,39 @@ class QuantLinear(Linear):
         key = (w.device, w.data_ptr(), w._version)
         if self._quantized is None or self._quantized[0] != key:
             with torch.no_grad():
-                self._quantized = (key, *quantize_weight(w))
+                amax = None
+                if self.reduce_group is not None:
+                    # a shard's rows are slices of the unsharded rows: their
+                    # scales come from the absmax over every shard
+                    amax = all_reduce_max(w.float().abs().amax(-1, keepdim=True),
+                                          self.reduce_group)
+                wq, ws = quantize_rows(w, amax)
+                self._quantized = (key, wq, ws[:, 0])
         return self._quantized[1:]
+
+    def _row_parallel(self, x: torch.Tensor) -> torch.Tensor:
+        """This shard's fp32 partial products at the global scales, summed
+        over the model group, then the bias as the route adds it."""
+        wq, ws = self.quantized_weight()
+        *lead, k = x.shape
+        x2 = x.reshape(-1, k)
+        amax = all_reduce_max(x2.float().abs().amax(-1, keepdim=True), self.reduce_group)
+        y = shard_product(x2, amax, wq, ws, self.impl)
+        dist.all_reduce(y, group=self.reduce_group)
+        if self.bias is None:
+            y = y.to(x.dtype)
+        elif self.impl == "pallas":
+            y = (y + self.bias.float()).to(x.dtype)
+        else:
+            y = y.to(x.dtype) + self.bias.to(x.dtype)
+        return y.reshape(*lead, wq.shape[0])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if torch.is_grad_enabled() and self.weight.requires_grad:
             raise RuntimeError("int8 GEMMs are inference-only: run under torch.no_grad() "
                                "or freeze the weights (a model that trains keeps quant='none')")
+        if self.reduce_group is not None:
+            return self._row_parallel(x)
         if self.impl == "pallas":
             from distill_any_depth_tpu_torch.ops.quant_matmul import w8a8_matmul as matmul
         else:

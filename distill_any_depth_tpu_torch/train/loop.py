@@ -1,4 +1,5 @@
-"""Distillation training loop for one process and one device.
+"""Distillation training loop, on one device or over a ``(data, model)``
+rank grid.
 
 Counterpart of distill_any_depth_tpu/train/loop.py (``Trainer.__init__``,
 ``run``, ``validate``, ``resume``, ``train_nyu``, ``train_images``): epochs,
@@ -21,8 +22,23 @@ resized and normalized there (``ops/preprocess``). ``run(profile_dir=...)``
 traces the first ``PROFILE_STEPS`` steps (``utils/profiling.trace``); every
 ``cfg.visualize_interval`` steps the student's and the first teacher's
 depth of the local view are drawn, and the loss and LR curves at the end
-(``utils/visualize``; a drawing error is logged and the run goes on). Not
-ported yet: the device mesh and the native loader.
+(``utils/visualize``; a drawing error is logged and the run goes on).
+
+With ``cfg.dp`` or ``cfg.tp`` above 1 (one process per device under
+``torchrun``, ``parallel/launch``), the Trainer builds the rank grid
+(``parallel/mesh``): every rank builds the full student and teachers from
+the seed or the files, then keeps its tensor-parallel shard
+(``parallel/tp``), so a run starts from the single-process weights.
+``cfg.batch_size`` is the global batch: each data rank steps on
+``batch_size / dp`` rows of it (``train_nyu`` through its epoch shard,
+``train_images`` by building the global batch and keeping its rows), and
+the teacher's ``teacher_chunk`` counts global rows as the batch does.
+Validation components are reduced over the data ranks, so early stopping
+and ``student_best`` are decided alike everywhere. Rank 0 alone writes
+(checkpoints, ``train_state/``, ``history.json``, the drawings and the
+profiler trace), the gathered full state with a barrier around each save,
+so the files of a run on any grid have the single-process layout. Not
+ported yet: the native loader.
 """
 from __future__ import annotations
 
@@ -42,6 +58,9 @@ from distill_any_depth_tpu_torch.data.images import ImageFolderDataset
 from distill_any_depth_tpu_torch.data.nyu import NYUDataset, iterate_batches
 from distill_any_depth_tpu_torch.models.factory import create_model, resolve_device
 from distill_any_depth_tpu_torch.ops.preprocess import preprocess_on_device
+from distill_any_depth_tpu_torch.parallel import launch
+from distill_any_depth_tpu_torch.parallel.mesh import host_local_batch_size, make_mesh, shard_batch
+from distill_any_depth_tpu_torch.parallel.tp import shard_model
 from distill_any_depth_tpu_torch.train.state import create_train_state
 from distill_any_depth_tpu_torch.train.step import make_eval_loss_fn, make_train_step
 from distill_any_depth_tpu_torch.utils import checkpoint as ckpt_io
@@ -62,11 +81,19 @@ class Trainer:
     random (``100 + i``) otherwise. The student runs the plain DPT tail, the
     JAX package's student configuration (its weights train); the teachers,
     without gradient, run the tail kernel and, with ``cfg.teacher_quant``,
-    int8 encoder GEMMs."""
+    int8 encoder GEMMs. With ``cfg.dp * cfg.tp`` above 1 the process group
+    must hold that many ranks (``ValueError`` otherwise), and the models
+    keep this rank's shards."""
 
     def __init__(self, cfg: TrainConfig, device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = (make_mesh(cfg.dp, cfg.tp)
+                     if cfg.dp * cfg.tp > 1 or launch.process_count() > 1 else None)
+        host_local_batch_size(cfg.dp, cfg.batch_size)  # raises unless dp divides the batch
+        if cfg.teacher_chunk % cfg.dp:
+            raise ValueError(f"teacher_chunk {cfg.teacher_chunk} counts global rows: it must "
+                             f"divide over dp={cfg.dp}")
         self.student = create_model(cfg.student, dtype=getattr(torch, cfg.student_compute_dtype),
                                     device=self.device, seed=cfg.seed, fused_tail=False)
         self.teachers = []
@@ -80,15 +107,24 @@ class Trainer:
             if path:
                 ckpt_io.load_state_dict_file(teacher, path)
             self.teachers.append(teacher.requires_grad_(False))
-        self.state = create_train_state(self.student, cfg.optimizer, cfg.adapter_only)
+        plan = shard_model(self.student, self.mesh)
+        for teacher in self.teachers:
+            shard_model(teacher, self.mesh)
+        self.state = create_train_state(self.student, cfg.optimizer, cfg.adapter_only, plan,
+                                        self._model_group)
         # the steps are built on the first batch: whether it carries one view
         # or two decides whether the second student forward is skipped
         self.train_step = None
         self.eval_loss = None
 
+    @property
+    def _model_group(self):
+        return None if self.mesh is None else self.mesh.model_group
+
     def _build_steps(self, views_shared: bool) -> None:
         args = (self.student, self.teachers, self.cfg.loss)
-        kw = dict(views_shared=views_shared, teacher_chunk=self.cfg.teacher_chunk)
+        kw = dict(views_shared=views_shared, teacher_chunk=self.cfg.teacher_chunk // self.cfg.dp,
+                  data_group=None if self.mesh is None else self.mesh.data_group)
         self.train_step = make_train_step(*args, **kw)
         self.eval_loss = make_eval_loss_fn(*args, **kw)
 
@@ -133,7 +169,8 @@ class Trainer:
         skips its first ``s % steps_per_epoch`` batches, so it continues the
         saved run's data order; without it the data restarts at epoch 0.
         With ``profile_dir``, the first ``PROFILE_STEPS`` steps of the run
-        are traced into ``profile_dir/trace.json``."""
+        are traced into ``profile_dir/trace.json`` (by rank 0). Over a rank
+        grid, ``train_batches`` yields this data rank's rows."""
         cfg = self.cfg
         os.makedirs(cfg.output_dir, exist_ok=True)
         try:
@@ -141,11 +178,17 @@ class Trainer:
                                    max_steps or (cfg.num_iterations or None), on_step,
                                    steps_per_epoch, profile_dir)
         except Exception:
-            self._save_weights("student_emergency")
-            logger.exception("training failed; emergency checkpoint written")
+            if cfg.tp == 1:
+                self._save_weights("student_emergency", barrier=False)
+                logger.exception("training failed; emergency checkpoint written")
+            else:
+                # gathering the shards would wait on ranks that may not come
+                logger.exception("training failed; no emergency checkpoint under tp > 1")
             raise
         self._save_weights("student_final")
-        ckpt_io.save_train_state(os.path.join(cfg.output_dir, "train_state"), self.state)
+        self._save_train_state()
+        if not launch.is_main_process():
+            return history
         with open(os.path.join(cfg.output_dir, "history.json"), "w") as f:
             json.dump(history, f)
         try:
@@ -176,7 +219,7 @@ class Trainer:
                 logger.warning("resuming at step %d without steps_per_epoch: the optimizer "
                                "state is exact but the data order restarts at epoch 0", step)
         tracing = contextlib.ExitStack()
-        if profile_dir:
+        if profile_dir and launch.is_main_process():
             tracing.enter_context(trace(profile_dir, self.device))
         profile_until = step + PROFILE_STEPS
         with tracing:
@@ -197,7 +240,7 @@ class Trainer:
                     total = metrics["total"]
                     epoch_loss = total if epoch_loss is None else epoch_loss + total
                     nbatches += 1
-                    timer.tick(g.shape[0])
+                    timer.tick(g.shape[0] * cfg.dp)
                     if profile_dir and step == profile_until:
                         tracing.close()
                         logger.info("profiler trace written to %s", profile_dir)
@@ -236,21 +279,41 @@ class Trainer:
 
     @torch.no_grad()
     def _visualize(self, local_image: torch.Tensor, step: int) -> None:
-        """The student's and the first teacher's depth of the local view,
-        drawn by ``utils/visualize``; an error is logged, not raised."""
+        """The student's and the first teacher's depth of the local view
+        (rank 0's rows; every model rank runs the forwards), drawn by
+        ``utils/visualize``; an error is logged, not raised."""
         try:
             from distill_any_depth_tpu_torch.utils.visualize import visualize_depth_predictions
 
             s_depth = self.student(local_image)[0].float().cpu().numpy()
             t_depth = self.teachers[0](local_image)[0].float().cpu().numpy()
-            visualize_depth_predictions(s_depth, t_depth, step, self.cfg.output_dir)
+            if launch.is_main_process():
+                visualize_depth_predictions(s_depth, t_depth, step, self.cfg.output_dir)
         except Exception:  # drawing must never fail a run
             logger.exception("visualization failed")
 
-    def _save_weights(self, name: str) -> str:
+    def _save_weights(self, name: str, barrier: bool = True) -> str:
+        """The student's full weights, written by rank 0 between barriers."""
         path = os.path.join(self.cfg.output_dir, f"{name}.safetensors")
-        ckpt_io.save_safetensors(path, self.student)
+        state = ckpt_io.reference_state(self.student, self._model_group)
+        if barrier:
+            launch.synchronize()
+        if launch.is_main_process():
+            ckpt_io.write_safetensors(path, state)
+        if barrier:
+            launch.synchronize()
         return path
+
+    def _save_train_state(self) -> None:
+        """The full train state, written by rank 0 between barriers."""
+        state = self.state.state_dict()
+        launch.synchronize()
+        try:
+            if launch.is_main_process():
+                ckpt_io.save_train_state(os.path.join(self.cfg.output_dir, "train_state"),
+                                         state)
+        finally:
+            launch.synchronize()
 
     def _save_step_checkpoint(self, step: int) -> None:
         """``student_checkpoint_{step}`` and the resumable train state beside
@@ -258,15 +321,15 @@ class Trainer:
         the JAX Trainer: the weights are written."""
         path = self._save_weights(f"student_checkpoint_{step}")
         try:
-            ckpt_io.save_train_state(os.path.join(self.cfg.output_dir, "train_state"),
-                                     self.state)
+            self._save_train_state()
         except OSError:
             logger.exception("periodic train_state save failed")
         logger.info("saved checkpoint %s", path)
 
     def resume(self, path: str) -> None:
         """Continue from the train state saved under ``path`` (a train-state
-        directory or a run's output directory)."""
+        directory or a run's output directory); every rank reads the full
+        state and keeps its shard."""
         self.state.load_state_dict(ckpt_io.restore_train_state(path))
 
     def validate(self, batches: Iterable[dict]) -> dict:
@@ -285,6 +348,11 @@ class Trainer:
         return {k: float(v) / n for k, v in sums.items()}
 
 
+def _data_index(cfg: TrainConfig) -> int:
+    """This process's data rank: rank r sits at ``divmod(r, tp)``."""
+    return launch.process_index() // cfg.tp
+
+
 def train_nyu(cfg: TrainConfig, root_dir: str | None = None,
               device: str | torch.device = "cuda", resume: str | None = None,
               profile_dir: str | None = None) -> dict:
@@ -293,7 +361,10 @@ def train_nyu(cfg: TrainConfig, root_dir: str | None = None,
     batch. ``resume`` (a run's output directory or its ``train_state``)
     continues a saved run in its parameters, optimizer and data order;
     ``profile_dir`` traces the first 3 steps. With ``cfg.device_preprocess``
-    the batches carry uint8 frames at their native size."""
+    the batches carry uint8 frames at their native size. Over a rank grid
+    each data rank reads its round-robin shard of every epoch
+    (``data/nyu.epoch_order``) at ``batch_size / dp`` rows a step, and
+    every rank runs the same number of steps."""
     ds = NYUDataset("train", dataset_dir=cfg.dataset_dir, image_size=cfg.image_size,
                     root_dir=root_dir, device_preprocess=cfg.device_preprocess)
     n_val = int(len(ds) * cfg.val_split)
@@ -303,15 +374,16 @@ def train_nyu(cfg: TrainConfig, root_dir: str | None = None,
     trainer = Trainer(cfg, device)
     if resume:
         trainer.resume(resume)
+    b = cfg.batch_size // cfg.dp
+    shard = dict(shard_index=_data_index(cfg), num_shards=cfg.dp)
     return trainer.run(
         train_batches=lambda epoch: iterate_batches(
-            ds, cfg.batch_size, shuffle=True, seed=cfg.seed + epoch, indices=train_idx),
-        val_batches=((lambda: iterate_batches(ds, cfg.batch_size, shuffle=False,
-                                              indices=val_idx))
+            ds, b, shuffle=True, seed=cfg.seed + epoch, indices=train_idx, **shard),
+        val_batches=((lambda: iterate_batches(ds, b, shuffle=False, indices=val_idx, **shard))
                      # fewer validation samples than a batch would yield no batch
-                     if len(val_idx) >= cfg.batch_size else None),
+                     if len(val_idx) // cfg.dp >= b else None),
         max_steps=cfg.num_iterations or None,
-        steps_per_epoch=len(train_idx) // cfg.batch_size,
+        steps_per_epoch=(len(train_idx) // cfg.dp) // b,
         profile_dir=profile_dir,
     )
 
@@ -342,7 +414,9 @@ def train_images(cfg: TrainConfig, image_dir: str | None = None, min_local_crop:
     shuffles are those of ``train_nyu``; validation runs when it holds a
     full batch. A resumed run is data-exact within its first epoch: the
     dataset's crop generator starts afresh in every process, as in the JAX
-    package."""
+    package. Over a rank grid every data rank builds the global batch and
+    keeps its rows: the crop generator draws in the order of access, so a
+    rank that decoded its own images alone would draw other crops."""
     ds = ImageFolderDataset(image_dir or cfg.dataset_dir, global_size=cfg.image_size,
                             local_size=cfg.image_size,
                             min_local_crop=min(min_local_crop, cfg.image_size), seed=cfg.seed)
@@ -353,10 +427,12 @@ def train_images(cfg: TrainConfig, image_dir: str | None = None, min_local_crop:
     trainer = Trainer(cfg, device)
     if resume:
         trainer.resume(resume)
+    d = _data_index(cfg)
     return trainer.run(
-        train_batches=lambda epoch: image_batches(ds, train_idx, cfg.batch_size,
-                                                  cfg.seed + epoch),
-        val_batches=((lambda: image_batches(ds, val_idx, cfg.batch_size))
+        train_batches=lambda epoch: (shard_batch(b, d, cfg.dp) for b in image_batches(
+            ds, train_idx, cfg.batch_size, cfg.seed + epoch)),
+        val_batches=((lambda: (shard_batch(b, d, cfg.dp)
+                               for b in image_batches(ds, val_idx, cfg.batch_size)))
                      if n_val >= cfg.batch_size else None),
         max_steps=cfg.num_iterations or None,
         steps_per_epoch=len(train_idx) // cfg.batch_size,

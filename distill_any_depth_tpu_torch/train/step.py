@@ -10,19 +10,34 @@ stack in fp32, the backward, then clip, guard and Adam
 The JAX step draws the teacher with ``jax.random``; here ``teacher_idx``
 is an argument (the Trainer draws it from a seeded ``torch.Generator``;
 with one teacher it is 0).
+
+Data parallelism (``data_group``): the step runs on this data rank's rows
+of the global batch; after the backward every parameter's gradient is
+averaged over the data group in flat fp32 buckets (``all_reduce_gradients``,
+frozen parameters too, whose gradients the reported norm reads), HDN's
+normalizer counts the global batch (``losses/hdn``), and the loss
+components returned are the global ones (their mean over the group), so
+every rank clips, guards, updates and reports the same. Under tensor
+parallelism the replicated parameters' gradients are averaged over the
+model group too. The teacher draw depends on ``(seed, step)`` alone, the
+same on every rank.
 """
 from __future__ import annotations
 
 from typing import Callable, Sequence
 
 import torch
+import torch.distributed as dist
 
 from distill_any_depth_tpu_torch.configs import LossConfig
 from distill_any_depth_tpu_torch.losses.distill import combined_distillation_loss
 from distill_any_depth_tpu_torch.losses.feature import feature_distillation_loss
 from distill_any_depth_tpu_torch.train.state import TrainState, apply_gradients
 
-__all__ = ["chunked_apply", "make_train_step", "make_eval_loss_fn"]
+__all__ = ["BUCKET_BYTES", "chunked_apply", "all_reduce_gradients", "mean_over",
+           "make_train_step", "make_eval_loss_fn"]
+
+BUCKET_BYTES = 1 << 26  # the gradients reduced by one all_reduce
 
 
 def chunked_apply(model: Callable, x: torch.Tensor, chunk: int):
@@ -36,9 +51,49 @@ def chunked_apply(model: Callable, x: torch.Tensor, chunk: int):
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
+@torch.no_grad()
+def all_reduce_gradients(params: Sequence[torch.Tensor], group) -> None:
+    """Replace each parameter's gradient by its mean over ``group``: flat
+    fp32 buckets of up to ``BUCKET_BYTES``, one ``all_reduce`` each. A
+    parameter without a gradient gets zeros (JAX differentiates it to 0)."""
+    size = dist.get_world_size(group)
+    grads = []
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad)
+    buckets, nbytes = [[]], 0
+    for g in grads:
+        if buckets[-1] and nbytes + g.numel() * 4 > BUCKET_BYTES:
+            buckets.append([])
+            nbytes = 0
+        buckets[-1].append(g)
+        nbytes += g.numel() * 4
+    for bucket in buckets:
+        flat = torch.cat([g.reshape(-1).float() for g in bucket])
+        dist.all_reduce(flat, group=group)
+        flat /= size
+        offset = 0
+        for g in bucket:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+
+def mean_over(values: dict, group) -> dict:
+    """The mean of each device scalar of ``values`` over ``group``, in one
+    ``all_reduce`` (``values`` as they are without a group)."""
+    if group is None:
+        return values
+    keys = list(values)
+    stacked = torch.stack([values[k].detach().float() for k in keys])
+    dist.all_reduce(stacked, group=group)
+    stacked /= dist.get_world_size(group)
+    return dict(zip(keys, stacked.unbind()))
+
+
 def _loss_fn(student, teachers: Sequence, loss_cfg: LossConfig, teacher_idx: int,
              global_image: torch.Tensor, local_image: torch.Tensor, views_shared: bool,
-             teacher_chunk: int):
+             teacher_chunk: int, data_group=None):
     # the loss reductions run in fp32 even for a bf16 student
     s_local_depth, s_local_feat = student(local_image)
     s_local_depth = s_local_depth.float()
@@ -54,26 +109,36 @@ def _loss_fn(student, teachers: Sequence, loss_cfg: LossConfig, teacher_idx: int
         t_feat = t_feat.float()
     feat_loss = feature_distillation_loss(s_local_feat, t_feat)
     return combined_distillation_loss(loss_cfg, s_global_depth, s_local_depth, s_local_feat,
-                                      t_depth, feat_loss=feat_loss)
+                                      t_depth, feat_loss=feat_loss, data_group=data_group)
 
 
 def make_train_step(student: torch.nn.Module, teachers: Sequence[torch.nn.Module],
                     loss_cfg: LossConfig, views_shared: bool = False,
-                    teacher_chunk: int = 0):
+                    teacher_chunk: int = 0, data_group=None):
     """``step(state, teacher_idx, global_image, local_image) -> metrics``:
     one update of ``state`` (which holds ``student``'s optimizer); images
-    are ``[B, 3, H, W]`` on the student's device. ``metrics`` holds the
-    loss components, ``grad_norm`` (unclipped, over every parameter's
-    gradient, frozen ones included) and ``teacher_idx``."""
+    are ``[B, 3, H, W]`` on the student's device (a data rank's rows with
+    ``data_group``). ``metrics`` holds the loss components, ``grad_norm``
+    (unclipped, over every parameter's gradient, frozen ones included) and
+    ``teacher_idx``."""
 
     def step(state: TrainState, teacher_idx: int, global_image, local_image) -> dict:
         for p in state.params:
             p.grad = None
         total, components = _loss_fn(student, teachers, loss_cfg, teacher_idx, global_image,
-                                     local_image, views_shared, teacher_chunk)
+                                     local_image, views_shared, teacher_chunk, data_group)
         total.backward()
+        if data_group is not None:
+            all_reduce_gradients(state.params, data_group)
+        if state.model_group is not None:
+            # the replicated parameters' gradients agree across the model
+            # group only up to the card's non-deterministic backwards (the
+            # head's resize accumulates with atomics): their mean keeps the
+            # replicas equal, and the clip and guard alike
+            all_reduce_gradients([p for p in state.params if id(p) not in state.splits],
+                                 state.model_group)
         norm = apply_gradients(state)
-        metrics = {k: v.detach() for k, v in components.items()}
+        metrics = mean_over({k: v.detach() for k, v in components.items()}, data_group)
         metrics["grad_norm"] = norm
         metrics["teacher_idx"] = teacher_idx
         return metrics
@@ -83,14 +148,14 @@ def make_train_step(student: torch.nn.Module, teachers: Sequence[torch.nn.Module
 
 def make_eval_loss_fn(student: torch.nn.Module, teachers: Sequence[torch.nn.Module],
                       loss_cfg: LossConfig, views_shared: bool = False,
-                      teacher_chunk: int = 0):
+                      teacher_chunk: int = 0, data_group=None):
     """``eval_loss(teacher_idx, global_image, local_image) -> components``,
-    without gradients."""
+    without gradients (the global components with ``data_group``)."""
 
     @torch.no_grad()
     def eval_loss(teacher_idx: int, global_image, local_image) -> dict:
         _, components = _loss_fn(student, teachers, loss_cfg, teacher_idx, global_image,
-                                 local_image, views_shared, teacher_chunk)
-        return components
+                                 local_image, views_shared, teacher_chunk, data_group)
+        return mean_over(components, data_group)
 
     return eval_loss

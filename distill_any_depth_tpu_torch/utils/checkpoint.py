@@ -44,6 +44,8 @@ from typing import Mapping
 
 import torch
 
+from distill_any_depth_tpu_torch.parallel.tp import gather_tensors, tp_plan
+
 __all__ = ["LORA_B_FILE_SCALE", "reference_state", "normalize_keys", "load_state_dict",
            "load_state_dict_file", "read_safetensors", "write_safetensors", "save_safetensors",
            "convert_checkpoint", "save_train_state", "restore_train_state"]
@@ -132,12 +134,18 @@ def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor]) -> None:
     os.replace(tmp, path)
 
 
-def reference_state(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+def reference_state(model: torch.nn.Module, model_group=None) -> dict[str, torch.Tensor]:
     """``model``'s parameters in the reference layout, fp32: the key set
-    and values that JAX ``params_to_torch`` emits (buffers are left out)."""
+    and values that JAX ``params_to_torch`` emits (buffers are left out).
+    With ``model_group`` the model holds tensor-parallel shards, which are
+    gathered whole (a collective over the group)."""
+    names, params = zip(*[(k, p.detach()) for k, p in model.named_parameters()])
+    if model_group is not None:
+        plan = tp_plan(names)
+        params = gather_tensors(list(params), [plan.get(k) for k in names], model_group)
     out = {}
-    for k, p in model.named_parameters():
-        v = p.detach().float()
+    for k, p in zip(names, params):
+        v = p.float()
         if k.endswith(".lora_B"):
             v = v * LORA_B_FILE_SCALE
         out[_SSF_PORT.sub(r"adapters.pretrained.blocks_\1.\2", k)] = v
@@ -203,12 +211,12 @@ def convert_checkpoint(in_path: str, out_path: str) -> int:
 
 
 def save_train_state(path: str, state) -> None:
-    """``state.state_dict()`` (a ``train/state.TrainState``) into the
-    directory ``path``, replacing what it held."""
+    """``state.state_dict()`` (a ``train/state.TrainState``, or the dict it
+    returned) into the directory ``path``, replacing what it held."""
     os.makedirs(path, exist_ok=True)
     target = os.path.join(path, _STATE_FILE)
     tmp = f"{target}.{os.getpid()}.tmp"
-    torch.save(state.state_dict(), tmp)
+    torch.save(state if isinstance(state, dict) else state.state_dict(), tmp)
     os.replace(tmp, target)
 
 

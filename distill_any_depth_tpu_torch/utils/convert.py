@@ -26,7 +26,8 @@ numpy arrays, so the weights of one JAX model load into the port with
 The result is the reference layout of a file, not the port's module state:
 ``utils/checkpoint.load_state_dict`` loads it into a model (for a model
 without adapters the two are the same, and ``load_state_dict(strict=True)``
-takes it as it is).
+takes it as it is). A tensor-parallel rank keeps its shard of it through
+``parallel/tp.shard_state_dict``, which reads the same names.
 """
 from __future__ import annotations
 

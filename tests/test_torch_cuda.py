@@ -16,7 +16,10 @@ agree bit for bit. The W8A8 GEMM (kernel 9) equals its plain version bit
 for bit: the same true divisions, an exact integer product, the same
 roundings in the dequant. A two-view train step launches the kernels
 its two student forwards need, and an adapter-only step leaves every frozen
-parameter bit-equal.
+parameter bit-equal. Under tensor parallelism over 2 ranks, kernels 1 and 3
+run at a rank's share of the heads (ViT-B's 6 of 12, ViT-L's 8 of 16), and
+a row-parallel int8 layer's shards through kernel 9 (each bit-equal to its
+plain version) sum to the unsharded layer's product.
 """
 import dataclasses
 
@@ -45,7 +48,7 @@ from distill_any_depth_tpu_torch.ops.flash_attention import (
 )
 from distill_any_depth_tpu_torch.ops.window import local_window_bias, segment_bias
 from distill_any_depth_tpu_torch.ops.stats import _order_bits, kth_select, kth_select_reference
-from distill_any_depth_tpu_torch.ops.quant import quantize_weight
+from distill_any_depth_tpu_torch.ops.quant import quantize_rows, quantize_weight, shard_product
 from distill_any_depth_tpu_torch.ops.quant_matmul import w8a8_matmul, w8a8_reference
 from distill_any_depth_tpu_torch.train.state import create_train_state
 from distill_any_depth_tpu_torch.train.step import make_train_step
@@ -117,6 +120,52 @@ def test_attention_backward_is_deterministic(cuda_device, dtype):
     out, lse = _forward(qkv, 2, with_lse=True)
     first = packed_attention_backward(qkv, out, lse, g, 2)
     assert torch.equal(first, packed_attention_backward(qkv, out, lse, g, 2))
+
+
+@pytest.mark.parametrize("heads", [6, 8])
+@pytest.mark.parametrize("dtype,fwd_tol,bwd_tol", [(torch.float32, 1e-5, 1e-5),
+                                                   (torch.bfloat16, 6e-3, 2.5e-2)])
+def test_attention_kernels_at_tensor_parallel_heads(cuda_device, heads, dtype, fwd_tol,
+                                                    bwd_tol):
+    """Kernels 1 and 3 at a tp=2 rank's heads of ViT-B (6) and ViT-L (8) at
+    392^2 (N = 785), against the plain forward and autograd of it."""
+    gen = torch.Generator(device=cuda_device).manual_seed(heads)
+    c = heads * 64
+    qkv = torch.randn(2, 785, 3 * c, generator=gen, device=cuda_device).to(dtype)
+    g = torch.randn(2, 785, c, generator=gen, device=cuda_device).to(dtype)
+    x, xr = qkv.clone().requires_grad_(), qkv.clone().requires_grad_()
+    out, ref = mha_flash_packed(x, heads), mha_packed_reference(xr, heads)
+    assert ((out.float() - ref.float()).abs() <= fwd_tol * (1 + ref.float().abs())).all()
+    out.backward(g)
+    ref.backward(g)
+    assert ((x.grad.float() - xr.grad.float()).abs()
+            <= bwd_tol * (1 + xr.grad.float().abs())).all()
+
+
+@pytest.mark.parametrize("m,k,n", [(6280, 4096, 1024), (3140, 3072, 768)])
+def test_row_parallel_int8_shards_sum_to_unsharded(cuda_device, m, k, n):
+    """A row-parallel W8A8 layer over 2 shards (ViT-L's and ViT-B's fc2 at
+    392^2): each shard's kernel-9 product at the global row and column
+    scales equals its plain version bit for bit, and the shards' fp32 sum
+    is the unsharded product in another summation order."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    x = torch.randn(m, k, generator=gen, device=cuda_device).to(torch.bfloat16)
+    w = torch.randn(n, k, generator=gen, device=cuda_device) * 0.02
+    wq, ws = quantize_weight(w)
+    amax = x.float().abs().amax(-1, keepdim=True)
+    parts = []
+    for half in (slice(0, k // 2), slice(k // 2, k)):
+        before = w8a8_matmul.launches
+        got = shard_product(x[:, half], amax, wq[:, half], ws, "pallas")
+        assert w8a8_matmul.launches == before + 1 and got.dtype == torch.float32
+        plain = shard_product(x[:, half].cpu(), amax.cpu(), wq[:, half].cpu(), ws.cpu(),
+                              "pallas")
+        assert torch.equal(got.cpu(), plain)
+        parts.append(got)
+    want = w8a8_reference(x, wq, ws, None, torch.float32)
+    xq, _ = quantize_rows(x)
+    assert torch.equal(quantize_rows(x[:, : k // 2], amax)[0], xq[:, : k // 2])
+    assert ((parts[0] + parts[1] - want).abs() <= 1e-5 * (1 + want.abs())).all()
 
 
 @pytest.mark.parametrize("n", [1, 1000, 153664])

@@ -20,8 +20,8 @@
   draw depends only on ``(seed, step)`` and a validation batch's only on
   ``(seed + 1, batch index)``, as the JAX step's ``fold_in`` keys.
 - ``cli.train`` over ``data/smoke`` for 2 steps, with the ViT-B and the
-  windowed student and with ``--teacher_quant int8_pallas``, and its
-  refusal of the mesh flags (``--dp``, ``--tp``), not ported yet.
+  windowed student and with ``--teacher_quant int8_pallas`` (``--dp`` and
+  ``--tp`` are in ``tests/test_torch_parallel.py``).
 """
 import dataclasses
 import json
@@ -298,12 +298,6 @@ def test_cli_trains_on_smoke_data(tmp_path, monkeypatch):
     saved = json.loads((out / "history.json").read_text())
     assert saved == history
     assert len(history["lr"]) == 2 and np.isfinite(history["train_loss"]).all()
-
-
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--tp", "2"]], ids=lambda f: f[0])
-def test_cli_refuses_features_not_ported(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        train_cli.main(["--output_dir", str(tmp_path), *flag])
 
 
 def test_cli_trains_with_int8_teacher_on_smoke_data(tmp_path, monkeypatch):
