@@ -160,7 +160,42 @@ Phases, each of which fails the run if it fails:
    ``int8_pallas`` ViT-L teacher under tp=2 (96 launches of kernel 9, the
    row-parallel layers at the global scales) against the one-process int8
    depth (corr >= 0.99); ``cli.infer`` and ``cli.pseudo_label`` on the two
-   ranks, whose files' union equals one process's byte for byte.
+   ranks, whose files' union equals one process's byte for byte;
+21. main path 10, the JAX package's last modules (run between phases 20
+   and 16; the phase prints its time against a budget of 150 s):
+   ``utils/export`` programs of phase 6's ViT-B (392^2 bs8, the weights in
+   the program), phase 14's ``int8_pallas`` ViT-L (518^2 bs8, the weights
+   as arguments: the artifact under half their bytes) and phase 9's
+   windowed teacher (518^2 bs8 and 1036^2 bs1), each run eagerly with its
+   launches counted, then all loaded and run by one process that imports
+   only the port's op registrations (``utils/export``, no ``models/``):
+   each depth bit for bit the eager one (else held at path 1's limits), the
+   launches counted by kernel name with the profiler (kernel 1 12, kernel 2
+   1; kernel 9 96 and kernel 1 24; kernel 5 12; kernel 7 12, a forward),
+   their load and forward times beside the eager forward's; student remat on
+   phase 7's trainer (path 2, bs16 392^2 bf16: kernel 1 72 a step) and on a
+   windowed trainer at 518^2 bs16 (kernel 5 24 a step): each first step
+   against the step without remat from the same weights (bf16: the loss bit
+   for bit, the gradient norm's distance from the median of six steps
+   without remat within 4x their spread; fp32 bs2: the loss bit for bit, the norm within 1e-5), 3 remat
+   steps with their launches, both steps timed in turns with their peak
+   memory; ``attn_impl="reference"`` through ``predict`` (no launch of
+   kernel 1) and ``cli.infer --fused_tail off`` (no launch of kernel 2),
+   each depth against the default forward at path 1's limits; the host
+   cost of a ``torch.ops.dad`` call against the direct wrapper (kernel 1 at
+   path 1's shape) as a share of path 1's forward and path 2's step; a step
+   with ``loss_weights`` against the same lambdas in ``LossConfig`` (total
+   bit for bit) and ``tune_loss_weights_traced`` on path 2's pair (3
+   lambdas x 2 steps, 1 validation batch: path 2's launches a step, sorted
+   finite scores, ``tuning_results.json``); the native loader (built
+   against the system OpenCV where its headers exist: its batches against
+   the Python loader's bit for bit; else g++'s error printed), each
+   loader's images/s over phase 17's 64 NYU pairs, and 2 steps of
+   ``cli.train`` on the default config whose log names the loader taken
+   (and the fallback where the native one does not build);
+   ``cli.hdn_demo.main()`` against the CPU (1e-5 relative, kernel 4
+   launched); path 1's depth of one image as a PLY point cloud (the vertex
+   count checked).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -168,6 +203,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -972,9 +1008,11 @@ def depth_vs_cpu(tag: str, arch: str, res: int, depth0: np.ndarray, images, limi
     return compare_depth(tag, depth0, ref, limits, time.time() - t0)
 
 
-def compare_depth(tag: str, depth0: np.ndarray, ref: np.ndarray, limits, cpu_s: float) -> dict:
+def compare_depth(tag: str, depth0: np.ndarray, ref: np.ndarray, limits, cpu_s: float,
+                  against: str = "card bf16 vs CPU fp32") -> dict:
     """``depth_vs_cpu``'s comparison of the card's depth of one image with
-    the CPU fp32 forward's ``ref``, which took ``cpu_s``."""
+    the CPU fp32 forward's ``ref``, which took ``cpu_s`` (or, named by
+    ``against``, with another run's depth)."""
 
     def norm(d):
         return (d - d.min()) / (d.max() - d.min() + 1e-8)
@@ -986,7 +1024,7 @@ def compare_depth(tag: str, depth0: np.ndarray, ref: np.ndarray, limits, cpu_s: 
     corr = float(np.corrcoef(a, r)[0, 1])
     max_tol, mean_tol, corr_tol = limits
     ok = diff.max() <= max_tol and diff.mean() <= mean_tol and corr >= corr_tol
-    log(f"[{tag}] card bf16 vs CPU fp32 ({cpu_s:.1f} s), min-max-normalized depth of image 0 "
+    log(f"[{tag}] {against} ({cpu_s:.1f} s), min-max-normalized depth of image 0 "
         f"over the {live.mean():.3f} of pixels where either is positive: max_abs "
         f"{diff.max():.4f} mean_abs {diff.mean():.5f} corr {corr:.5f} (tol max<={max_tol}, "
         f"mean<={mean_tol}, corr>={corr_tol}) {'ok' if ok else 'FAIL'}")
@@ -2572,10 +2610,496 @@ def phase_multi_rank(trainer: Trainer, gen) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 21
+# path 10: the modules of the last slice. Kernel names a loaded exported
+# program's launches are counted by (its process imports no wrapper of
+# this script's counters), and the counter each stands for; kernel 2
+# starts two tail_conv_wgmma launches a call
+EXPORT_KERNELS = {"attention": r"packed_attn_wgmma[<(]",
+                  "tail": r"tail_conv_wgmma<",
+                  "attention_bias": r"masked_attn_wgmma<.*BiasMask",
+                  "attention_banded": r"masked_attn_wgmma<.*WindowMask",
+                  "w8a8": r"gemm_wgmma<"}
+# path 10's budget of seconds (the phase prints its time)
+PATH10_BUDGET_S = 150
+# relative difference of the gradient norm of a remat step against the step
+# without remat from the same weights: in fp32 (the recompute repeats the
+# forward exactly; the backward's fp32 atomics may add in another order), and
+# in bf16 as a multiple of the spread of REMAT_BF16_RUNS steps without remat,
+# measured from their median (the bf16 atomics of the head's resize backward
+# spread the norm: remat against no remat read 1.7e-4 on an H100). Against
+# three runs' spread an equal step fails 4x about 3% of the time (the range
+# of three draws falls under a quarter of a fourth draw's distance); against
+# six runs' spread from their median, about 0.02% (simulated with normal
+# draws)
+REMAT_GRAD_NORM_RTOL, REMAT_BF16_SPREAD, REMAT_BF16_RUNS = 1e-5, 4, 6
+# the HDN demo on the card against the CPU (relative): sums over 384^2 in
+# another order, the medians exact (kernel 4)
+HDN_DEMO_RTOL = 1e-5
+TUNER_GRID = {"lambda_sc": (0.25, 0.5, 1.0)}
+
+# a process that imports only the port's op registrations (utils/export)
+# loads each exported program, runs it on the card and reports: the depth
+# against the eager one, the kernels launched by name, and its times
+EXPORT_LOADER = r'''
+import json, re, sys, time, torch
+from distill_any_depth_tpu_torch.utils.export import load_exported, load_exported_with_params
+spec = json.load(open(sys.argv[1]))
+out = {}
+for item in spec["programs"]:
+    t0 = time.perf_counter()
+    blob = open(item["program"], "rb").read()
+    fn = (load_exported(blob) if item["weights"] is None
+          else load_exported_with_params(blob, item["weights"], "cuda"))
+    load_s = time.perf_counter() - t0
+    x = torch.load(item["x"]).cuda()
+    want = torch.load(item["want"]).cuda()
+    t0 = time.perf_counter()
+    got = fn(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn(x)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    names = {e.key: e.count for e in events}
+    kernels = {label: sum(c for k, c in names.items() if re.search(p, k))
+               for label, p in spec["kernels"].items()}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        fn(x)
+    end.record()
+    torch.cuda.synchronize()
+    out[item["name"]] = {"equal": bool(torch.equal(got, want)),
+                         "max_abs": float((got - want).abs().max()), "kernels": kernels,
+                         "kernel_names": sorted(k for k in names if "wgmma" in k)[:12],
+                         "load_s": load_s, "first_call_s": first_s,
+                         "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
+                         "device_launches": sum(e.count for e in events),
+                         "ms": start.elapsed_time(end) / 5, "depth": item["want"]}
+    if not out[item["name"]]["equal"]:
+        torch.save(got.cpu(), item["want"] + ".loaded.pt")
+out["modules"] = sorted(m for m in sys.modules if m.startswith("distill_any_depth_tpu"))
+json.dump(out, open(spec["result"], "w"))
+'''
+
+
+def export_counts(kernels: dict) -> dict:
+    """A loaded program's launches by kernel name as this script's counts."""
+    counts = {k: 0 for k in COUNTERS}
+    counts.update({k: v for k, v in kernels.items() if k != "tail"})
+    counts["tail"] = kernels["tail"] // 2
+    return counts
+
+
+def path10_exports(model, qmodel, wmodel) -> dict:
+    """Four programs exported with ``utils/export`` (path 1's ViT-B 392^2 bs8
+    with its weights; path 5's ViT-L 518^2 bs8 ``int8_pallas`` with its
+    weights as arguments; the windowed teacher at 518^2 bs8 and at 1036^2
+    bs1), each run eagerly here with its launches counted, then all loaded
+    and run in one process that imports only the port's op registrations."""
+    from distill_any_depth_tpu_torch.utils import export
+
+    d = OUT / "path10_export"
+    d.mkdir(parents=True, exist_ok=True)
+    specs = [("vitb_392", model, RES, BATCH, False, {"attention": 12, "tail": 1}),
+             ("vitl_int8_518_args", qmodel, QUANT_RES, QUANT_BATCH, True,
+              {"attention": 24, "tail": 1, "w8a8": 96}),
+             ("window_518", wmodel, WINDOW_RES[0], BATCH, False,
+              {"attention_bias": 12, "tail": 1}),
+             ("window_1036", wmodel, WINDOW_RES[1], 1, False,
+              {"attention_banded": 12, "tail": 1})]
+    programs, out = [], {}
+    for name, m, res, batch, as_args, per_forward in specs:
+        x = torch.from_numpy(train_images(batch, seed=21, res=res)).cuda().permute(0, 3, 1, 2)
+        x = x.contiguous()
+        reset_counts()
+        with torch.no_grad():
+            want = m(x)[0].float()
+            torch.cuda.synchronize()
+            eager = read_counts()
+            eager_ms = cuda_ms(lambda: m(x), iters=5, warmup=1)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                m(x)
+                torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        eager_dev = (sum(e.self_device_time_total for e in events) / 1e3,
+                     sum(e.count for e in events))
+        check(eager == {k: per_forward.get(k, 0) for k in COUNTERS},
+              f"export {name}: eager launches {eager}")
+        weights = str(d / f"{name}.safetensors") if as_args else None
+        t0 = time.time()
+        blob = (export.export_forward_with_params(m, weights, res, batch) if as_args
+                else export.export_forward(m, res, batch))
+        export_s = time.time() - t0
+        (d / f"{name}.pt2").write_bytes(blob)
+        torch.save(x.cpu(), d / f"{name}_x.pt")
+        torch.save(want.cpu(), d / f"{name}_depth.pt")
+        weight_bytes = sum(p.numel() * p.element_size() for p in m.parameters())
+        out[name] = {"export_s": export_s, "artifact_bytes": len(blob),
+                     "weight_bytes": weight_bytes, "eager_counts": eager,
+                     "eager_ms": eager_ms, "eager_device_ms": eager_dev[0],
+                     "eager_device_launches": eager_dev[1], "per_forward": per_forward}
+        where = " in the file beside it" if as_args else ""
+        log(f"[export] {name}: traced and saved in {export_s:.1f} s, {len(blob) / 1e6:.1f} MB "
+            f"({weight_bytes / 1e6:.1f} MB of weights{where})")
+        if as_args:
+            check(len(blob) < weight_bytes / 2, f"export {name}: the artifact holds the weights")
+        programs.append({"name": name, "program": str(d / f"{name}.pt2"), "weights": weights,
+                         "x": str(d / f"{name}_x.pt"), "want": str(d / f"{name}_depth.pt")})
+    spec = d / "spec.json"
+    spec.write_text(json.dumps({"programs": programs, "kernels": EXPORT_KERNELS,
+                                "result": str(d / "loaded.json")}))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_LOADER, str(spec)], capture_output=True,
+                          text=True, timeout=600)
+    log(f"[export] the loader process ran in {time.time() - t0:.1f} s")
+    check(proc.returncode == 0, f"export loader failed:\n{proc.stdout[-2000:]}\n"
+                                f"{proc.stderr[-4000:]}")
+    loaded = json.loads((d / "loaded.json").read_text())
+    modules = loaded.pop("modules")
+    log(f"[export] the loader imported {modules}")
+    check(not [m for m in modules if ".models" in m], "export loader imported the model code")
+    for name, res in loaded.items():
+        counts = export_counts(res["kernels"])
+        want = {k: out[name]["per_forward"].get(k, 0) for k in COUNTERS}
+        log(f"[export] {name} loaded in {res['load_s']:.2f} s, first call {res['first_call_s']:.2f}"
+            f" s, {res['ms']:.3f} ms a forward (eager {out[name]['eager_ms']:.3f} ms here), "
+            f"{res['device_ms']:.3f} ms of {res['device_launches']} kernels on the device "
+            f"(eager {out[name]['eager_device_ms']:.3f} ms of "
+            f"{out[name]['eager_device_launches']}); "
+            f"launches by kernel name {counts}; bit-equal to "
+            f"the eager depth: {res['equal']} (max |diff| {res['max_abs']:.3g}); kernels "
+            f"{res['kernel_names']}")
+        check(counts == want, f"export {name}: launches {counts}, expected {want}")
+        if not res["equal"]:
+            # held at path 1's bf16 limits, with the difference on record
+            got = torch.load(res["depth"] + ".loaded.pt")[0].numpy()
+            compare_depth(f"export {name}", got, torch.load(res["depth"])[0].numpy(),
+                          (E2E_MAX, E2E_MEAN, E2E_CORR), 0, "loaded program vs eager")
+        out[name].update(counts=counts, **{k: res[k] for k in (
+            "equal", "max_abs", "load_s", "first_call_s", "ms", "device_ms", "device_launches")})
+        (d / f"{name}.pt2").unlink()
+        if out[name]["per_forward"].get("w8a8"):
+            Path(d / f"{name}.safetensors").unlink()
+    return out
+
+
+def first_steps(trainer: Trainer, xs: torch.Tensor, remats) -> list:
+    """One step for each entry of ``remats`` (student remat on or off), each
+    from the same weights: the metrics of each, the weights restored."""
+    student = trainer.student
+    saved = {k: v.detach().clone() for k, v in student.state_dict().items()}
+    seen = []
+    for remat in remats:
+        student.load_state_dict(saved)
+        student.pretrained.remat = remat
+        metrics = trainer.train_step(trainer.state, 0, xs, xs)
+        seen.append({k: float(v) for k, v in metrics.items() if k != "teacher_idx"})
+    student.load_state_dict(saved)
+    student.pretrained.remat = False
+    return seen
+
+
+def remat_steps(tag: str, trainer: Trainer, xs: torch.Tensor, want: dict, images) -> dict:
+    """Path ``tag``'s step with the student's blocks recomputed, against the
+    step without remat from the same weights: in bf16 at the path's batch,
+    the loss bit for bit and the gradient norm within
+    ``REMAT_BF16_SPREAD`` times the spread of ``REMAT_BF16_RUNS`` steps
+    without remat, measured from their median (the bf16 backward adds with atomics in no fixed order: the head's resize
+    backward); in fp32 at bs2 (the models' compute dtype switched), the loss
+    bit for bit and the gradient norm within ``REMAT_GRAD_NORM_RTOL``. Then 3
+    remat steps with their launches, and both steps timed in turns with
+    their peak memory."""
+    student, teacher = trainer.student, trainer.teachers[0]
+    if trainer.train_step is None:
+        trainer._build_steps(views_shared=True)
+
+    def rel(a, b):
+        return abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+
+    *plain, remat = first_steps(trainer, xs, (False,) * REMAT_BF16_RUNS + (True,))
+    norms = [a["grad_norm"] for a in plain]
+    mid = statistics.median(norms)
+    spread = (max(norms) - min(norms)) / mid
+    remat_rel = abs(remat["grad_norm"] - mid) / mid
+    log(f"[{tag}] first bf16 step without remat {plain[0]}, grad norms of {len(plain)} runs "
+        f"{norms}; with remat {remat}: grad norm {remat_rel:.3g} relative to their median, "
+        f"the runs without remat {spread:.3g} apart")
+    check(all(a["total"] == remat["total"] for a in plain), f"{tag}: the remat loss differs")
+    check(remat_rel <= max(REMAT_GRAD_NORM_RTOL, REMAT_BF16_SPREAD * spread),
+          f"{tag}: bf16 gradient norm {remat_rel:.3g} relative (spread {spread:.3g})")
+    dtypes = student.dtype, teacher.dtype
+    student.dtype = teacher.dtype = torch.float32
+    fp32 = first_steps(trainer, xs[:2], (False, True))
+    student.dtype, teacher.dtype = dtypes
+    fp32_rel = rel(fp32[1], fp32[0])
+    log(f"[{tag}] first fp32 bs2 step without remat {fp32[0]}, with {fp32[1]}: grad norm "
+        f"{fp32_rel:.3g} relative")
+    check(fp32[1]["total"] == fp32[0]["total"], f"{tag}: the fp32 remat loss differs")
+    check(fp32_rel <= REMAT_GRAD_NORM_RTOL, f"{tag}: fp32 gradient norm {fp32_rel:.3g} relative")
+    student.pretrained.remat = True
+    batch = xs.shape[0]
+    _, counts = steps_with_counts(tag, trainer, lambda epoch: (
+        {"image": images[i * batch:(i + 1) * batch]} for i in range(TRAIN_STEPS)),
+        TRAIN_STEPS, want)
+
+    def step(on):
+        def run():
+            student.pretrained.remat = on
+            trainer.train_step(trainer.state, 0, xs, xs)
+        return run
+
+    times = step_times({"no_remat": step(False), "remat": step(True)}, batch)
+    student.pretrained.remat = False
+    log(f"[{tag}] bs{batch} step in turns: {json.dumps(times)}")
+    return {"counts": counts, "bf16_grad_norm_rel": remat_rel, "bf16_spread": spread,
+            "fp32_grad_norm_rel": fp32_rel, **times}
+
+
+def phase_path10(model, qmodel, wmodel, trainer: Trainer, images) -> dict:
+    """Main path 10: exported programs, student remat, the attention and
+    tail switches, the loss-weight tuner, the native loader, the HDN demo
+    and the point cloud."""
+    import ctypes
+    import logging
+
+    import cv2
+
+    from distill_any_depth_tpu_torch.cli import hdn_demo
+    from distill_any_depth_tpu_torch.cli import infer as infer_cli
+    from distill_any_depth_tpu_torch.cli import train as train_cli
+    from distill_any_depth_tpu_torch.data import native_loader
+    from distill_any_depth_tpu_torch.data.nyu import NYUDataset, iterate_batches
+    from distill_any_depth_tpu_torch.train.step import make_train_step
+    from distill_any_depth_tpu_torch.train.tuner import tune_loss_weights_traced
+    from distill_any_depth_tpu_torch.utils import checkpoint as ckpt_io
+    from distill_any_depth_tpu_torch.utils.image_util import depth_to_point_cloud, write_ply
+
+    t_phase = time.time()
+    out = {"export": path10_exports(model, qmodel, wmodel)}
+    log(f"[path 10] exports done at {time.time() - t_phase:.1f} s")
+    teacher_file = OUT / "path10_teacher.safetensors"
+    ckpt_io.save_safetensors(str(teacher_file), trainer.teachers[0])
+
+    # remat: path 2's step (phase 7's trainer) and path 4's at 518^2
+    s = model_config(ARCH).encoder.depth
+    images2 = train_images(TRAIN_BATCH * TRAIN_STEPS, seed=1)
+    xs = torch.from_numpy(images2[:TRAIN_BATCH]).cuda().permute(0, 3, 1, 2)
+    want = expected_step_counts(TRAIN_BATCH, trainer.cfg.teacher_chunk)
+    out["remat_path2"] = remat_steps("remat path 2", trainer, xs,
+                                     dict(want, attention=want["attention"] + s), images2)
+    res = WINDOW_RES[0]
+    wcfg = TrainConfig(student=model_config(WINDOW_ARCH), teachers=(TEACHER,),
+                       teacher_checkpoints=(str(teacher_file),),
+                       batch_size=WINDOW_TRAIN_BATCH[res], image_size=res, log_interval=10 ** 6,
+                       visualize_interval=0, checkpoint_interval=0,
+                       output_dir=str(OUT / "remat_window"))
+    wtrainer = Trainer(wcfg, "cuda")
+    images4 = train_images(WINDOW_TRAIN_BATCH[res] * TRAIN_STEPS, seed=4, res=res)
+    xs4 = torch.from_numpy(images4[:WINDOW_TRAIN_BATCH[res]]).cuda().permute(0, 3, 1, 2)
+    want4 = expected_window_step_counts(res, WINDOW_TRAIN_BATCH[res], wcfg.teacher_chunk)
+    sw = model_config(WINDOW_ARCH).encoder.depth
+    out["remat_window_518"] = remat_steps(f"remat path 4 {res}^2", wtrainer, xs4,
+                                          dict(want4, attention_bias=want4["attention_bias"]
+                                               + sw), images4)
+    del wtrainer, xs4
+    torch.cuda.empty_cache()
+    log(f"[path 10] remat done at {time.time() - t_phase:.1f} s")
+
+    # the switches on path 1's forward: the plain attention, the plain tail
+    ref_model = create_model(ARCH, dtype=torch.bfloat16, device="cuda", seed=None,
+                             attn_impl="reference")
+    ref_model.load_state_dict(model.state_dict())
+    depth_ref, out["reference_attention_counts"] = run_predict(
+        "attn_impl=reference", ref_model, images, RES, {"tail": 1})
+    del ref_model
+    base_depth = predict(model, images, RES, batch_size=BATCH)
+    out["reference_attention"] = compare_depth("attn_impl=reference", depth_ref[0],
+                                               base_depth[0], (E2E_MAX, E2E_MEAN, E2E_CORR), 0,
+                                               "plain attention vs kernel 1")
+    folder = OUT / "path10_images"
+    folder.mkdir(parents=True, exist_ok=True)
+    for i, im in enumerate(images):
+        cv2.imwrite(str(folder / f"{i:03d}.png"), cv2.cvtColor(im, cv2.COLOR_RGB2BGR))
+    disparity, tail_counts = {}, {}
+    for mode in ("auto", "off"):
+        reset_counts()
+        infer_cli.main(["--device", "cuda", "--arch_name", ARCH, "--input", str(folder),
+                        "--output_dir", str(OUT / f"path10_infer_{mode}"), "--processing_res",
+                        str(RES), "--save_npy", "--fused_tail", mode])
+        torch.cuda.synchronize()
+        tail_counts[mode] = read_counts()
+        disparity[mode] = np.load(OUT / f"path10_infer_{mode}" / "image_logs" / "depth_000.npy")
+    log(f"[fused_tail] cli.infer launches: auto {tail_counts['auto']}, off {tail_counts['off']}")
+    check(tail_counts["auto"]["tail"] == 1 and tail_counts["off"]["tail"] == 0
+          and tail_counts["off"]["attention"] == s, f"fused_tail: launches {tail_counts}")
+    out["fused_tail_off_counts"] = tail_counts["off"]
+    out["fused_tail_off"] = compare_depth("--fused_tail off", disparity["off"],
+                                          disparity["auto"], (E2E_MAX, E2E_MEAN, E2E_CORR), 0,
+                                          "plain tail vs kernel 2")
+
+    # the op route's host cost against the direct call, kernel 1 at path 1's
+    # shape: what routing the eager forward through the ops would add
+    qkv = torch.randn(BATCH, (RES // 14) ** 2 + 1, 3 * 768, device="cuda",
+                      dtype=torch.bfloat16)
+    routes = {"direct": lambda: mha_flash_packed(qkv, 12),
+              "op": lambda: torch.ops.dad.packed_attention(qkv, 12)}
+    enqueue = {k: [] for k in routes}
+    with torch.no_grad():
+        for name in ("direct", "op", "op", "direct"):
+            routes[name]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                routes[name]()
+            enqueue[name].append((time.perf_counter() - t0) * 1e4)  # us a call
+            torch.cuda.synchronize()
+        x1 = torch.from_numpy(train_images(BATCH, seed=2)).cuda().permute(0, 3, 1, 2)
+        fwd_ms = cuda_ms(lambda: model(x1), iters=10, warmup=2)
+    extra_us = min(enqueue["op"]) - min(enqueue["direct"])
+    step_ms = out["remat_path2"]["no_remat"]["step_ms"]
+    out["op_route"] = {"enqueue_us": enqueue, "extra_us_per_call": extra_us,
+                       "path1_forward_ms": fwd_ms,
+                       "path1_share": 13 * extra_us / 1e3 / fwd_ms,
+                       "path2_share": 50 * extra_us / 1e3 / step_ms}
+    log(f"[op route] kernel 1 enqueue per call (us, direct op op direct): {enqueue}; the op "
+        f"adds {extra_us:.2f} us a call: {out['op_route']['path1_share']:.2%} of path 1's "
+        f"{fwd_ms:.2f} ms forward (13 calls), {out['op_route']['path2_share']:.2%} of path 2's "
+        f"{step_ms:.2f} ms step (50 calls without gradient)")
+
+    # the tuner on path 2's pair
+    lambdas = {"sc": 0.25, "lg": 0.5, "feat": 1.0, "grad": 0.2, "hdn": 0.8}
+    saved = {k: v.detach().clone() for k, v in trainer.student.state_dict().items()}
+    traced = trainer.train_step(trainer.state, 0, xs, xs, loss_weights=lambdas)
+    trainer.student.load_state_dict(saved)
+    baked_cfg = dataclasses.replace(trainer.cfg.loss, **{f"lambda_{k}": v
+                                                         for k, v in lambdas.items()})
+    baked = make_train_step(trainer.student, trainer.teachers, baked_cfg, views_shared=True,
+                            teacher_chunk=trainer.cfg.teacher_chunk)(trainer.state, 0, xs, xs)
+    trainer.student.load_state_dict(saved)
+    traced = {k: float(v) for k, v in traced.items()}
+    baked = {k: float(v) for k, v in baked.items()}
+    log(f"[tuner] loss_weights {lambdas}: {traced}; the same lambdas in LossConfig: {baked}")
+    check(traced["total"] == baked["total"], "tuner: loss_weights differ from LossConfig")
+    tcfg = TrainConfig(student=model_config(ARCH), teachers=(TEACHER,),
+                       teacher_checkpoints=(str(teacher_file),), batch_size=TRAIN_BATCH,
+                       image_size=RES, log_interval=10 ** 6, visualize_interval=0,
+                       checkpoint_interval=0, output_dir=str(OUT / "path10_tuner"))
+    batches = [{"image": images2[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]} for i in range(3)]
+    step_counts = []
+    last: dict = {}
+
+    def on_step(i, j, metrics):
+        torch.cuda.synchronize()
+        now = read_counts()
+        step_counts.append((i, j, {k: now[k] - last.get(k, 0) for k in now}))
+        last.update(now)
+
+    reset_counts()
+    t0 = time.time()
+    results = tune_loss_weights_traced(tcfg, batches[:2], batches[2:], grid=TUNER_GRID,
+                                       steps_per_experiment=2, device="cuda", on_step=on_step)
+    tuner_s = time.time() - t0
+    val = {k: want[k] - (s if k == "attention_bwd" else 0) for k in want}  # no backward
+    for i, j, per in step_counts:
+        expect = want if (i, j) == (0, 0) or j else {k: want[k] + val[k] for k in want}
+        check(per == expect, f"tuner experiment {i} step {j}: launches {per}, expected {expect}")
+    scores = [r["score"] for r in results]
+    log(f"[tuner] {len(results)} experiments x 2 steps + 1 validation batch in {tuner_s:.1f} s: "
+        f"{[(r['lambdas'], r['score']) for r in results]}; launches a step {step_counts[1][2]}")
+    check(len(results) == 3 and all(np.isfinite(scores)) and scores == sorted(scores),
+          f"tuner: scores {scores}")
+    check((OUT / "path10_tuner" / "tuning_results.json").exists(), "tuner: no report")
+    out["tuner"] = {"scores": scores, "seconds": tuner_s, "counts": step_counts[1][2]}
+
+    # the native loader: built where the toolchain and OpenCV's headers are
+    try:
+        ctypes.CDLL(str(native_loader.build()))
+        native_error = None
+    except (RuntimeError, OSError) as e:
+        native_error = str(e)
+        log(f"[native] the native loader does not build on this machine:\n{native_error[-1500:]}")
+    nyu = OUT / "nyu_eval"
+    if not (nyu / "nyu2_test.csv").exists():
+        nyu_eval_data(nyu)
+    rates = {}
+    ds = NYUDataset("test", dataset_dir=str(nyu), image_size=RES)
+    t0 = time.perf_counter()
+    n = sum(b["image"].shape[0] for b in iterate_batches(ds, EVAL_BATCH, shuffle=False))
+    rates["python"] = n / (time.perf_counter() - t0)
+    if native_error is None:
+        with native_loader.NativeNYULoader("data/smoke/nyu2_train.csv", os.getcwd(),
+                                           image_size=RES, batch_size=2, seed=3) as ld:
+            py = NYUDataset("train", dataset_dir="data/smoke", image_size=RES)
+            for a, b in zip(ld.batches(2, epoch=0), iterate_batches(py, 2, seed=3)):
+                check(np.array_equal(a["image"], b["image"]) and np.array_equal(a["depth"],
+                                                                                 b["depth"]),
+                      "native loader: a batch differs from the Python loader's")
+        with native_loader.NativeNYULoader(str(nyu / "nyu2_test.csv"), "/", image_size=RES,
+                                           batch_size=EVAL_BATCH, shuffle=False) as ld:
+            t0 = time.perf_counter()
+            n = sum(b["image"].shape[0] for b in ld.batches(NYU_EVAL_IMAGES // EVAL_BATCH))
+            rates["native"] = n / (time.perf_counter() - t0)
+    log(f"[native] images/s over {NYU_EVAL_IMAGES} NYU pairs at {RES}^2 bs{EVAL_BATCH}: {rates}")
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda record: records.append(record.getMessage())
+    pkg_log = logging.getLogger("distill_any_depth_tpu_torch")
+    level = pkg_log.level
+    pkg_log.addHandler(handler)
+    pkg_log.setLevel(logging.INFO)
+    try:
+        run_cli("native cli", ["--dataset_dir", "data/smoke", "--output_dir",
+                               str(OUT / "path10_native_cli"), "--teacher_checkpoints",
+                               str(teacher_file)], expected_step_counts(2))
+    finally:
+        pkg_log.removeHandler(handler)
+        pkg_log.setLevel(level)
+    taken = [r for r in records if "loader:" in r]
+    log(f"[native] cli.train's log: {[r for r in records if 'loader' in r]}")
+    if native_error is None:
+        check(any(r.startswith("native loader:") for r in taken), "cli.train: no native loader")
+    else:
+        check(any("using the Python loader" in r for r in records)
+              and any(r.startswith("Python loader:") for r in taken),
+              "cli.train: the fallback to the Python loader was not logged")
+    out["native"] = {"built": native_error is None, "images_per_s": rates,
+                     "error": None if native_error is None else native_error[-300:]}
+    teacher_file.unlink()
+
+    # the HDN demo on the card against the CPU, and a point cloud of path 1
+    reset_counts()
+    card = hdn_demo.main()
+    torch.cuda.synchronize()
+    hdn_counts = read_counts()
+    cpu = hdn_demo.main(device="cpu")
+    rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in card}
+    log(f"[hdn demo] card {card}, CPU {cpu}: relative {rel}; launches {hdn_counts}")
+    check(hdn_counts["select"] > 0, "hdn demo: kernel 4 did not run")
+    check(max(rel.values()) <= HDN_DEMO_RTOL, f"hdn demo: {rel}")
+    out["hdn_demo_counts"] = hdn_counts
+    rgb = cv2.resize(images[0], (RES, RES), interpolation=cv2.INTER_CUBIC)
+    pts, colors = depth_to_point_cloud(base_depth[0], fx=RES, fy=RES, rgb=rgb,
+                                       mask=base_depth[0] > 0)
+    ply = OUT / "path10_depth.ply"
+    write_ply(str(ply), pts, colors)
+    lines = ply.read_text().splitlines()
+    n_live = int((base_depth[0] > 0).sum())
+    check(f"element vertex {n_live}" in lines and len(lines) == lines.index("end_header") + 1
+          + n_live, f"point cloud: {len(lines)} lines for {n_live} points")
+    log(f"[point cloud] {n_live} vertices of path 1's depth written to {ply.name} "
+        f"({ply.stat().st_size / 1e6:.1f} MB)")
+    out["seconds"] = time.time() - t_phase
+    log(f"[path 10] phase 21 in {out['seconds']:.1f} s (budget {PATH10_BUDGET_S} s)")
+    return out
+
+
 # ---------------------------------------------------------------- phase 16
 def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts,
                  wtrain, qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, evals, path7,
-                 path8, path9, gen) -> None:
+                 path8, path9, path10, gen) -> None:
     kernels = []
     bf16 = torch.bfloat16
     runs = {"infer_forward": counts, "train_step": train_counts,
@@ -2593,7 +3117,16 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
             # path 9, per rank of the two that share the card
             "dp2_train_step_per_rank": path9["ranks"][0]["dp2"]["counts"],
             "tp2_train_step_per_rank": path9["ranks"][0]["tp2"]["counts"],
-            "int8_tp2_teacher_forward_per_rank": path9["ranks"][0]["int8_tp2_counts"]}
+            "int8_tp2_teacher_forward_per_rank": path9["ranks"][0]["int8_tp2_counts"],
+            # path 10: exported programs (launches by kernel name in their own
+            # process), remat and tuner steps, the switches, the HDN demo
+            **{f"export_{name}_forward": e["counts"] for name, e in path10["export"].items()},
+            "remat_train_step": path10["remat_path2"]["counts"],
+            "remat_window_518_step": path10["remat_window_518"]["counts"],
+            "tuner_train_step": path10["tuner"]["counts"],
+            "reference_attention_forward": path10["reference_attention_counts"],
+            "fused_tail_off_forward": path10["fused_tail_off_counts"],
+            "hdn_demo": path10["hdn_demo_counts"]}
     tp_heads = path9["tp_heads"]
 
     def entry(name, key, source, replaces, err, ms, plain, lib, flops, nbytes, launches=None,
@@ -3068,9 +3601,10 @@ def main() -> None:
     path7 = phase_register_family(images, qims)
     path8 = phase_images_and_adapters(trainer)
     path9 = phase_multi_rank(trainer, gen)
+    path10 = phase_path10(model, qmodel, wmodel, trainer, images)
     phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wcounts, wtrain,
                  qmodel, qplain, qcounts, qims, qtrainer, qtrain_counts, evals, path7, path8,
-                 path9, gen)
+                 path9, path10, gen)
     log(f"[smoke] all phases passed in {time.time() - t0:.1f} s")
     print(gpu_line(), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,9 @@ windowed high-resolution teacher is ``--arch_name depthanything-base-window
 banded one); ViT-g is ``--arch_name depthanything-giant --processing_res
 518`` (SwiGLU, DPT features 384). ``--quant int8`` or ``int8_pallas`` runs
 the encoder GEMMs as dynamic W8A8 int8 (the latter through kernel 9 on the
-card). Not ported yet: ``--fused_tail`` (the tail kernel always runs on the
-card). Under ``torchrun --nproc_per_node N -m
+card). ``--fused_tail off`` runs the plain unfused DPT tail (the student's
+chain) instead of kernel 2; ``auto`` (the default) and ``on`` run the kernel
+on the card and its plain version on the CPU. Under ``torchrun --nproc_per_node N -m
 distill_any_depth_tpu_torch.cli.infer ...`` each rank runs on
 ``cuda:{LOCAL_RANK}`` and takes the paths ``paths[rank::N]`` of the sorted
 input, writing its own outputs (named by the input's stem, so no rank
@@ -61,6 +62,9 @@ def argument_parser() -> argparse.ArgumentParser:
                    help="also write the min-max-normalized disparity as .npy")
     p.add_argument("--batch_size", type=int, default=8,
                    help="images per forward at a fixed --processing_res")
+    p.add_argument("--fused_tail", default="auto", choices=["auto", "on", "off"],
+                   help="the DPT tail as one kernel (auto, on) or as the plain chain of "
+                        "convs and resizes (off)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     return p
 
@@ -118,14 +122,15 @@ def _infer(args, device: torch.device, rank: int, world: int) -> list[str]:
     from distill_any_depth_tpu_torch.data.transforms import (
         Compose, NormalizeImage, PrepareForNet, Resize, standard_transform,
     )
-    from distill_any_depth_tpu_torch.models.factory import create_model
+    from distill_any_depth_tpu_torch.models.factory import create_model, resolve_fused_tail
     from distill_any_depth_tpu_torch.utils.checkpoint import load_state_dict_file
     from distill_any_depth_tpu_torch.utils.image_util import (
         chw2hwc, colorize_depth_maps, normalize_disparity,
     )
 
     model = create_model(args.arch_name, dtype=getattr(torch, args.dtype), device=device,
-                         seed=None if args.checkpoint else 0, quant=args.quant)
+                         seed=None if args.checkpoint else 0, quant=args.quant,
+                         fused_tail=resolve_fused_tail(args.fused_tail))
     if args.checkpoint:
         load_state_dict_file(model, args.checkpoint)
     else:

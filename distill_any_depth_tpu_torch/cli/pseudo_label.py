@@ -17,8 +17,9 @@ Run: ``python -m distill_any_depth_tpu_torch.cli.pseudo_label --device cuda
 --input IMAGES --output_dir OUT [--quant int8_pallas]``; ``--quant
 int8_pallas`` runs the encoder's 96 GEMMs a forward through kernel 9.
 ``--arch_name depthanything-giant-reg`` labels with the ViT-g register
-teacher (160 GEMMs a forward under ``int8_pallas``). Not
-ported yet: ``--fused_tail`` (the tail kernel always runs on the card).
+teacher (160 GEMMs a forward under ``int8_pallas``).
+``--fused_tail off`` runs the plain unfused DPT tail instead of kernel 2;
+``auto`` (the default) and ``on`` run the kernel on the card.
 Under ``torchrun --nproc_per_node N -m
 distill_any_depth_tpu_torch.cli.pseudo_label ...`` (the JAX CLI's split of
 the batch over one process's devices, with one process per device here)
@@ -57,6 +58,9 @@ def argument_parser() -> argparse.ArgumentParser:
                         "torch._int_mm); int8_pallas: the same through the W8A8 kernel, "
                         "which quantizes activations inside the kernel")
     p.add_argument("--save_png16", action="store_true", help="also save min-max uint16 PNGs")
+    p.add_argument("--fused_tail", default="auto", choices=["auto", "on", "off"],
+                   help="the DPT tail as one kernel (auto, on) or as the plain chain of "
+                        "convs and resizes (off)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     return p
 
@@ -97,12 +101,13 @@ def main(args=None) -> list[str]:
 def _label(args, device: torch.device, rank: int, world: int) -> list[str]:
     import cv2
 
-    from distill_any_depth_tpu_torch.models.factory import create_model
+    from distill_any_depth_tpu_torch.models.factory import create_model, resolve_fused_tail
     from distill_any_depth_tpu_torch.ops.preprocess import snap_to_bucket
     from distill_any_depth_tpu_torch.utils.checkpoint import load_state_dict_file
 
     model = create_model(args.arch_name, dtype=getattr(torch, args.dtype), device=device,
-                         seed=None if args.checkpoint else 0, quant=args.quant)
+                         seed=None if args.checkpoint else 0, quant=args.quant,
+                         fused_tail=resolve_fused_tail(args.fused_tail))
     if args.checkpoint:
         load_state_dict_file(model, args.checkpoint)
     else:

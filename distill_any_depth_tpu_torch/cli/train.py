@@ -25,8 +25,10 @@ normalizes them. ``--profile_dir DIR`` writes a ``torch.profiler`` trace of
 the first 3 steps to ``DIR/trace.json``; ``--visualize_interval N`` (default
 500, 0 = never) draws the student's and the teacher's depth every N steps
 under ``visualizations/``, and the loss and LR curves are drawn under
-``plots/`` at the end. The mesh flags ``--dp`` and ``--tp`` are accepted by
-name and refuse any value but 1 (not ported yet).
+``plots/`` at the end. ``--dp D --tp T`` under ``torchrun --nproc_per_node
+D*T`` trains on a rank grid (``parallel/``). NYU batches come from the
+native C++ loader where it builds (``data/native_loader``), else from the
+Python loader, with a logged warning.
 """
 from __future__ import annotations
 

@@ -5,10 +5,8 @@ Only the fields the ported paths read are kept; the presets' values and
 the defaults are identical, so a preset name or a default config means the
 same network and the same training in both packages. Every preset of the
 JAX package is here, the DINOv2 register/SwiGLU family (``vitg``,
-``vitl_reg``, ``vitg_reg``) included, and so is the data- and
-tensor-parallel rank grid (``TrainConfig.dp``, ``tp``). Not fields here,
-because their features are not ported yet: the training fields of the
-native loader, remat and the attention implementation.
+``vitl_reg``, ``vitg_reg``) included, and so is every ``TrainConfig``
+field of the JAX package but its mesh object.
 """
 from __future__ import annotations
 
@@ -210,10 +208,18 @@ class TrainConfig:
     # int8 (ops/quant; kernel 9 for "int8_pallas"). Teachers are
     # inference-only inside the step; students always train unquantized.
     teacher_quant: str = "none"
+    # the teachers' DPT tail: "auto" and "on" run kernel 2 on the card (its
+    # plain version on the CPU), "off" the plain unfused chain the student
+    # runs (models/factory.resolve_fused_tail)
+    teacher_fused_tail: str = "auto"
     # run the teacher forward as sequential chunks of this batch size (0 = off)
     teacher_chunk: int = 8
     # bf16 student compute; parameters and optimizer state stay fp32
     student_compute_dtype: str = "bfloat16"
+    # NYU batches from the C++ loader (native/dad_loader.cpp, built with g++
+    # and the system OpenCV at first use); train_nyu falls back to the
+    # Python loader, with a warning, where it cannot be built
+    use_native_loader: bool = True
     # depth panels of the student and the first teacher every this many
     # steps (0 = never); the loss and LR curves are drawn at the end anyway
     visualize_interval: int = 500
@@ -223,6 +229,12 @@ class TrainConfig:
     # train only the student's LoRA/SSF parameters (the student's encoder
     # config must enable lora_rank or use_ssf); the rest stays frozen
     adapter_only: bool = False
+    # recompute each student block in the backward (torch.utils.checkpoint)
+    # instead of keeping its activations: less memory for more work
+    student_remat: bool = False
+    # the attention of every model: "auto" / "flash" the kernels on the card,
+    # "reference" the plain version (ops/attention)
+    attn_impl: str = "auto"
     # the rank grid, one process per device: dp data-parallel ranks, each
     # stepping on batch_size / dp rows of the global batch, times tp
     # tensor-parallel ranks, each with num_heads / tp heads of every block

@@ -69,6 +69,7 @@ class NYUDataset:
         csv_path = next((p for p in candidates if os.path.exists(p)), None)
         if csv_path is None:
             raise FileNotFoundError(f"CSV not found in any of {candidates}")
+        self.csv_path = csv_path
         with open(csv_path) as f:
             self.pairs = [row for row in csv.reader(f) if row]
 

@@ -55,12 +55,17 @@ def combined_distillation_loss(
     valid_mask: torch.Tensor | None = None,
     feat_loss: torch.Tensor | None = None,
     data_group=None,
+    weights: dict | None = None,
 ):
     """The whole stack; returns ``(total, components)``. Pass either
     ``teacher_local_feat`` or a precomputed ``feat_loss``. ``data_group``:
     this batch is a data rank's share, and HDN's normalizer counts the
     global batch (``losses/hdn``); every other term is a mean over images,
-    whose mean over the ranks is the global one."""
+    whose mean over the ranks is the global one. ``weights`` overrides the
+    ``lambda_*`` of ``cfg`` by key (``sc``, ``lg``, ``feat``, ``grad``,
+    ``hdn``; numbers or 0-dim tensors), as the JAX package's does for the
+    loss-weight tuner (``train/tuner``)."""
+    w = weights or {}
     sc = distillation_loss(student_local_depth, teacher_local_depth, cfg.normalization,
                            cfg.num_segments)
     lg = distillation_loss(student_global_depth, student_local_depth, cfg.normalization,
@@ -69,13 +74,13 @@ def combined_distillation_loss(
             else feature_distillation_loss(student_local_feat, teacher_local_feat))
     grad = gradient_preservation_loss(student_local_depth)
     components = {"sc": sc, "lg": lg, "feat": feat, "grad": grad}
-    total = (cfg.lambda_sc * sc + cfg.lambda_lg * lg + cfg.lambda_feat * feat
-             + cfg.lambda_grad * grad)
+    total = (w.get("sc", cfg.lambda_sc) * sc + w.get("lg", cfg.lambda_lg) * lg
+             + w.get("feat", cfg.lambda_feat) * feat + w.get("grad", cfg.lambda_grad) * grad)
     if cfg.use_hdn:
         contexts = _contexts(cfg, teacher_local_depth, valid_mask)
         hdn = hdn_loss(student_local_depth, teacher_local_depth, contexts,
                        data_group=data_group)
         components["hdn"] = hdn
-        total = total + cfg.lambda_hdn * hdn
+        total = total + w.get("hdn", cfg.lambda_hdn) * hdn
     components["total"] = total
     return total, components

@@ -148,7 +148,9 @@ class DPTHead(nn.Module):
             weights = (s.output_conv1.weight.permute(2, 3, 1, 0), s.output_conv1.bias,
                        conv2.weight.permute(2, 3, 1, 0), conv2.bias,
                        head.weight[:, :, 0, 0].t(), head.bias)
-            prepared = self.tail_weights.get(*weights, t.dtype) if t.is_cuda else None
+            # a trace (torch.export) prepares them in the traced graph
+            cached = t.is_cuda and not torch.compiler.is_compiling()
+            prepared = self.tail_weights.get(*weights, t.dtype) if cached else None
             d = fused_dpt_tail(t.permute(0, 2, 3, 1).contiguous(), (oh, ow), *weights,
                                trailing_relu=self.trailing_relu, weights=prepared)
             return d[:, None]
@@ -168,16 +170,18 @@ class DepthModel(nn.Module):
     tokens ``[B, N, C]``. ``fused_tail`` selects the DPT tail kernel for a
     1-channel head (see the module docstring); ``quant`` ("none", "int8",
     "int8_pallas") the encoder blocks' GEMMs (``models/vit``), for a model
-    that does not train.
+    that does not train; ``attn_impl`` their attention and ``remat`` the
+    recompute of each block in the backward (``models/vit``).
     """
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
-                 fused_tail: bool = True, quant: str = "none"):
+                 fused_tail: bool = True, quant: str = "none", attn_impl: str = "auto",
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         enc = cfg.encoder
-        self.pretrained = DinoViT(enc, quant)
+        self.pretrained = DinoViT(enc, quant, attn_impl, remat)
         self.depth_head = DPTHead(enc.embed_dim, cfg.features, cfg.out_channels,
                                   cfg.head_out_channels, cfg.use_clstoken,
                                   cfg.trailing_head_relu, enc.patch_size, fused_tail)

@@ -21,7 +21,7 @@ from distill_any_depth_tpu_torch.models.adapters import SSF, LoRALinear
 from distill_any_depth_tpu_torch.models.dpt import DepthModel
 from distill_any_depth_tpu_torch.models.vit import DinoViT, LayerScale
 
-__all__ = ["resolve_device", "create_model", "init_params"]
+__all__ = ["resolve_device", "resolve_fused_tail", "create_model", "init_params"]
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -33,6 +33,19 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
+def resolve_fused_tail(mode) -> bool:
+    """A ``fused_tail`` setting (``TrainConfig.teacher_fused_tail``, the
+    CLIs' ``--fused_tail``) as a bool, as the JAX package maps it: a bool
+    passes through, "on" and "off" map to it, and "auto" (or None) is on:
+    kernel 2 on the card, its plain version on the CPU (the JAX package's
+    "auto" is on where its kernel runs natively, the TPU)."""
+    if isinstance(mode, bool):
+        return mode
+    if mode in (None, "auto"):
+        return True
+    return mode == "on"
+
+
 def create_model(
     arch_name: str | ModelConfig,
     dtype: torch.dtype | None = None,
@@ -40,6 +53,8 @@ def create_model(
     seed: int | None = 0,
     fused_tail: bool = True,
     quant: str = "none",
+    attn_impl: str = "auto",
+    remat: bool = False,
 ) -> DepthModel:
     """An eval-mode ``DepthModel`` with seeded random weights on ``device``
     (``seed=None``: no seeded init, for a caller that loads every weight
@@ -50,12 +65,15 @@ def create_model(
     distillation student) passes ``False``, as the JAX package's student.
     ``quant="int8"`` or ``"int8_pallas"`` runs the encoder blocks' GEMMs as
     dynamic W8A8 int8 (``ops/quant``; kernel 9 for "int8_pallas" on the
-    card): inference only, so a model that trains keeps "none"."""
+    card): inference only, so a model that trains keeps "none".
+    ``attn_impl`` ("auto", "flash", "reference") selects the attention and
+    ``remat=True`` recomputes each encoder block in the backward
+    (``models/vit``)."""
     cfg = arch_name if isinstance(arch_name, ModelConfig) else model_config(arch_name)
     device = resolve_device(device)
     if dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    model = DepthModel(cfg, dtype, fused_tail, quant)
+    model = DepthModel(cfg, dtype, fused_tail, quant, attn_impl, remat)
     if seed is not None:
         init_params(model, seed)
     return model.to(device).eval()

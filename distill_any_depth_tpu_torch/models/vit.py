@@ -23,6 +23,12 @@ attention kernels as it is), and ``cfg.use_ssf`` an SSF adapter at the four
 taps ``ssf_norm1`` (after norm1), ``ssf_attn`` (after the attention),
 ``ssf_norm2`` and ``ssf_mlp``. The JAX encoder's 8-row pad of the token
 count is a TPU tiling and is not ported: the attention kernels take any N.
+``attn_impl`` selects every block's attention (``ops/attention``:
+"auto" and "flash" the kernels on the card, "reference" the plain
+version), and ``remat=True`` recomputes each block in the backward instead
+of keeping its activations (``torch.utils.checkpoint``, the JAX
+``nn.remat(Block)``): the recompute runs the attention kernels again, with
+their log-sum-exp, and LoRA and SSF with their block.
 
 Tensor parallelism (``parallel/tp.shard_model``) keeps a rank's shard of
 each block's weights and sets the model group on its modules: ``Attention``
@@ -36,6 +42,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from distill_any_depth_tpu_torch.configs import EncoderConfig
@@ -138,9 +145,11 @@ class SwiGLU(nn.Module):
 class Attention(nn.Module):
     tp_group = None  # the model group under tensor parallelism
 
-    def __init__(self, dim: int, num_heads: int, quant: str = "none", lora_rank: int = 0):
+    def __init__(self, dim: int, num_heads: int, quant: str = "none", lora_rank: int = 0,
+                 attn_impl: str = "auto"):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_impl = attn_impl
         if lora_rank > 0:
             self.qkv = LoRALinear(dim, 3 * dim, lora_rank)
             self.proj = LoRALinear(dim, dim, lora_rank)
@@ -155,7 +164,7 @@ class Attention(nn.Module):
         # parallelism
         heads = self.num_heads // model_size(self.tp_group)
         qkv = self.qkv(copy_to_model(x, self.tp_group))
-        return self.proj(multi_head_attention_packed(qkv, heads, bias, band))
+        return self.proj(multi_head_attention_packed(qkv, heads, bias, band, self.attn_impl))
 
 
 class LayerScale(nn.Module):
@@ -173,12 +182,12 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, init_values: float | None,
                  quant: str = "none", ffn: str = "mlp", lora_rank: int = 0,
-                 use_ssf: bool = False):
+                 use_ssf: bool = False, attn_impl: str = "auto"):
         super().__init__()
         if ffn not in ("mlp", "swiglu"):
             raise ValueError(f"ffn must be 'mlp' or 'swiglu', not {ffn!r}")
         self.norm1 = LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, quant, lora_rank)
+        self.attn = Attention(dim, num_heads, quant, lora_rank, attn_impl)
         self.ls1 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
         self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = (SwiGLU(dim, mlp_ratio, quant) if ffn == "swiglu"
@@ -235,14 +244,17 @@ class DinoViT(nn.Module):
     before the final norm. The windowed variant (``cfg.final_taps``)
     returns the final post-norm tokens four times, its "cls token" being
     patch token 0 (it has no cls token). ``quant`` selects the blocks'
-    GEMMs (see the module docstring).
+    GEMMs, ``attn_impl`` their attention and ``remat`` the recompute of
+    each block in the backward (see the module docstring).
     """
 
-    def __init__(self, cfg: EncoderConfig, quant: str = "none"):
+    def __init__(self, cfg: EncoderConfig, quant: str = "none", attn_impl: str = "auto",
+                 remat: bool = False):
         super().__init__()
         if quant not in QUANT_MODES:
             raise ValueError(f"quant must be one of {QUANT_MODES}, not {quant!r}")
         self.cfg = cfg
+        self.remat = remat
         d = cfg.embed_dim
         n_base = (cfg.base_img_size // cfg.patch_size) ** 2
         n_cls = 1 if cfg.use_cls_token else 0
@@ -254,7 +266,7 @@ class DinoViT(nn.Module):
         self.pos_conv = PosConv(d) if cfg.use_pos_conv else None
         self.blocks = nn.ModuleList(
             Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.init_values, quant, cfg.ffn,
-                  cfg.lora_rank, cfg.use_ssf)
+                  cfg.lora_rank, cfg.use_ssf, attn_impl)
             for _ in range(cfg.depth)
         )
         self.norm = LayerNorm(d, eps=1e-6)
@@ -284,7 +296,8 @@ class DinoViT(nn.Module):
                                                (g + cfg.interpolate_offset) / base)).to(dev)
                 for g in (gh, gw)
             )
-            self._pe_mats[(gh, gw, dev)] = mats
+            if not torch.compiler.is_compiling():  # a trace's constants are its own
+                self._pe_mats[(gh, gw, dev)] = mats
         return interp_pos_embed(self.pos_embed, *mats, dtype, cfg.use_cls_token)
 
     def _attention_mask(self, gh: int, gw: int, n: int, device: torch.device,
@@ -340,8 +353,16 @@ class DinoViT(nn.Module):
         tokens = tokens.contiguous()
         bias, band = self._attention_mask(gh, gw, tokens.shape[1], x.device, x.dtype)
         raw = {}
+        # the blocks draw no random numbers: no RNG state to keep for the
+        # recompute
+        remat = self.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            tokens = blk(tokens, bias, band)
+            if remat:
+                tokens = torch.utils.checkpoint.checkpoint(blk, tokens, bias, band,
+                                                           use_reentrant=False,
+                                                           preserve_rng_state=False)
+            else:
+                tokens = blk(tokens, bias, band)
             if i in cfg.out_indices:
                 raw[i] = tokens
         if cfg.final_taps:

@@ -14,6 +14,13 @@ C in {64, 128, 256, 384}, the DPT features of every preset (384: ViT-g's),
 and raises on any other width; its header states its bound on the H100
 and its design. Its bf16 convs read the weights packed by ``pack_conv_weight``;
 ``WeightCache`` keeps the packing until a weight changes. Forward only.
+
+The kernel is also the op ``dad::dpt_tail`` on the prepared weights
+(``prepare_weights``): the kernel on the card, the plain version on the CPU
+(the weights unpacked again), a fake implementation for tracing. Under
+tracing (``torch.export``) ``fused_dpt_tail`` prepares the weights in the
+traced graph and calls the op, so that an exported program keeps the tail
+as one node; eagerly it calls the kernel itself.
 """
 from __future__ import annotations
 
@@ -25,8 +32,8 @@ import torch.nn.functional as F
 
 from distill_any_depth_tpu_torch.ops import _build
 
-__all__ = ["fused_dpt_tail", "tail_reference", "pack_conv_weight", "prepare_weights",
-           "TailWeights", "WeightCache"]
+__all__ = ["fused_dpt_tail", "tail_reference", "pack_conv_weight", "unpack_conv_weight",
+           "prepare_weights", "TailWeights", "WeightCache"]
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _CHANNELS = (64, 128, 256, 384)
@@ -61,6 +68,14 @@ def pack_conv_weight(k: torch.Tensor) -> torch.Tensor:
     cinp = -(-cin // 64) * 64
     w = F.pad(k.detach().to(torch.bfloat16).reshape(9, cin, cout), (0, 0, 0, cinp - cin))
     return w.reshape(9, cinp // 64, 64, cout).permute(3, 1, 0, 2).reshape(cout, -1).contiguous()
+
+
+def unpack_conv_weight(w: torch.Tensor, cin: int) -> torch.Tensor:
+    """``pack_conv_weight``'s inverse: the HWIO ``[3, 3, cin, C_out]``
+    weight (in bf16) from its packed ``[C_out, chunks * 9 * 64]`` matrix."""
+    cout = w.shape[0]
+    w = w.reshape(cout, -1, 9, 64).permute(2, 1, 3, 0).reshape(9, -1, cout)
+    return w[:, :cin].reshape(3, 3, cin, cout)
 
 
 class TailWeights(NamedTuple):
@@ -116,33 +131,51 @@ def fused_dpt_tail(t, out_hw, k1, b1, k2, b2, kd, bd, *, trailing_relu,
     ``weights``: the kernel's operands from ``prepare_weights`` (or a
     ``WeightCache``) for these weights and ``t``'s dtype; prepared on this
     call when None."""
+    if torch.compiler.is_compiling():
+        if weights is None:
+            weights = prepare_weights(k1, b1, k2, b2, kd, bd, t.dtype)
+        oh, ow = (int(x) for x in out_hw)
+        return torch.ops.dad.dpt_tail(t, *weights, oh, ow, trailing_relu)
     if t.device.type == "cpu":
         return tail_reference(t, out_hw, k1, b1, k2, b2, kd, bd, trailing_relu=trailing_relu)
     if t.device.type != "cuda":
         raise ValueError(f"no DPT tail for device {t.device}")
-    if t.dtype not in _DTYPES:
-        raise TypeError(f"DPT tail kernel takes bfloat16 or float32, not {t.dtype}")
-    if t.ndim != 4 or not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError("DPT tail kernel needs a contiguous, 16-byte aligned [B, ht, wt, C] t")
-    b, ht, wt, c = t.shape
+    _check(t, k1, b1, k2, b2, kd, bd)
+    if torch.is_grad_enabled() and any(
+        a.requires_grad for a in (t, k1, b1, k2, b2, kd, bd)
+    ):
+        raise RuntimeError("the DPT tail kernel is forward-only (no backward)")
+    if weights is None:
+        weights = prepare_weights(k1, b1, k2, b2, kd, bd, t.dtype)
+    return _launch(t, weights, out_hw, trailing_relu)
+
+
+def _check(t, k1, b1, k2, b2, kd, bd) -> None:
+    """The JAX-layout weights of ``t``'s width, on its device."""
+    c = t.shape[-1]
     cm = c // 2
-    oh, ow = (int(s) for s in out_hw)
-    if c not in _CHANNELS:
-        raise ValueError(f"DPT tail kernel takes C in {_CHANNELS}, got {c}")
     expect = {"k1": (3, 3, c, cm), "b1": (cm,), "k2": (3, 3, cm, _C2), "b2": (_C2,),
               "kd": (_C2, 1), "bd": (1,)}
     for name, arr in zip(expect, (k1, b1, k2, b2, kd, bd)):
         if tuple(arr.shape) != expect[name] or arr.device != t.device:
             raise ValueError(f"{name}: expected {expect[name]} on {t.device}, "
                              f"got {tuple(arr.shape)} on {arr.device}")
-    if torch.is_grad_enabled() and any(
-        a.requires_grad for a in (t, k1, b1, k2, b2, kd, bd)
-    ):
-        raise RuntimeError("the DPT tail kernel is forward-only (no backward)")
 
+
+def _launch(t: torch.Tensor, weights: TailWeights, out_hw, trailing_relu: bool) -> torch.Tensor:
+    """Kernel 2's two launches on CUDA ``t`` (contiguous, aligned, bf16 or
+    fp32 ``[B, ht, wt, C]`` with C in ``_CHANNELS``) with its prepared
+    ``weights``."""
+    if t.dtype not in _DTYPES:
+        raise TypeError(f"DPT tail kernel takes bfloat16 or float32, not {t.dtype}")
+    if t.ndim != 4 or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError("DPT tail kernel needs a contiguous, 16-byte aligned [B, ht, wt, C] t")
+    b, ht, wt, c = t.shape
+    if c not in _CHANNELS:
+        raise ValueError(f"DPT tail kernel takes C in {_CHANNELS}, got {c}")
+    cm = c // 2
+    oh, ow = (int(s) for s in out_hw)
     dtype = t.dtype
-    if weights is None:
-        weights = prepare_weights(k1, b1, k2, b2, kd, bd, dtype)
     w1_rows = cm if dtype == torch.bfloat16 else 9 * c
     if (weights.w1.dtype != dtype or weights.w1.shape[0] != w1_rows
             or weights.w1.device != t.device):
@@ -178,3 +211,28 @@ def _lib() -> ctypes.CDLL:
         lib.dad_tail_head.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.dad_tail_head.restype = i
     return lib
+
+
+# ------------------------------------------------------------------ the op torch.export keeps
+@torch.library.custom_op("dad::dpt_tail", mutates_args=(), device_types="cuda")
+def _tail_op(t: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, b1: torch.Tensor,
+             b2: torch.Tensor, kd: torch.Tensor, bd: torch.Tensor, oh: int, ow: int,
+             trailing_relu: bool) -> torch.Tensor:
+    """Kernel 2 on ``t [B, ht, wt, C]`` with the ``prepare_weights`` operands."""
+    return _launch(t, TailWeights(w1, w2, b1, b2, kd, bd), (oh, ow), trailing_relu)
+
+
+@_tail_op.register_kernel("cpu")
+def _(t, w1, w2, b1, b2, kd, bd, oh, ow, trailing_relu):
+    c = t.shape[3]
+    if t.dtype == torch.bfloat16:
+        k1, k2 = unpack_conv_weight(w1, c), unpack_conv_weight(w2, c // 2)
+    else:
+        k1, k2 = w1.reshape(3, 3, c, -1), w2.reshape(3, 3, c // 2, -1)
+    return tail_reference(t, (oh, ow), k1, b1, k2, b2, kd.reshape(-1, 1), bd,
+                          trailing_relu=trailing_relu)
+
+
+@_tail_op.register_fake
+def _(t, w1, w2, b1, b2, kd, bd, oh, ow, trailing_relu):
+    return t.new_empty((t.shape[0], oh, ow))

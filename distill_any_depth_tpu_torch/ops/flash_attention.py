@@ -27,6 +27,15 @@ the row log-sum-exp and the backward kernels return the gradient in the
 packed layout. On the CPU, autograd runs through the plain versions; the
 plain backward versions (``*_backward_reference``) follow the backward
 kernels' numerics and serve the tests and ``chip_smoke.py``.
+
+The forwards without gradient are also registered as ops
+(``dad::packed_attention``, ``dad::bias_attention``,
+``dad::banded_attention``: the kernel on the card, the plain version on the
+CPU, and a fake implementation for tracing). Under tracing
+(``torch.compiler.is_compiling()``: ``torch.export``, ``torch.compile``) the
+wrappers call the op, so that an exported program keeps each attention as
+one node; eagerly they call the implementation itself, which spares the
+dispatcher's cost on the host-bound forwards.
 """
 from __future__ import annotations
 
@@ -138,6 +147,8 @@ def mha_flash_packed(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     CPU tensor."""
     if qkv.ndim != 3 or qkv.shape[-1] % (3 * num_heads):
         raise ValueError(f"qkv must be [B, N, 3*H*D] with H={num_heads}; got {tuple(qkv.shape)}")
+    if torch.compiler.is_compiling() and not _needs_grad(qkv):
+        return torch.ops.dad.packed_attention(qkv, num_heads)
     if qkv.device.type == "cpu":
         return mha_packed_reference(qkv, num_heads)
     if qkv.device.type != "cuda":
@@ -616,6 +627,8 @@ def mha_flash_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     version); the plain version for CPU tensors. With a bias or in bf16,
     one call launches two kernels (the tile marks and the terms, then
     attention) and counts as one launch."""
+    if torch.compiler.is_compiling() and not _needs_grad(q, k, v) and not _trains(bias):
+        return torch.ops.dad.bias_attention(q, k, v, bias)
     if q.device.type == "cpu" or _trains(bias):
         return mha_bias_reference(q, k, v, bias)
     if q.device.type != "cuda":
@@ -639,6 +652,8 @@ def mha_flash_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gw, window = band
     if n % gw or window < 1:
         raise ValueError(f"band {band} does not fit N={n}")
+    if torch.compiler.is_compiling() and not _needs_grad(q, k, v):
+        return torch.ops.dad.banded_attention(q, k, v, gw, window)
     if q.device.type == "cpu":
         return mha_banded_reference(q, k, v, band)
     if q.device.type != "cuda":
@@ -700,3 +715,56 @@ def mha_flash_qkv(qkv: torch.Tensor, num_heads: int, bias: torch.Tensor | None =
         return _MaskedAttention.apply(qkv, num_heads, bias, band).reshape(b, n, c3 // 3)
     q, k, v = _split(qkv, num_heads)
     return mha_flash(q, k, v, bias, band).reshape(b, n, c3 // 3)
+
+
+# ------------------------------------------------------------------ the ops torch.export keeps
+@torch.library.custom_op("dad::packed_attention", mutates_args=(), device_types="cuda")
+def _packed_op(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Kernel 1 without the log-sum-exp."""
+    _check(qkv, num_heads)
+    return _forward(qkv, num_heads, with_lse=False)[0]
+
+
+@_packed_op.register_kernel("cpu")
+def _(qkv, num_heads):
+    return mha_packed_reference(qkv, num_heads)
+
+
+@_packed_op.register_fake
+def _(qkv, num_heads):
+    b, n, c3 = qkv.shape
+    return qkv.new_empty((b, n, c3 // 3))
+
+
+@torch.library.custom_op("dad::bias_attention", mutates_args=(), device_types="cuda")
+def _bias_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             bias: torch.Tensor | None) -> torch.Tensor:
+    """Kernel 5 without the log-sum-exp, on ``[B, N, H, D]``."""
+    return _bias_forward(q, k, v, bias, with_lse=False)[0]
+
+
+@_bias_op.register_kernel("cpu")
+def _(q, k, v, bias):
+    return mha_bias_reference(q, k, v, bias).contiguous()
+
+
+@_bias_op.register_fake
+def _(q, k, v, bias):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("dad::banded_attention", mutates_args=(), device_types="cuda")
+def _banded_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, gw: int,
+               window: int) -> torch.Tensor:
+    """Kernel 7 without the log-sum-exp, on ``[B, N, H, D]``."""
+    return _banded_forward(q, k, v, (gw, window), with_lse=False)[0]
+
+
+@_banded_op.register_kernel("cpu")
+def _(q, k, v, gw, window):
+    return mha_banded_reference(q, k, v, (gw, window)).contiguous()
+
+
+@_banded_op.register_fake
+def _(q, k, v, gw, window):
+    return q.new_empty(q.shape)

@@ -33,10 +33,8 @@ in fp32 with 16 more columns, the first holding the global absmax, against
 16 zero weight columns, so that its row scale is the global one and its
 product unchanged.
 
-Every division is a true division: on the card PyTorch divides a tensor by
-a Python number as a product with its reciprocal, which can differ in the
-last bit and flip a round-half-even tie, so the scales divide by a 0-dim
-tensor.
+The row and weight quantization and the exact integer product are
+``ops/quant_matmul``'s (its note on true divisions holds for them).
 """
 from __future__ import annotations
 
@@ -44,37 +42,19 @@ import torch
 import torch.distributed as dist
 
 from distill_any_depth_tpu_torch.models.vit import Linear
+from distill_any_depth_tpu_torch.ops.quant_matmul import (
+    int_product_exact,
+    quantize_rows,
+    quantize_weight,
+    w8a8_matmul,
+)
 from distill_any_depth_tpu_torch.parallel.tp import all_reduce_max
 
 __all__ = ["QUANT_IMPLS", "quantize_rows", "quantize_weight", "quantize_cols",
            "int_product_exact", "int8_matmul", "shard_product", "QuantLinear"]
 
-_EPS = 1e-8
 # model-level ``quant`` mode -> QuantLinear impl
 QUANT_IMPLS = {"int8": "xla", "int8_pallas": "pallas"}
-
-
-def _scale(amax: torch.Tensor) -> torch.Tensor:
-    """``max(amax, 1e-8) / 127`` as a true division (NaN stays NaN)."""
-    return amax.clamp_min(_EPS) / amax.new_full((), 127.0)
-
-
-def quantize_rows(x: torch.Tensor,
-                  amax: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-row int8 quantization along the last axis: ``(xq int8,
-    scale fp32 [..., 1])`` with ``x ~= xq * scale``; ``amax [..., 1]``, when
-    given, replaces the rows' own absmax (a shard's rows take the global
-    one)."""
-    xf = x.float()
-    scale = _scale(xf.abs().amax(dim=-1, keepdim=True) if amax is None else amax)
-    return torch.round(xf / scale).to(torch.int8), scale
-
-
-def quantize_weight(weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """A Linear's ``[out, in]`` weight per output channel: ``(wq int8 [out,
-    in], scale fp32 [out])``."""
-    wq, scale = quantize_rows(weight)
-    return wq, scale[:, 0]
 
 
 def quantize_cols(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -82,14 +62,6 @@ def quantize_cols(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     ``(wq int8 [in, out], scale fp32 [out])``."""
     wq, scale = quantize_weight(w.t())
     return wq.t(), scale
-
-
-def int_product_exact(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """``xq [M, K] @ wq [N, K]^T`` of int8 values, exactly, as fp64: every
-    partial sum is an integer below K * 127^2 < 2^53, so any summation order
-    is exact. It uses no int8 library call, and BLAS makes it fast on the
-    CPU (an int64 matmul has no BLAS path there)."""
-    return xq.double() @ wq.double().t()
 
 
 def _int_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -135,8 +107,6 @@ def shard_product(x: torch.Tensor, amax: torch.Tensor, wq: torch.Tensor, ws: tor
     16 zero weight columns: its own row absmax is then the global one and
     its product unchanged."""
     if impl == "pallas":
-        from distill_any_depth_tpu_torch.ops.quant_matmul import w8a8_matmul
-
         xa = torch.cat([x.float(), amax, amax.new_zeros(x.shape[0], 15)], -1)
         padded = torch.cat([wq, wq.new_zeros(wq.shape[0], 16)], 1)
         return w8a8_matmul(xa, None, None, torch.float32, quantized=(padded, ws))
@@ -204,8 +174,9 @@ class QuantLinear(Linear):
                                "or freeze the weights (a model that trains keeps quant='none')")
         if self.reduce_group is not None:
             return self._row_parallel(x)
-        if self.impl == "pallas":
-            from distill_any_depth_tpu_torch.ops.quant_matmul import w8a8_matmul as matmul
-        else:
-            matmul = int8_matmul
-        return matmul(x, self.weight, self.bias, x.dtype, quantized=self.quantized_weight())
+        matmul = w8a8_matmul if self.impl == "pallas" else int8_matmul
+        # a trace (torch.export) has no storage to key the cache on: the
+        # weight is quantized in the traced graph
+        quantized = (quantize_weight(self.weight) if torch.compiler.is_compiling()
+                     else self.quantized_weight())
+        return matmul(x, self.weight, self.bias, x.dtype, quantized=quantized)

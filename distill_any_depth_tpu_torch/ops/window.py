@@ -51,7 +51,10 @@ def local_window_bias(gh: int, gw: int, window: int, n_prefix: int = 1,
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Additive ``[N, N]`` bias (N = n_prefix + gh*gw) restricting patch-token
     attention to a ``window x window`` neighbourhood. The tensor is shared
-    between callers: do not write to it."""
+    between callers: do not write to it. A trace (``torch.export``) gets a
+    tensor of its own, which it keeps as a constant, and caches nothing."""
+    if torch.compiler.is_compiling():
+        return torch.from_numpy(_bias_np(gh, gw, window, n_prefix)).to(device=device, dtype=dtype)
     return _bias_tensor(gh, gw, window, n_prefix, torch.device(device), dtype)
 
 

@@ -37,8 +37,10 @@ Validation components are reduced over the data ranks, so early stopping
 and ``student_best`` are decided alike everywhere. Rank 0 alone writes
 (checkpoints, ``train_state/``, ``history.json``, the drawings and the
 profiler trace), the gathered full state with a barrier around each save,
-so the files of a run on any grid have the single-process layout. Not
-ported yet: the native loader.
+so the files of a run on any grid have the single-process layout.
+``train_nyu`` reads NYU through the C++ loader (``data/native_loader``)
+where it builds, over the same epoch shards, and through the Python loader
+otherwise.
 """
 from __future__ import annotations
 
@@ -56,7 +58,11 @@ import torch
 from distill_any_depth_tpu_torch.configs import TrainConfig, model_config
 from distill_any_depth_tpu_torch.data.images import ImageFolderDataset
 from distill_any_depth_tpu_torch.data.nyu import NYUDataset, iterate_batches
-from distill_any_depth_tpu_torch.models.factory import create_model, resolve_device
+from distill_any_depth_tpu_torch.models.factory import (
+    create_model,
+    resolve_device,
+    resolve_fused_tail,
+)
 from distill_any_depth_tpu_torch.ops.preprocess import preprocess_on_device
 from distill_any_depth_tpu_torch.parallel import launch
 from distill_any_depth_tpu_torch.parallel.mesh import host_local_batch_size, make_mesh, shard_batch
@@ -79,11 +85,13 @@ class Trainer:
     epochs. The student's weights are seeded random (``cfg.seed``); teacher
     i loads ``cfg.teacher_checkpoints[i]`` where it is given and is seeded
     random (``100 + i``) otherwise. The student runs the plain DPT tail, the
-    JAX package's student configuration (its weights train); the teachers,
-    without gradient, run the tail kernel and, with ``cfg.teacher_quant``,
-    int8 encoder GEMMs. With ``cfg.dp * cfg.tp`` above 1 the process group
-    must hold that many ranks (``ValueError`` otherwise), and the models
-    keep this rank's shards."""
+    JAX package's student configuration (its weights train), and with
+    ``cfg.student_remat`` recomputes its blocks in the backward; the
+    teachers, without gradient, run the tail kernel unless
+    ``cfg.teacher_fused_tail`` is "off" and, with ``cfg.teacher_quant``,
+    int8 encoder GEMMs. Every model's attention is ``cfg.attn_impl``. With
+    ``cfg.dp * cfg.tp`` above 1 the process group must hold that many ranks
+    (``ValueError`` otherwise), and the models keep this rank's shards."""
 
     def __init__(self, cfg: TrainConfig, device: str | torch.device = "cuda"):
         self.cfg = cfg
@@ -95,7 +103,8 @@ class Trainer:
             raise ValueError(f"teacher_chunk {cfg.teacher_chunk} counts global rows: it must "
                              f"divide over dp={cfg.dp}")
         self.student = create_model(cfg.student, dtype=getattr(torch, cfg.student_compute_dtype),
-                                    device=self.device, seed=cfg.seed, fused_tail=False)
+                                    device=self.device, seed=cfg.seed, fused_tail=False,
+                                    attn_impl=cfg.attn_impl, remat=cfg.student_remat)
         self.teachers = []
         for i, name in enumerate(cfg.teachers):
             path = cfg.teacher_checkpoints[i] if i < len(cfg.teacher_checkpoints) else None
@@ -103,7 +112,8 @@ class Trainer:
                 logger.warning("teacher %s: no checkpoint given, random init", name)
             teacher = create_model(model_config(name), dtype=getattr(torch, cfg.teacher_dtype),
                                    device=self.device, seed=None if path else 100 + i,
-                                   quant=cfg.teacher_quant)
+                                   quant=cfg.teacher_quant, attn_impl=cfg.attn_impl,
+                                   fused_tail=resolve_fused_tail(cfg.teacher_fused_tail))
             if path:
                 ckpt_io.load_state_dict_file(teacher, path)
             self.teachers.append(teacher.requires_grad_(False))
@@ -360,32 +370,90 @@ def train_nyu(cfg: TrainConfig, root_dir: str | None = None,
     ``nyu2_train.csv``, shuffled epochs, validation when it holds a full
     batch. ``resume`` (a run's output directory or its ``train_state``)
     continues a saved run in its parameters, optimizer and data order;
-    ``profile_dir`` traces the first 3 steps. With ``cfg.device_preprocess``
-    the batches carry uint8 frames at their native size. Over a rank grid
-    each data rank reads its round-robin shard of every epoch
-    (``data/nyu.epoch_order``) at ``batch_size / dp`` rows a step, and
-    every rank runs the same number of steps."""
+    ``profile_dir`` traces the first 3 steps. With ``cfg.use_native_loader``
+    (the default) the batches come from the C++ loader
+    (``data/native_loader``), where it can be built: its epochs and shards
+    are the Python loader's, batch for batch; where it cannot, a warning is
+    logged and the Python loader serves. ``cfg.device_preprocess`` takes
+    the Python loader, whose batches then carry uint8 frames at their
+    native size. Over a rank grid each data rank reads its round-robin
+    shard of every epoch (``data/nyu.epoch_order``) at ``batch_size / dp``
+    rows a step, and every rank runs the same number of steps."""
     ds = NYUDataset("train", dataset_dir=cfg.dataset_dir, image_size=cfg.image_size,
                     root_dir=root_dir, device_preprocess=cfg.device_preprocess)
     n_val = int(len(ds) * cfg.val_split)
     indices = list(range(len(ds)))
     np.random.RandomState(cfg.seed).shuffle(indices)
     val_idx, train_idx = indices[:n_val], indices[n_val:]
-    trainer = Trainer(cfg, device)
-    if resume:
-        trainer.resume(resume)
     b = cfg.batch_size // cfg.dp
     shard = dict(shard_index=_data_index(cfg), num_shards=cfg.dp)
-    return trainer.run(
-        train_batches=lambda epoch: iterate_batches(
-            ds, b, shuffle=True, seed=cfg.seed + epoch, indices=train_idx, **shard),
-        val_batches=((lambda: iterate_batches(ds, b, shuffle=False, indices=val_idx, **shard))
-                     # fewer validation samples than a batch would yield no batch
-                     if len(val_idx) // cfg.dp >= b else None),
-        max_steps=cfg.num_iterations or None,
-        steps_per_epoch=(len(train_idx) // cfg.dp) // b,
-        profile_dir=profile_dir,
-    )
+    # every rank runs the same steps: counted from the global row count
+    steps_per_epoch = (len(train_idx) // cfg.dp) // b
+    # fewer validation samples than a batch would yield no batch
+    validate = len(val_idx) // cfg.dp >= b
+    loaders = None
+    if cfg.use_native_loader and not cfg.device_preprocess:
+        # only the set-up may fall back: once training starts a failure
+        # propagates (a blanket fallback would restart a long run)
+        try:
+            loaders = _native_loaders(cfg, ds, train_idx, val_idx if validate else None, b,
+                                      shard)
+        except (RuntimeError, OSError) as e:
+            logger.warning("native loader set-up failed (%s); using the Python loader", e)
+    elif cfg.use_native_loader:
+        logger.info("device_preprocess: using the Python loader (it ships uint8 frames; the "
+                    "native loader resizes on the host)")
+    if loaders is None:
+        logger.info("Python loader: %d train samples, %d validation samples", len(train_idx),
+                    n_val)
+
+        def train_batches(epoch):
+            return iterate_batches(ds, b, shuffle=True, seed=cfg.seed + epoch,
+                                   indices=train_idx, **shard)
+
+        def val_batches():
+            return iterate_batches(ds, b, shuffle=False, indices=val_idx, **shard)
+    else:
+        logger.info("native loader: %d train samples, %d validation samples", len(train_idx),
+                    n_val)
+
+        # epoch-seeded orders delivered in order keep a resume's fast-forward
+        # data-exact; epoch 0 replays the same validation order every pass
+        def train_batches(epoch):
+            return loaders[0].batches(steps_per_epoch, epoch=epoch)
+
+        def val_batches():
+            return loaders[1].batches(len(val_idx) // cfg.dp // b, epoch=0)
+    try:
+        trainer = Trainer(cfg, device)
+        if resume:
+            trainer.resume(resume)
+        return trainer.run(
+            train_batches=train_batches, val_batches=val_batches if validate else None,
+            max_steps=cfg.num_iterations or None, steps_per_epoch=steps_per_epoch,
+            profile_dir=profile_dir)
+    finally:
+        for loader in loaders or ():
+            if loader is not None:
+                loader.close()
+
+
+def _native_loaders(cfg: TrainConfig, ds: NYUDataset, train_idx: list[int],
+                    val_idx: list[int] | None, batch: int, shard: dict) -> tuple:
+    """The C++ loaders of ``train_nyu``'s split of ``ds``'s CSV (the
+    validation one None without ``val_idx``), on this data rank's shard.
+    Raises ``RuntimeError`` where the library cannot be built."""
+    from distill_any_depth_tpu_torch.data import native_loader
+
+    if not native_loader.available():
+        raise RuntimeError("the native loader cannot be built here")
+    kw = dict(image_size=cfg.image_size, batch_size=batch, **shard)
+    train = native_loader.NativeNYULoader(ds.csv_path, ds.root, shuffle=True, seed=cfg.seed,
+                                          indices=train_idx, **kw)
+    val = (None if val_idx is None else
+           native_loader.NativeNYULoader(ds.csv_path, ds.root, shuffle=False, indices=val_idx,
+                                         **kw))
+    return train, val
 
 
 def image_batches(ds: ImageFolderDataset, indices: list[int], batch_size: int,

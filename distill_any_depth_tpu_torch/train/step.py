@@ -93,7 +93,7 @@ def mean_over(values: dict, group) -> dict:
 
 def _loss_fn(student, teachers: Sequence, loss_cfg: LossConfig, teacher_idx: int,
              global_image: torch.Tensor, local_image: torch.Tensor, views_shared: bool,
-             teacher_chunk: int, data_group=None):
+             teacher_chunk: int, data_group=None, loss_weights=None):
     # the loss reductions run in fp32 even for a bf16 student
     s_local_depth, s_local_feat = student(local_image)
     s_local_depth = s_local_depth.float()
@@ -109,24 +109,29 @@ def _loss_fn(student, teachers: Sequence, loss_cfg: LossConfig, teacher_idx: int
         t_feat = t_feat.float()
     feat_loss = feature_distillation_loss(s_local_feat, t_feat)
     return combined_distillation_loss(loss_cfg, s_global_depth, s_local_depth, s_local_feat,
-                                      t_depth, feat_loss=feat_loss, data_group=data_group)
+                                      t_depth, feat_loss=feat_loss, data_group=data_group,
+                                      weights=loss_weights)
 
 
 def make_train_step(student: torch.nn.Module, teachers: Sequence[torch.nn.Module],
                     loss_cfg: LossConfig, views_shared: bool = False,
                     teacher_chunk: int = 0, data_group=None):
-    """``step(state, teacher_idx, global_image, local_image) -> metrics``:
-    one update of ``state`` (which holds ``student``'s optimizer); images
-    are ``[B, 3, H, W]`` on the student's device (a data rank's rows with
-    ``data_group``). ``metrics`` holds the loss components, ``grad_norm``
-    (unclipped, over every parameter's gradient, frozen ones included) and
-    ``teacher_idx``."""
+    """``step(state, teacher_idx, global_image, local_image, loss_weights=None)
+    -> metrics``: one update of ``state`` (which holds ``student``'s
+    optimizer); images are ``[B, 3, H, W]`` on the student's device (a data
+    rank's rows with ``data_group``). ``loss_weights`` overrides the
+    ``lambda_*`` of ``loss_cfg`` for this step (keys ``sc``, ``lg``,
+    ``feat``, ``grad``, ``hdn``; the loss-weight tuner's sweep). ``metrics``
+    holds the loss components, ``grad_norm`` (unclipped, over every
+    parameter's gradient, frozen ones included) and ``teacher_idx``."""
 
-    def step(state: TrainState, teacher_idx: int, global_image, local_image) -> dict:
+    def step(state: TrainState, teacher_idx: int, global_image, local_image,
+             loss_weights=None) -> dict:
         for p in state.params:
             p.grad = None
         total, components = _loss_fn(student, teachers, loss_cfg, teacher_idx, global_image,
-                                     local_image, views_shared, teacher_chunk, data_group)
+                                     local_image, views_shared, teacher_chunk, data_group,
+                                     loss_weights)
         total.backward()
         if data_group is not None:
             all_reduce_gradients(state.params, data_group)
@@ -149,13 +154,15 @@ def make_train_step(student: torch.nn.Module, teachers: Sequence[torch.nn.Module
 def make_eval_loss_fn(student: torch.nn.Module, teachers: Sequence[torch.nn.Module],
                       loss_cfg: LossConfig, views_shared: bool = False,
                       teacher_chunk: int = 0, data_group=None):
-    """``eval_loss(teacher_idx, global_image, local_image) -> components``,
-    without gradients (the global components with ``data_group``)."""
+    """``eval_loss(teacher_idx, global_image, local_image, loss_weights=None)
+    -> components``, without gradients (the global components with
+    ``data_group``; ``loss_weights`` as the step's)."""
 
     @torch.no_grad()
-    def eval_loss(teacher_idx: int, global_image, local_image) -> dict:
+    def eval_loss(teacher_idx: int, global_image, local_image, loss_weights=None) -> dict:
         _, components = _loss_fn(student, teachers, loss_cfg, teacher_idx, global_image,
-                                 local_image, views_shared, teacher_chunk, data_group)
+                                 local_image, views_shared, teacher_chunk, data_group,
+                                 loss_weights)
         return mean_over(components, data_group)
 
     return eval_loss

@@ -1,6 +1,7 @@
 """Depth visualization and file helpers used by the CLIs and the
 evaluation registry: the port's own copy of ``normalize_disparity``,
-``colorize_depth_maps``, ``chw2hwc``, ``read_pfm`` and ``write_pfm`` from
+``colorize_depth_maps``, ``chw2hwc``, ``read_pfm``, ``write_pfm``,
+``depth_to_point_cloud`` and ``write_ply`` from
 distill_any_depth_tpu/utils/image_util.py. The tables of the default
 colormap and of ``magma`` (the visualisation's error panels) are the port's
 own, so the CLIs and the training visualisation run where matplotlib is
@@ -11,7 +12,8 @@ import re
 
 import numpy as np
 
-__all__ = ["colorize_depth_maps", "chw2hwc", "normalize_disparity", "read_pfm", "write_pfm"]
+__all__ = ["colorize_depth_maps", "chw2hwc", "normalize_disparity", "read_pfm", "write_pfm",
+           "depth_to_point_cloud", "write_ply"]
 
 
 # matplotlib's "Spectral" colormap (ColorBrewer): its 11 control colors
@@ -140,3 +142,49 @@ def write_pfm(path: str, image: np.ndarray, scale: float = 1.0) -> None:
         f.write(f"{image.shape[1]} {image.shape[0]}\n".encode())
         f.write(f"{-abs(scale)}\n".encode())  # negative: little-endian
         np.flipud(image).astype("<f4").tofile(f)
+
+
+def depth_to_point_cloud(depth: np.ndarray, fx: float, fy: float, cx: float | None = None,
+                         cy: float | None = None, rgb: np.ndarray | None = None,
+                         mask: np.ndarray | None = None):
+    """Back-project a depth map ``[H, W]`` through a pinhole camera: ``(points
+    [N, 3], colors [N, 3] or None)``, the principal point at the image
+    centre by default; ``mask`` keeps the pixels where it is true."""
+    depth = np.asarray(depth, np.float32)
+    h, w = depth.shape
+    cx = (w - 1) / 2 if cx is None else cx
+    cy = (h - 1) / 2 if cy is None else cy
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    z = depth
+    x = (xs - cx) * z / fx
+    y = (ys - cy) * z / fy
+    pts = np.stack([x, y, z], axis=-1).reshape(-1, 3)
+    colors = None if rgb is None else np.asarray(rgb).reshape(-1, 3)
+    if mask is not None:
+        m = np.asarray(mask, bool).reshape(-1)
+        pts = pts[m]
+        if colors is not None:
+            colors = colors[m]
+    return pts, colors
+
+
+def write_ply(path: str, points: np.ndarray, colors: np.ndarray | None = None) -> None:
+    """Write an ASCII PLY point cloud, with uint8 colors if given (float
+    colors in [0, 1] are scaled by 255)."""
+    points = np.asarray(points, np.float32)
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write(f"element vertex {points.shape[0]}\n")
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        if colors is not None:
+            f.write("property uchar red\nproperty uchar green\nproperty uchar blue\n")
+        f.write("end_header\n")
+        if colors is None:
+            for p in points:
+                f.write(f"{p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n")
+            return
+        c = np.asarray(colors)
+        if c.dtype != np.uint8:
+            c = np.clip(c * 255 if c.max() <= 1.0 else c, 0, 255).astype(np.uint8)
+        for p, col in zip(points, c):
+            f.write(f"{p[0]:.6f} {p[1]:.6f} {p[2]:.6f} {col[0]} {col[1]} {col[2]}\n")

@@ -19,7 +19,11 @@ its two student forwards need, and an adapter-only step leaves every frozen
 parameter bit-equal. Under tensor parallelism over 2 ranks, kernels 1 and 3
 run at a rank's share of the heads (ViT-B's 6 of 12, ViT-L's 8 of 16), and
 a row-parallel int8 layer's shards through kernel 9 (each bit-equal to its
-plain version) sum to the unsharded layer's product.
+plain version) sum to the unsharded layer's product. An exported program
+(``utils/export``, both flavours) of a tiny ViT-B, windowed and
+``int8_pallas`` model runs kernels 1, 2, 5 and 9 through their ops and
+gives the eager depth bit for bit; a remat step launches kernel 1 once more
+per student block, with the loss of the step without remat bit for bit.
 """
 import dataclasses
 
@@ -730,3 +734,67 @@ def test_adapter_only_step_keeps_frozen_parameters(cuda_device):
             assert torch.equal(p.detach(), frozen[name]), name
     assert all(not torch.equal(p.detach(), a)
                for p, a in zip(adapter_parameters(student), adapters))
+
+
+def _tiny_model(cuda_device, preset="depthanything-base", **kw):
+    base = model_config(preset)
+    window = {"window_size": 3} if base.encoder.window_size else {}
+    enc = dataclasses.replace(base.encoder, embed_dim=128, depth=2, num_heads=2,
+                              out_indices=(0, 0, 1, 1), **window)
+    cfg = dataclasses.replace(base, encoder=enc, features=64, out_channels=(32, 64, 96, 128))
+    return create_model(cfg, dtype=torch.bfloat16, device=cuda_device, **kw)
+
+
+@pytest.mark.parametrize("case", ["plain", "window", "int8_pallas"])
+def test_exported_program_launches_the_kernels(cuda_device, tmp_path, case):
+    """An exported bf16 program, saved and loaded, runs the kernels through
+    their ops (each wrapper's count ticks once a call) and gives the eager
+    depth bit for bit; the weights-as-arguments program likewise."""
+    from distill_any_depth_tpu_torch.utils import export
+
+    if case == "window":
+        model, size = _tiny_model(cuda_device, "depthanything-base-window"), 126
+        attn = mha_flash_bias
+    else:
+        model, size = _tiny_model(cuda_device, quant="int8_pallas" if case == "int8_pallas"
+                                  else "none"), 98
+        attn = mha_flash_packed
+    x = torch.rand(2, 3, size, size, device=cuda_device)
+    with torch.no_grad():
+        want = model(x)[0].float()
+    fns = (attn, fused_dpt_tail, w8a8_matmul)
+    expect = [2, 1, 8 if case == "int8_pallas" else 0]
+    programs = [export.load_exported(export.export_forward(model, size, 2))]
+    blob = export.export_forward_with_params(model, str(tmp_path / "w.safetensors"), size, 2)
+    programs.append(export.load_exported_with_params(blob, str(tmp_path / "w.safetensors"),
+                                                     cuda_device))
+    for run in programs:
+        before = [f.launches for f in fns]
+        got = run(x)
+        torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip(fns, before)] == expect
+        assert torch.equal(got, want)
+
+
+def test_remat_step_launches_and_matches(cuda_device):
+    """A bf16 step with student remat recomputes the student's 2 blocks
+    (kernel 1 twice more, kernel 3 as before); its loss equals the step
+    without remat bit for bit and its gradient norm within 1e-5."""
+    x = torch.rand(2, 3, 98, 98, generator=torch.Generator(device=cuda_device).manual_seed(2),
+                   device=cuda_device)
+    fns = (mha_flash_packed, packed_attention_backward, fused_dpt_tail, kth_select)
+    seen = []
+    for remat in (False, True):
+        student, teacher = _tiny_train_pair(cuda_device)
+        student.pretrained.remat = remat
+        state = create_train_state(student, OptimizerConfig(lr=1e-4, warmup_steps=0))
+        step = make_train_step(student, [teacher], LossConfig(), views_shared=True)
+        before = [f.launches for f in fns]
+        metrics = step(state, 0, x, x)
+        torch.cuda.synchronize()
+        seen.append(([f.launches - b for f, b in zip(fns, before)],
+                     {k: float(v) for k, v in metrics.items()}))
+    (plain_counts, plain), (remat_counts, remat) = seen
+    assert plain_counts == [4, 2, 1, 2] and remat_counts == [6, 2, 1, 2]
+    assert remat["total"] == plain["total"]
+    assert abs(remat["grad_norm"] - plain["grad_norm"]) <= 1e-5 * plain["grad_norm"]

@@ -1,8 +1,9 @@
 """Import guard: the port and ``chip_smoke.py`` import nothing of JAX and
 nothing of the JAX package, and not the ``safetensors`` package (the card
 machine has none: the port reads and writes the format itself), found by
-scanning the import statements of their source files; and every module of
-the port imports cleanly."""
+scanning the import statements of their source files; every module of
+the port imports cleanly; and the port's native C++ source (its own copy,
+``native/dad_loader.cpp``) names no path of the JAX package."""
 import ast
 import importlib
 from pathlib import Path
@@ -47,8 +48,19 @@ def test_no_safetensors_imports(path):
 
 def test_new_modules_scanned():
     for module in ("eval/metrics.py", "eval/evaluate.py", "cli/evaluate.py", "cli/convert.py",
-                   "data/registry.py", "utils/checkpoint.py"):
+                   "data/registry.py", "utils/checkpoint.py", "utils/export.py",
+                   "train/tuner.py", "data/native_loader.py", "cli/hdn_demo.py"):
         assert PORT / module in SOURCES, module
+
+
+def test_native_source_is_the_ports_own():
+    source = PORT / "native" / "dad_loader.cpp"
+    text = source.read_text()
+    assert "distill_any_depth_tpu/" not in text and "jax" not in text.lower()
+    from distill_any_depth_tpu_torch.data import native_loader
+
+    assert native_loader.SOURCE == source
+    assert native_loader.BUILD_DIR == ROOT / "build"
 
 
 @pytest.mark.parametrize(
