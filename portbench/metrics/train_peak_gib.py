@@ -1,0 +1,6 @@
+"""train_peak_gib: ``torch.cuda.max_memory_allocated()`` over the window,
+reset at its start, in GiB."""
+
+
+def read(ctx):
+    return ctx.peak_window_bytes / 2 ** 30 if ctx.peak_window_bytes else None
