@@ -34,6 +34,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from distill_any_depth_tpu_torch.utils.profiling import count, span
+
 __all__ = ["argument_parser", "predict", "main"]
 
 
@@ -80,9 +82,13 @@ def _forward_batches(model, xs: torch.Tensor, batch_size: int) -> np.ndarray:
             n = chunk.shape[0]
             if n < batch_size:
                 chunk = torch.cat([chunk, chunk[-1:].expand(batch_size - n, -1, -1, -1)])
-            depth = model(chunk)[0]
-            preds.append(depth[:n].float().cpu().numpy())
-    return np.concatenate(preds)
+            with span("predict/forward"):
+                depth = model(chunk)[0]
+            with span("predict/readback"):
+                preds.append(depth[:n].float().cpu().numpy())
+                count("predict/readback_bytes", preds[-1].nbytes)
+    with span("predict/concat"):
+        return np.concatenate(preds)
 
 
 def predict(model, images_u8: Sequence[np.ndarray], processing_res: int,
@@ -90,18 +96,30 @@ def predict(model, images_u8: Sequence[np.ndarray], processing_res: int,
     """Depth at ``processing_res`` for decoded RGB uint8 ``[H, W, 3]``
     images (any sizes): each is resized, /255-scaled and normalized on the
     model's device, then they run through the model in batches of
-    ``batch_size``. Returns float32 ``[n, processing_res, processing_res]``."""
+    ``batch_size``. Returns float32 ``[n, processing_res, processing_res]``.
+
+    Under ``utils/profiling.recording()`` a call is the span ``predict``
+    over ``predict/upload`` (each frame's copy to the device),
+    ``predict/preprocess``, ``predict/forward``, ``predict/readback`` (each
+    batch's depth to the host) and ``predict/concat``, and counts
+    ``predict/upload_bytes`` and ``predict/readback_bytes``."""
     from distill_any_depth_tpu_torch.ops.preprocess import preprocess_on_device
 
     if processing_res <= 0:
         raise ValueError("predict needs a fixed processing_res > 0")
     device = next(model.parameters()).device
-    xs = torch.cat([
-        preprocess_on_device(torch.from_numpy(np.ascontiguousarray(im))[None].to(device),
-                             processing_res, dtype=model.dtype)
-        for im in images_u8
-    ])
-    return _forward_batches(model, xs, max(batch_size, 1))
+    with span("predict"):
+        xs = []
+        for im in images_u8:
+            with span("predict/upload"):
+                frame = torch.from_numpy(np.ascontiguousarray(im))[None]
+                count("predict/upload_bytes", frame.nbytes)
+                frame = frame.to(device)
+            with span("predict/preprocess"):
+                xs.append(preprocess_on_device(frame, processing_res, dtype=model.dtype))
+        with span("predict/preprocess"):
+            xs = torch.cat(xs)
+        return _forward_batches(model, xs, max(batch_size, 1))
 
 
 def main(args=None) -> list[str]:

@@ -16,18 +16,18 @@ teacher's GEMMs through kernel 9; ``--teacher depthanything-giant-reg``
 breaks down the step under the ViT-g register teacher; ``--two_views``
 times the image-folder step (the student on a global and a local view);
 ``--adapters`` the adapter-only step of ``cli.train --lora_rank 8 --use_ssf
---adapter_only``. The pieces below are the shared-view step's in every
-case. It reports:
+--adapter_only``. It reports, for whole steps of the real step function:
 
-- the pieces of the step timed alone with CUDA events on the same batch:
-  the teacher forward, the student forward, the loss stack forward and
-  backward (on leaf tensors of the student's output shapes), the student's
-  forward + loss + backward, the optimizer (clip, guard, Adam) and the whole
-  step; the student backward is the difference;
-- from a ``torch.profiler`` trace of whole steps (CUDA activity only):
-  device time per step by kernel class (``profile_infer.CLASSES``) and for
-  the top kernels, launches per step, and the device's busy share;
-- the host time to enqueue a step and what the device still needs after.
+- the host time to enqueue a step and what the device still needs after,
+  with the program's span recording off and on (its cost: medians of
+  ``ROUNDS`` windows of ``ITERS`` steps each way, in turns);
+- each program span's host ms a step (``train/step`` and its phases,
+  ``utils/profiling.span``), recorded while a ``torch.profiler`` trace (CUDA
+  activity only) runs;
+- from that trace: device time per step by kernel class
+  (``profile_infer.CLASSES``) and for the top kernels, launches per step,
+  and the device's busy share. The trace is written with the spans on a
+  "program spans" track (``utils/profiling.add_spans``).
 
 The step's wall time and steps/s are ``chip_smoke.py``'s to measure.
 """
@@ -37,25 +37,24 @@ import argparse
 import dataclasses
 import json
 import os
+import statistics
 import time
 from collections import defaultdict
 
 import torch
 
-from distill_any_depth_tpu_torch.cli.profile_infer import busy_share, classify, cuda_ms
+from distill_any_depth_tpu_torch.cli.profile_infer import busy_share, classify
+from distill_any_depth_tpu_torch.utils.profiling import add_spans, recording
 
-ITERS, TOP = 5, 30  # steps traced, kernels listed
+ITERS, WARMUP, TOP = 5, 2, 30  # steps timed and traced, warm-up steps, kernels listed
+ROUNDS = 5  # windows timed with recording off and on, in turns
 ADAPTER_RANK = 8  # --adapters: LoRA rank 8 and SSF, adapter-only
 STUDENT, TEACHER, RES, BATCH = "depthanything-base", "depthanything-large", 392, 16
 
 
 def main(argv=None) -> dict:
     from distill_any_depth_tpu_torch.configs import TrainConfig, model_config
-    from distill_any_depth_tpu_torch.losses.distill import combined_distillation_loss
-    from distill_any_depth_tpu_torch.losses.feature import feature_distillation_loss
     from distill_any_depth_tpu_torch.train.loop import Trainer
-    from distill_any_depth_tpu_torch.train.state import apply_gradients
-    from distill_any_depth_tpu_torch.train.step import chunked_apply
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default="chiprun_out/profile")
@@ -80,7 +79,7 @@ def main(argv=None) -> dict:
                       output_dir=os.path.join(args.out, "train"))
     trainer = Trainer(cfg, "cuda")
     trainer._build_steps(views_shared=not args.two_views)
-    student, teacher, state = trainer.student, trainer.teachers[0], trainer.state
+    state = trainer.state
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(batch, 3, res, res, generator=gen, device="cuda")
     x_global = torch.randn(batch, 3, res, res, generator=gen, device="cuda")
@@ -88,60 +87,41 @@ def main(argv=None) -> dict:
     def step():
         trainer.train_step(state, 0, x_global if args.two_views else x, x)
 
-    def teacher_fwd():
-        with torch.no_grad():
-            return chunked_apply(teacher, x, cfg.teacher_chunk)
+    def enqueue_and_drain() -> tuple[float, float]:
+        """Host ms a step to enqueue ``ITERS`` steps, and the device's ms
+        after the last enqueue."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            step()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / ITERS * 1e3, (time.perf_counter() - t1) * 1e3
 
-    with torch.no_grad():
-        s_depth, s_feat = student(x)
-        t_depth, t_feat = (t.float() for t in teacher_fwd())
-
-    def student_fwd():
-        student(x)
-
-    def loss_fwd_bwd():
-        d = s_depth.detach().float().requires_grad_()
-        f = s_feat.detach().float().requires_grad_()
-        feat = feature_distillation_loss(f, t_feat)
-        total, _ = combined_distillation_loss(cfg.loss, d, d, f, t_depth, feat_loss=feat)
-        total.backward()
-
-    def student_fwd_bwd():
-        d, f = student(x)
-        d, f = d.float(), f.float()
-        feat = feature_distillation_loss(f, t_feat)
-        total, _ = combined_distillation_loss(cfg.loss, d, d, f, t_depth, feat_loss=feat)
-        total.backward()
-
-    def optimizer():
-        apply_gradients(state)
-
-    pieces = {f"teacher forward (bs{batch} in chunks of {cfg.teacher_chunk})": teacher_fwd, "student forward": student_fwd,
-              "loss stack forward + backward": loss_fwd_bwd,
-              "student forward + loss + backward": student_fwd_bwd,
-              "optimizer (clip, guard, Adam)": optimizer, "whole step": step}
-    times = {name: cuda_ms(fn, iters=5, warmup=2, windows=3) for name, fn in pieces.items()}
-    times["student backward (difference)"] = (times["student forward + loss + backward"]
-                                              - times["student forward"]
-                                              - times["loss stack forward + backward"])
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(ITERS):
+    for _ in range(WARMUP):
         step()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    enqueue_ms, drain_ms = (t1 - t0) / ITERS * 1e3, (time.perf_counter() - t1) * 1e3
+    off, on = [], []
+    for _ in range(ROUNDS):
+        off.append(enqueue_and_drain())
+        with recording():
+            on.append(enqueue_and_drain())
+    enqueue_ms, drain_ms = (statistics.median(col) for col in zip(*off))
+    enqueue_recorded_ms = statistics.median(e for e, _ in on)
 
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with recording() as rec, torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(ITERS):
             step()
         torch.cuda.synchronize()
+    span_ms: dict[str, float] = defaultdict(float)
+    for s in rec.spans:
+        span_ms[s.name] += (s.end_ns - s.start_ns) / 1e6 / ITERS
     os.makedirs(args.out, exist_ok=True)
     variant = ("_two_views" if args.two_views else "") + ("_adapters" if args.adapters else "")
     trace_path = os.path.join(
         args.out, f"train_{arch}_{args.teacher}_{res}_bs{batch}_{args.teacher_quant}{variant}.json")
     prof.export_chrome_trace(trace_path)
+    add_spans(trace_path, rec)
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
@@ -160,8 +140,10 @@ def main(argv=None) -> dict:
         "device": torch.cuda.get_device_name(0),
         "student": arch, "teacher": args.teacher, "teacher_quant": args.teacher_quant, "res": res,
         "batch": batch, "two_views": args.two_views, "adapters": args.adapters,
-        "pieces_ms": times,
         "host_enqueue_ms_per_step": enqueue_ms, "device_drain_ms_after_enqueue": drain_ms,
+        "host_enqueue_ms_per_step_recording": enqueue_recorded_ms,
+        "host_enqueue_ms_windows": {"off": [e for e, _ in off], "on": [e for e, _ in on]},
+        "span_host_ms_per_step": dict(span_ms),
         "traced_kernel_ms_per_step": sum(by_class.values()) / per_step,
         "traced_span_ms_per_step": span / per_step,
         "device_busy_share": busy / span,

@@ -16,6 +16,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from distill_any_depth_tpu_torch.utils.profiling import count, span
+
 __all__ = ["SOURCES", "build_all", "load"]
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -58,12 +60,21 @@ def build_all(names=tuple(SOURCES)) -> dict[str, str]:
     """Compile each library in ``names`` that is not built yet, one ``nvcc``
     process per source, all started together. Returns each new build's
     compiler log (register and shared-memory use from ``-Xptxas -v``);
-    raises with the log of every failed build."""
+    raises with the log of every failed build. Under
+    ``utils/profiling.recording()`` the span ``kernels/build`` covers the
+    concurrent ``nvcc`` runs of a call that builds, and ``kernels/built``
+    counts the libraries built."""
+    todo = [name for name in names if not _target(name).exists()]
+    if not todo:
+        return {}
+    with span("kernels/build"):
+        return _build(todo)
+
+
+def _build(names) -> dict[str, str]:
     jobs = {}
     for name in names:
         out = _target(name)
-        if out.exists():
-            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [
@@ -80,6 +91,7 @@ def build_all(names=tuple(SOURCES)) -> dict[str, str]:
             failed.append(f"nvcc failed for {SOURCES[name]}:\n{logs[name]}")
         else:
             os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+            count("kernels/built", 1)
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs

@@ -19,7 +19,9 @@ launches); a save reads the parameters and nothing else.
 student's LoRA/SSF parameters alone (``train/state``). A batch of uint8
 images (``cfg.device_preprocess``) is copied to the device as it is and
 resized and normalized there (``ops/preprocess``). ``run(profile_dir=...)``
-traces the first ``PROFILE_STEPS`` steps (``utils/profiling.trace``); every
+traces the first ``PROFILE_STEPS`` steps (``utils/profiling.trace``, with
+the program's spans: ``train/batch`` the wait for a batch, ``train/log`` a
+log step's host reads, and the step's own); every
 ``cfg.visualize_interval`` steps the student's and the first teacher's
 depth of the local view are drawn, and the loss and LR curves at the end
 (``utils/visualize``; a drawing error is logged and the run goes on).
@@ -70,7 +72,7 @@ from distill_any_depth_tpu_torch.parallel.tp import shard_model
 from distill_any_depth_tpu_torch.train.state import create_train_state
 from distill_any_depth_tpu_torch.train.step import make_eval_loss_fn, make_train_step
 from distill_any_depth_tpu_torch.utils import checkpoint as ckpt_io
-from distill_any_depth_tpu_torch.utils.profiling import StepTimer, trace
+from distill_any_depth_tpu_torch.utils.profiling import StepTimer, count, span, trace
 
 logger = logging.getLogger("distill_any_depth_tpu_torch.train")
 
@@ -153,17 +155,23 @@ class Trainer:
     def _views(self, batch: dict):
         """Global and local views ``[B, 3, H, W]`` on the device: NYU batches
         use one image for both. uint8 images go to the device as they are
-        and are resized to ``cfg.image_size`` and normalized there."""
+        and are resized to ``cfg.image_size`` and normalized there. Under
+        ``utils/profiling.recording()``: the span ``train/views`` over each
+        view's ``train/upload``, counted in ``train/upload_bytes``."""
         def put(x):
-            x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            with span("train/upload"):
+                x = torch.from_numpy(np.ascontiguousarray(x))
+                count("train/upload_bytes", x.nbytes)
+                x = x.to(self.device)
             if x.dtype == torch.uint8:
                 return preprocess_on_device(x, self.cfg.image_size)
             return x.permute(0, 3, 1, 2)
 
-        if "global_image" in batch:
-            return put(batch["global_image"]), put(batch["local_image"])
-        x = put(batch["image"])
-        return x, x
+        with span("train/views"):
+            if "global_image" in batch:
+                return put(batch["global_image"]), put(batch["local_image"])
+            x = put(batch["image"])
+            return x, x
 
     def run(self, train_batches: Callable[[int], Iterable[dict]],
             val_batches: Callable[[], Iterable[dict]] | None = None,
@@ -238,7 +246,12 @@ class Trainer:
                 batches = train_batches(epoch)
                 if epoch == start_epoch and skip_batches:
                     batches = itertools.islice(batches, skip_batches, None)
-                for batch in batches:
+                batches = iter(batches)
+                while True:
+                    with span("train/batch"):  # the loader's wait
+                        batch = next(batches, None)
+                    if batch is None:
+                        break
                     if max_steps and step >= max_steps:
                         break
                     if self.train_step is None:
@@ -257,13 +270,15 @@ class Trainer:
                     if on_step is not None:
                         on_step(step, metrics)
                     if step % cfg.log_interval == 0 or step == 1:
-                        lr_now = float(self.state.schedule(step))
-                        history["lr"].append(lr_now)
-                        comp = {k: round(float(v), 4) for k, v in metrics.items()
-                                if k != "teacher_idx"}
-                        logger.info("step %d | epoch %d | %s | lr %.2e | %.2f img/s | %.1fs",
-                                    step, epoch + 1, comp, lr_now, timer.images_per_sec,
-                                    time.time() - start)
+                        with span("train/log"):  # host reads: waits for the device
+                            lr_now = float(self.state.schedule(step))
+                            history["lr"].append(lr_now)
+                            comp = {k: round(float(v), 4) for k, v in metrics.items()
+                                    if k != "teacher_idx"}
+                            logger.info(
+                                "step %d | epoch %d | %s | lr %.2e | %.2f img/s | %.1fs",
+                                step, epoch + 1, comp, lr_now, timer.images_per_sec,
+                                time.time() - start)
                     if cfg.checkpoint_interval and step % cfg.checkpoint_interval == 0:
                         self._save_step_checkpoint(step)
                     if cfg.visualize_interval and step % cfg.visualize_interval == 0:

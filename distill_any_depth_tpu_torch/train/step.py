@@ -33,6 +33,7 @@ from distill_any_depth_tpu_torch.configs import LossConfig
 from distill_any_depth_tpu_torch.losses.distill import combined_distillation_loss
 from distill_any_depth_tpu_torch.losses.feature import feature_distillation_loss
 from distill_any_depth_tpu_torch.train.state import TrainState, apply_gradients
+from distill_any_depth_tpu_torch.utils.profiling import span
 
 __all__ = ["BUCKET_BYTES", "chunked_apply", "all_reduce_gradients", "mean_over",
            "make_train_step", "make_eval_loss_fn"]
@@ -95,22 +96,25 @@ def _loss_fn(student, teachers: Sequence, loss_cfg: LossConfig, teacher_idx: int
              global_image: torch.Tensor, local_image: torch.Tensor, views_shared: bool,
              teacher_chunk: int, data_group=None, loss_weights=None):
     # the loss reductions run in fp32 even for a bf16 student
-    s_local_depth, s_local_feat = student(local_image)
-    s_local_depth = s_local_depth.float()
-    s_local_feat = s_local_feat.float()
+    with span("train/student_fwd"):
+        s_local_depth, s_local_feat = student(local_image)
+        s_local_depth = s_local_depth.float()
+        s_local_feat = s_local_feat.float()
     if views_shared:
         # the NYU path: the global view is the local view
         s_global_depth = s_local_depth
     else:
-        s_global_depth = student(global_image)[0].float()
-    with torch.no_grad():
+        with span("train/student_fwd"):
+            s_global_depth = student(global_image)[0].float()
+    with span("train/teacher_fwd"), torch.no_grad():
         t_depth, t_feat = chunked_apply(teachers[teacher_idx], local_image, teacher_chunk)
         t_depth = t_depth.float()
         t_feat = t_feat.float()
-    feat_loss = feature_distillation_loss(s_local_feat, t_feat)
-    return combined_distillation_loss(loss_cfg, s_global_depth, s_local_depth, s_local_feat,
-                                      t_depth, feat_loss=feat_loss, data_group=data_group,
-                                      weights=loss_weights)
+    with span("train/loss"):
+        feat_loss = feature_distillation_loss(s_local_feat, t_feat)
+        return combined_distillation_loss(loss_cfg, s_global_depth, s_local_depth,
+                                          s_local_feat, t_depth, feat_loss=feat_loss,
+                                          data_group=data_group, weights=loss_weights)
 
 
 def make_train_step(student: torch.nn.Module, teachers: Sequence[torch.nn.Module],
@@ -123,30 +127,44 @@ def make_train_step(student: torch.nn.Module, teachers: Sequence[torch.nn.Module
     ``lambda_*`` of ``loss_cfg`` for this step (keys ``sc``, ``lg``,
     ``feat``, ``grad``, ``hdn``; the loss-weight tuner's sweep). ``metrics``
     holds the loss components, ``grad_norm`` (unclipped, over every
-    parameter's gradient, frozen ones included) and ``teacher_idx``."""
+    parameter's gradient, frozen ones included) and ``teacher_idx``.
+
+    Under ``utils/profiling.recording()`` a step is the span ``train/step``
+    over ``train/student_fwd``, ``train/teacher_fwd``, ``train/loss``,
+    ``train/backward``, ``train/all_reduce`` (over a rank grid),
+    ``train/optimizer`` and ``train/metrics``."""
 
     def step(state: TrainState, teacher_idx: int, global_image, local_image,
              loss_weights=None) -> dict:
-        for p in state.params:
-            p.grad = None
-        total, components = _loss_fn(student, teachers, loss_cfg, teacher_idx, global_image,
-                                     local_image, views_shared, teacher_chunk, data_group,
-                                     loss_weights)
-        total.backward()
-        if data_group is not None:
-            all_reduce_gradients(state.params, data_group)
-        if state.model_group is not None:
-            # the replicated parameters' gradients agree across the model
-            # group only up to the card's non-deterministic backwards (the
-            # head's resize accumulates with atomics): their mean keeps the
-            # replicas equal, and the clip and guard alike
-            all_reduce_gradients([p for p in state.params if id(p) not in state.splits],
-                                 state.model_group)
-        norm = apply_gradients(state)
-        metrics = mean_over({k: v.detach() for k, v in components.items()}, data_group)
-        metrics["grad_norm"] = norm
-        metrics["teacher_idx"] = teacher_idx
-        return metrics
+        with span("train/step"):
+            for p in state.params:
+                p.grad = None
+            total, components = _loss_fn(student, teachers, loss_cfg, teacher_idx,
+                                         global_image, local_image, views_shared,
+                                         teacher_chunk, data_group, loss_weights)
+            with span("train/backward"):
+                total.backward()
+            if data_group is not None or state.model_group is not None:
+                with span("train/all_reduce"):
+                    if data_group is not None:
+                        all_reduce_gradients(state.params, data_group)
+                    if state.model_group is not None:
+                        # the replicated parameters' gradients agree across
+                        # the model group only up to the card's
+                        # non-deterministic backwards (the head's resize
+                        # accumulates with atomics): their mean keeps the
+                        # replicas equal, and the clip and guard alike
+                        all_reduce_gradients(
+                            [p for p in state.params if id(p) not in state.splits],
+                            state.model_group)
+            with span("train/optimizer"):
+                norm = apply_gradients(state)
+            with span("train/metrics"):
+                metrics = mean_over({k: v.detach() for k, v in components.items()},
+                                    data_group)
+            metrics["grad_norm"] = norm
+            metrics["teacher_idx"] = teacher_idx
+            return metrics
 
     return step
 

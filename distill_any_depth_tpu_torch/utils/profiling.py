@@ -1,23 +1,163 @@
-"""Profiling and step timing.
+"""Profiling, program spans and step timing.
 
 Counterpart of distill_any_depth_tpu/utils/profiling.py (``trace``,
 ``device_sync``, ``StepTimer``): a ``torch.profiler`` trace written as a
 Chrome trace (``chrome://tracing`` or Perfetto read it), with the card's
 kernels when the device is a card, and a rolling window of step times that
 gives steps/s and images/s.
+
+The program's own spans and counters: ``span(name)`` marks a phase of a
+call or step on the host (``with span("train/backward"): ...``) and
+``count(name, n)`` adds to a counter. Both record only inside a
+``recording()`` block, which returns what was recorded; outside one, the
+default, ``span`` hands back one shared no-op context and ``count`` returns
+at once. Times are ``time.time_ns()``, the clock of the profiler's Chrome
+export, so a span lines up with the kernels its phase launched. A span
+never synchronizes the device nor reads a device value.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
+import json
 import os
+import threading
 import time
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import torch
 
-__all__ = ["TRACE_FILE", "trace", "device_sync", "StepTimer"]
+__all__ = ["TRACE_FILE", "Span", "Recording", "span", "count", "recording", "add_spans",
+           "trace", "device_sync", "StepTimer"]
 
 TRACE_FILE = "trace.json"  # inside the trace directory
+SPANS_PID = 1 << 30  # the Chrome trace's process id of the "program spans" track
+
+
+class Span(NamedTuple):
+    """One phase on the host: ``parent`` is the name of the span open on the
+    same thread when it began (None at the outermost), ``root`` the id of
+    the outermost span of its call or step, shared by every span of that
+    unit, and ``thread`` the thread's ident."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: str | None
+    root: int
+    thread: int
+
+
+@dataclass
+class Recording:
+    """What a ``recording()`` block recorded: ``spans`` in the order they
+    ended, and ``counted``, each ``count`` call as ``(name, n, time_ns)``."""
+
+    spans: list = field(default_factory=list)
+    counted: list = field(default_factory=list)
+
+    @property
+    def counts(self) -> dict[str, int]:
+        """Each counter's total."""
+        totals: dict[str, int] = {}
+        for name, n, _ in self.counted:
+            totals[name] = totals.get(name, 0) + n
+        return totals
+
+    def between(self, start_ns: int, end_ns: int) -> Recording:
+        """The spans that began, and the counts made, in ``[start_ns,
+        end_ns]``."""
+        return Recording([s for s in self.spans if start_ns <= s.start_ns <= end_ns],
+                         [c for c in self.counted if start_ns <= c[2] <= end_ns])
+
+
+_recording: Recording | None = None  # the innermost open recording() block's
+_OFF = contextlib.nullcontext()
+_roots = itertools.count(1)
+_local = threading.local()  # each thread's stack of open spans
+
+
+def _open_spans() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Open:
+    __slots__ = ("rec", "name", "parent", "root", "start")
+
+    def __init__(self, rec: Recording, name: str):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        stack = _open_spans()
+        top = stack[-1] if stack else None
+        self.parent = None if top is None else top.name
+        self.root = next(_roots) if top is None else top.root
+        stack.append(self)
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        end = time.time_ns()
+        _open_spans().pop()
+        self.rec.spans.append(Span(self.name, self.start, end, self.parent, self.root,
+                                   threading.get_ident()))
+        return False
+
+
+def span(name: str):
+    """A context that records the block as the span ``name`` while a
+    ``recording()`` block is open; otherwise a shared no-op."""
+    rec = _recording
+    if rec is None:
+        return _OFF
+    return _Open(rec, name)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` (a host number) to the counter ``name`` while a
+    ``recording()`` block is open."""
+    rec = _recording
+    if rec is not None:
+        rec.counted.append((name, n, time.time_ns()))
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans and counts, from every thread, while the block runs:
+    ``with recording() as rec: ...``, then ``rec.spans`` and ``rec.counts``.
+    Blocks nest; the innermost open one records."""
+    global _recording
+    outer, rec = _recording, Recording()
+    _recording = rec
+    try:
+        yield rec
+    finally:
+        _recording = outer
+
+
+def add_spans(path: str, rec: Recording) -> None:
+    """Write ``rec``'s spans into the Chrome trace ``path``
+    (``torch.profiler``'s export) on a "program spans" track: each span a
+    complete event, one row a thread, on the trace's clock (its
+    ``baseTimeNanoseconds``)."""
+    with open(path) as f:
+        data = json.load(f)
+    base = int(data.get("baseTimeNanoseconds", 0))
+    rows = {t: i for i, t in enumerate(sorted({s.thread for s in rec.spans}))}
+    events = [{"ph": "M", "name": "process_name", "pid": SPANS_PID,
+               "args": {"name": "program spans"}}]
+    for s in rec.spans:
+        events.append({"ph": "X", "cat": "program_span", "name": s.name, "pid": SPANS_PID,
+                       "tid": rows[s.thread], "ts": (s.start_ns - base) / 1e3,
+                       "dur": (s.end_ns - s.start_ns) / 1e3,
+                       "args": {"parent": s.parent, "root": s.root}})
+    data["traceEvents"].extend(events)
+    with open(path, "w") as f:
+        json.dump(data, f)
 
 
 def device_sync(device: str | torch.device) -> None:
@@ -31,18 +171,22 @@ def device_sync(device: str | torch.device) -> None:
 @contextlib.contextmanager
 def trace(log_dir: str, device: str | torch.device = "cuda"):
     """Trace the host and, on a card, its kernels while the block runs, and
-    write ``log_dir/trace.json``: ``with trace(out): step(...)``."""
+    write ``log_dir/trace.json``: ``with trace(out): step(...)``. The
+    program's spans of the block are recorded and written into the same
+    file (``add_spans``)."""
     device = torch.device(device)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    with recording() as rec, torch.profiler.profile(activities=activities) as prof:
         try:
             yield prof
         finally:
             device_sync(device)
-    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+    path = os.path.join(log_dir, TRACE_FILE)
+    prof.export_chrome_trace(path)
+    add_spans(path, rec)
 
 
 @dataclass
