@@ -74,8 +74,12 @@ def argument_parser() -> argparse.ArgumentParser:
 def _forward_batches(model, xs: torch.Tensor, batch_size: int) -> np.ndarray:
     """Depth for ``xs [n, 3, H, W]`` in batches of ``batch_size``; the last
     batch is padded with copies of its final image to the full size, so
-    every forward sees one shape."""
-    preds = []
+    every forward sees one shape. Each batch's depth is copied into its rows
+    of one float32 host tensor, made for this call once the first forward
+    gives the depth's shape. A CUDA depth goes into page-locked memory from
+    torch's caching host allocator by non-blocking copies, which are waited
+    for before the tensor's NumPy view is returned."""
+    out = None
     with torch.no_grad():
         for i in range(0, xs.shape[0], batch_size):
             chunk = xs[i : i + batch_size]
@@ -85,10 +89,21 @@ def _forward_batches(model, xs: torch.Tensor, batch_size: int) -> np.ndarray:
             with span("predict/forward"):
                 depth = model(chunk)[0]
             with span("predict/readback"):
-                preds.append(depth[:n].float().cpu().numpy())
-                count("predict/readback_bytes", preds[-1].nbytes)
+                if out is None:
+                    pinned = depth.is_cuda
+                    out = torch.empty((xs.shape[0], *depth.shape[1:]), dtype=torch.float32,
+                                      pin_memory=pinned)
+                rows = out[i : i + n]
+                rows.copy_(depth[:n].float(), non_blocking=pinned)
+                count("predict/readback_bytes", rows.nbytes)
+                if pinned:
+                    count("predict/readback_pinned_bytes", rows.nbytes)
+    # the span keeps the name of the concatenation it replaced: its readers
+    # (portbench.phases' concat_idle_ms.infer) compare across commits by it
     with span("predict/concat"):
-        return np.concatenate(preds)
+        if pinned:
+            torch.cuda.current_stream(depth.device).synchronize()
+        return out.numpy()
 
 
 def predict(model, images_u8: Sequence[np.ndarray], processing_res: int,
@@ -96,13 +111,18 @@ def predict(model, images_u8: Sequence[np.ndarray], processing_res: int,
     """Depth at ``processing_res`` for decoded RGB uint8 ``[H, W, 3]``
     images (any sizes): each is resized, /255-scaled and normalized on the
     model's device, then they run through the model in batches of
-    ``batch_size``. Returns float32 ``[n, processing_res, processing_res]``.
+    ``batch_size``. Returns float32 ``[n, processing_res, processing_res]``,
+    a new array each call. On CUDA it lives in page-locked memory from
+    torch's caching host allocator: a caller that keeps many outputs keeps
+    that memory (``main`` saves and drops each call's output).
 
     Under ``utils/profiling.recording()`` a call is the span ``predict``
     over ``predict/upload`` (each frame's copy to the device),
     ``predict/preprocess``, ``predict/forward``, ``predict/readback`` (each
-    batch's depth to the host) and ``predict/concat``, and counts
-    ``predict/upload_bytes`` and ``predict/readback_bytes``."""
+    batch's depth copied into the output, non-blocking on CUDA) and
+    ``predict/concat`` (the wait for those copies), and counts
+    ``predict/upload_bytes``, ``predict/readback_bytes`` and, of those, the
+    bytes that went into page-locked memory, ``predict/readback_pinned_bytes``."""
     from distill_any_depth_tpu_torch.ops.preprocess import preprocess_on_device
 
     if processing_res <= 0:

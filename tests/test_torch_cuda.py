@@ -24,12 +24,16 @@ plain version) sum to the unsharded layer's product. An exported program
 ``int8_pallas`` model runs kernels 1, 2, 5 and 9 through their ops and
 gives the eager depth bit for bit; a remat step launches kernel 1 once more
 per student block, with the loss of the step without remat bit for bit.
+``predict`` returns its depth bit for bit in page-locked memory, a new
+array each call.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
+from distill_any_depth_tpu_torch.cli import infer
 from distill_any_depth_tpu_torch.configs import LossConfig, OptimizerConfig, model_config
 from distill_any_depth_tpu_torch.models.adapters import adapter_parameters, is_adapter_name
 from distill_any_depth_tpu_torch.models.factory import create_model
@@ -50,12 +54,14 @@ from distill_any_depth_tpu_torch.ops.flash_attention import (
     mha_packed_reference,
     packed_attention_backward,
 )
+from distill_any_depth_tpu_torch.ops.preprocess import preprocess_on_device
 from distill_any_depth_tpu_torch.ops.window import local_window_bias, segment_bias
 from distill_any_depth_tpu_torch.ops.stats import _order_bits, kth_select, kth_select_reference
 from distill_any_depth_tpu_torch.ops.quant import quantize_rows, quantize_weight, shard_product
 from distill_any_depth_tpu_torch.ops.quant_matmul import w8a8_matmul, w8a8_reference
 from distill_any_depth_tpu_torch.train.state import create_train_state
 from distill_any_depth_tpu_torch.train.step import make_train_step
+from distill_any_depth_tpu_torch.utils.profiling import recording
 
 pytestmark = pytest.mark.cuda
 
@@ -798,3 +804,35 @@ def test_remat_step_launches_and_matches(cuda_device):
     assert plain_counts == [4, 2, 1, 2] and remat_counts == [6, 2, 1, 2]
     assert remat["total"] == plain["total"]
     assert abs(remat["grad_norm"] - plain["grad_norm"]) <= 1e-5 * plain["grad_norm"]
+
+
+def _frames(n, seed, h=60, w=80):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, 256, size=(h, w, 3), dtype=np.uint8) for _ in range(n)]
+
+
+def test_predict_reads_back_into_pinned_memory(cuda_device):
+    """``predict``'s output lives in page-locked memory and equals the
+    model's depth bit for bit; four outputs held across eight more calls (the
+    benchmark's sample of calls) keep their values; every byte read back is
+    counted as pinned."""
+    model, size = _tiny_model(cuda_device), 98
+    frames = _frames(4, 0)
+    out = infer.predict(model, frames, size, batch_size=4)
+    assert torch.from_numpy(out).is_pinned()
+    x = torch.cat([preprocess_on_device(torch.from_numpy(f)[None].to(cuda_device), size,
+                                        dtype=model.dtype) for f in frames])
+    with torch.no_grad():
+        want = model(x)[0].float().cpu()
+    assert torch.equal(torch.from_numpy(out), want)
+    held = [infer.predict(model, _frames(4, 1 + k), size, batch_size=4) for k in range(4)]
+    copies = [h.copy() for h in held]
+    for k in range(8):
+        got = infer.predict(model, _frames(4, 5 + k), size, batch_size=4)
+        assert not any(np.shares_memory(got, h) for h in held)
+    for h, c in zip(held, copies):
+        np.testing.assert_array_equal(h, c)
+    with recording() as rec:
+        out = infer.predict(model, _frames(5, 13), size, batch_size=4)
+    assert rec.counts["predict/readback_bytes"] == out.nbytes
+    assert rec.counts["predict/readback_pinned_bytes"] == rec.counts["predict/readback_bytes"]

@@ -72,6 +72,47 @@ def test_predict_matches_jax_forward():
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-5 * (1 + np.abs(want).max()))
 
 
+@pytest.fixture
+def one_thread():
+    """One torch thread, so that two forwards of one batch sum in one order."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_predict_equals_per_batch_depths_stacked(one_thread):
+    """``predict`` writes each batch's depth into one output: bit for bit the
+    per-batch depths (the last batch padded) concatenated on the host."""
+    model = create_model(_tiny(MODELS), device="cpu").eval()
+    ims = _images(5, 50, 70, seed=5)
+    got = infer.predict(model, ims, 56, batch_size=2)
+    xs = torch.cat([preprocess_on_device(torch.from_numpy(im)[None], 56) for im in ims])
+    preds = []
+    with torch.no_grad():
+        for i in range(0, 5, 2):
+            chunk = xs[i : i + 2]
+            n = chunk.shape[0]
+            if n < 2:
+                chunk = torch.cat([chunk, chunk[-1:]])
+            preds.append(model(chunk)[0][:n].float().cpu().numpy())
+    want = np.concatenate(preds)
+    assert got.shape == (5, 56, 56) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_predict_returns_a_new_array_each_call(one_thread):
+    """Two calls give arrays that share no memory; the first keeps its values
+    through the second."""
+    model = create_model(_tiny(MODELS), device="cpu").eval()
+    first = infer.predict(model, _images(3, 50, 70, seed=6), 56, batch_size=2)
+    kept = first.copy()
+    second = infer.predict(model, _images(3, 50, 70, seed=7), 56, batch_size=2)
+    assert not np.shares_memory(first, second)
+    assert not np.array_equal(first, second)
+    np.testing.assert_array_equal(first, kept)
+
+
 def test_predict_windowed_matches_jax_forward():
     """The windowed teacher's head flags (no trailing ReLU, resize to the
     input) and the bias path through ``predict``, tiny: window 3 on a 7x7
