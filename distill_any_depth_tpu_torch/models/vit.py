@@ -52,6 +52,7 @@ from distill_any_depth_tpu_torch.ops.flash_attention import banded_eligible
 from distill_any_depth_tpu_torch.ops.resize import resize_matrix
 from distill_any_depth_tpu_torch.ops.window import local_window_bias
 from distill_any_depth_tpu_torch.parallel.tp import copy_to_model, model_size, row_parallel_linear
+from distill_any_depth_tpu_torch.utils.profiling import count, span
 
 __all__ = ["QUANT_MODES", "Linear", "LayerNorm", "Conv2d", "gelu", "PatchEmbed", "Mlp",
            "SwiGLU", "Attention", "Block", "interp_pos_embed", "PosConv", "DinoViT"]
@@ -125,7 +126,13 @@ class Mlp(nn.Module):
 class SwiGLU(nn.Module):
     """DINOv2's fused SwiGLU FFN: ``w3(silu(x1) * x2)`` with ``x1 | x2`` the
     halves of the packed ``w12`` output, and the hidden width ``2/3`` of
-    ``dim * mlp_ratio`` rounded up to a multiple of 8 (4096 for ViT-g)."""
+    ``dim * mlp_ratio`` rounded up to a multiple of 8 (4096 for ViT-g).
+
+    Under ``utils/profiling.recording()`` each call is the span
+    ``vit/swiglu`` (w12, the gate and w3) around ``vit/swiglu_gate``
+    (``silu(x1) * x2`` alone), and counts ``vit/swiglu_gate_bytes``, the
+    bytes the gate must move: ``x1`` and ``x2`` read, their product
+    written, ``rows * 3 * hidden`` elements."""
 
     tp_group = None  # the model group under tensor parallelism
 
@@ -136,10 +143,14 @@ class SwiGLU(nn.Module):
         self.w3 = _linear(hidden, dim, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # a shard of w12 holds its columns of each half, so its output's
-        # halves are this rank's x1 and x2
-        x1, x2 = self.w12(copy_to_model(x, self.tp_group)).chunk(2, dim=-1)
-        return self.w3(F.silu(x1) * x2)
+        with span("vit/swiglu"):
+            # a shard of w12 holds its columns of each half, so its output's
+            # halves are this rank's x1 and x2
+            x1, x2 = self.w12(copy_to_model(x, self.tp_group)).chunk(2, dim=-1)
+            with span("vit/swiglu_gate"):
+                count("vit/swiglu_gate_bytes", 3 * x1.numel() * x1.element_size())
+                gated = F.silu(x1) * x2
+            return self.w3(gated)
 
 
 class Attention(nn.Module):
