@@ -197,6 +197,14 @@ Phases, each of which fails the run if it fails:
    launched); path 1's depth of one image as a PLY point cloud (the vertex
    count checked).
 
+22. hold the SwiGLU gate kernel (row 11, ``csrc/swiglu_gate.cu``) and its
+   backward against the plain ``F.silu(x1) * x2`` computed in fp32 from the
+   same inputs (bf16 within one bf16 ulp, fp32 within 4e-6 relative), in
+   bf16 and fp32 at ViT-g's 518^2 bs8 ``x12 [10960, 8192]``, a tp=2 rank's
+   ``[10960, 4096]``, one row with h = 12, an odd h and an x12 off 16
+   bytes (run after phase 13; path 7 counts its 40 launches a ViT-g
+   forward and a ViT-g-reg teacher's chunk, phase 16 times it).
+
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -256,6 +264,11 @@ from distill_any_depth_tpu_torch.ops.quant import (  # noqa: E402
     quantize_weight,
 )
 from distill_any_depth_tpu_torch.ops.quant_matmul import w8a8_matmul, w8a8_reference  # noqa: E402
+from distill_any_depth_tpu_torch.ops.swiglu import (  # noqa: E402
+    swiglu_gate,
+    swiglu_gate_backward,
+    swiglu_gate_reference,
+)
 from distill_any_depth_tpu_torch.ops.stats import (  # noqa: E402
     _order_bits,
     kth_select,
@@ -420,17 +433,44 @@ def device_ms(fn, iters: int = 20) -> tuple[float, list[str]]:
     return sum(split.values()), sorted(split)
 
 
-def device_split(fn, iters: int = 20) -> dict:
-    """Device time (ms) per call of ``fn`` by kernel name, from the
-    profiler's CUDA trace over ``iters`` calls."""
-    fn()
-    torch.cuda.synchronize()
+PAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel: the profiler's padding
+
+
+def traced_launches(fn, iters: int, pads: int) -> dict:
+    """Kernel name -> (launches, device µs) over ``iters`` calls of ``fn`` in
+    one fresh profiler, after ``pads`` launches of ``torch.cuda._sleep(1)``
+    that are left out of the result."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(pads):
+            torch.cuda._sleep(1)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / iters / 1e3 for e in prof.key_averages()
-            if e.self_device_time_total > 0}
+    return {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.self_device_time_total > 0 and PAD_KERNEL not in e.key}
+
+
+def device_split(fn, iters: int = 20, pads=(64, 512, 4096)) -> dict:
+    """Device time (ms) per call of ``fn`` by kernel name, from the
+    profiler's CUDA trace over ``iters`` calls. After a ``Trainer.run`` in
+    the same process each profiler session loses kernel records, most of
+    them its first (3 after one short run, 12-13 late in this smoke), so
+    each session starts with ``pads`` launches of a kernel that is left out.
+    The trace must hold every launch, each name ``iters`` times as often as
+    in a trace of one call, and at least one; one that falls short is taken
+    again in a fresh profiler with more padding, and after the last the run
+    fails."""
+    fn()
+    torch.cuda.synchronize()
+    for pad in pads:
+        want = {k: n * iters for k, (n, _) in traced_launches(fn, 1, pad).items()}
+        seen = traced_launches(fn, iters, pad)
+        got = {k: n for k, (n, _) in seen.items()}
+        if got == want and got:
+            return {k: us / iters / 1e3 for k, (_, us) in seen.items()}
+        log(f"[device_split] {pad} pads: the profiler saw {got} launches over {iters} calls, "
+            f"expected {want}")
+    fail(f"device_split: the profiler dropped launches after every padding {pads}")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -1080,7 +1120,8 @@ COUNTERS = {"attention": mha_flash_packed, "tail": fused_dpt_tail,
             "attention_bwd": packed_attention_backward, "select": kth_select,
             "attention_bias": mha_flash_bias, "attention_banded": mha_flash_banded,
             "attention_bias_bwd": bias_attention_backward,
-            "attention_banded_bwd": banded_attention_backward, "w8a8": w8a8_matmul}
+            "attention_banded_bwd": banded_attention_backward, "w8a8": w8a8_matmul,
+            "gate": swiglu_gate}
 
 
 def read_counts() -> dict:
@@ -1096,13 +1137,16 @@ def expected_step_counts(batch: int, chunk: int = 8, teacher_quant: str = "none"
                          teacher: str = TEACHER) -> dict:
     """Per step of the ViT-B student under ``teacher`` (the ViT-L teacher by
     default); an int8 teacher adds kernel 9 four times per teacher block and
+    chunk, a SwiGLU teacher (ViT-g) the gate once per teacher block and
     chunk."""
-    s, t = model_config(ARCH).encoder.depth, model_config(teacher).encoder.depth
+    s, tcfg = model_config(ARCH).encoder.depth, model_config(teacher).encoder
+    t = tcfg.depth
     chunks = batch // chunk if batch > chunk and batch % chunk == 0 else 1
     return {"attention": s + chunks * t, "tail": chunks, "attention_bwd": s, "select": 2,
             "attention_bias": 0, "attention_banded": 0, "attention_bias_bwd": 0,
             "attention_banded_bwd": 0,
-            "w8a8": 4 * chunks * t if teacher_quant == "int8_pallas" else 0}
+            "w8a8": 4 * chunks * t if teacher_quant == "int8_pallas" else 0,
+            "gate": chunks * t if tcfg.ffn == "swiglu" else 0}
 
 
 def run_trainer(tag: str, cfg: TrainConfig) -> tuple[Trainer, dict]:
@@ -1227,7 +1271,7 @@ def expected_window_step_counts(res: int, batch: int, chunk: int = 8) -> dict:
     return {"attention": chunks * t, "tail": chunks, "attention_bwd": 0, "select": 2,
             "attention_bias": 0 if banded else s, "attention_banded": s if banded else 0,
             "attention_bias_bwd": 0 if banded else s, "attention_banded_bwd": s if banded else 0,
-            "w8a8": 0}
+            "w8a8": 0, "gate": 0}
 
 
 def phase_window_train() -> dict:
@@ -1453,6 +1497,115 @@ def phase_w8a8(gen) -> float:
                     for with_bias in (True, False):
                         w8a8_case("edge", m, k, n, dtype, with_bias, gen)
     return err
+
+
+# ---------------------------------------------------------------- phase 22
+# the gate's x12 [M, 2h]: ViT-g at 518^2 bs8 (h = 4096), a tp=2 rank's (h =
+# 2048), one row with h = 12 (the scalar loop in bf16), an odd h, and an x12
+# one element off 16 bytes (the scalar loop in both dtypes)
+GATE_M = GIANT_BATCH * ((GIANT_RES // 14) ** 2 + 1)
+GATE_CASES = (("ViT-g 518^2 bs8", GATE_M, 4096, 0), ("tp=2 rank", GATE_M, 2048, 0),
+              ("one row, h=12", 1, 12, 0), ("odd h", 37, 13, 0), ("off 16 bytes", 129, 32, 1))
+# fp32: __expf's error, then the products' (the backward's cancellation near
+# x1 = -1.28, where silu' is 0, is absolute: its terms' error times |g x2|)
+GATE_FP32_RTOL, GATE_FP32_ATOL, GATE_FP32_BWD_ATOL = 4e-6, 1e-6, 3e-5
+
+
+def gate_input(m, h, dtype, gen, offset=0):
+    x = (2 * torch.randn(m * 2 * h + offset, generator=gen, device="cuda")).to(dtype)
+    return x[offset:].view(m, 2 * h)
+
+
+def gate_reading(got, ref, atol) -> float:
+    """bf16: the largest |got - ref| in bf16 ulps of the fp32 ``ref``; fp32:
+    the largest |got - ref| / (atol + rtol |ref|). At most 1 passes."""
+    err = (got.float() - ref).abs()
+    if got.dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -126))) - 7)
+        return float((err / ulp).max())
+    return float((err / (atol + GATE_FP32_RTOL * ref.abs())).max())
+
+
+def phase_swiglu_gate(gen) -> float:
+    """The gate kernel and its backward (through the autograd Function)
+    against autograd of the plain expression on the fp32 inputs, at every
+    case in both dtypes; returns the forward's max abs error at ViT-g's
+    shape in bf16."""
+    err = 0.0
+    for label, m, h, off in GATE_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x12 = gate_input(m, h, dtype, gen, off).requires_grad_()
+            g = torch.randn(m, h, generator=gen, device="cuda").to(dtype)
+            before = swiglu_gate.launches
+            out = swiglu_gate(x12)
+            out.backward(g)
+            check(swiglu_gate.launches == before + 2, f"gate {label}: the kernels did not run")
+            ref_in = x12.detach().float().requires_grad_()
+            ref = swiglu_gate_reference(ref_in)
+            ref.backward(g.float())
+            torch.cuda.synchronize()
+            fwd = gate_reading(out.detach(), ref.detach(), GATE_FP32_ATOL)
+            bwd = gate_reading(x12.grad, ref_in.grad, GATE_FP32_BWD_ATOL)
+            ok = fwd <= 1 and bwd <= 1 and bool(torch.isfinite(out).all())
+            log(f"[gate] {label}: x12 [{m}, {2 * h}] {str(dtype)[6:]}, 16-byte aligned "
+                f"{x12.data_ptr() % 16 == 0}: forward {fwd:.3f}, backward {bwd:.3f} "
+                f"({'bf16 ulps' if dtype == torch.bfloat16 else 'of the fp32 tolerance'}; "
+                f"<= 1) {'ok' if ok else 'FAIL'}")
+            check(ok, f"gate {label} {dtype}: outside tolerance")
+            if label == GATE_CASES[0][0] and dtype == torch.bfloat16:
+                err = errors(out.detach(), ref.detach())[0]
+            del x12, g, out, ref_in, ref
+    for dtype in (torch.float16, torch.float64):
+        try:
+            swiglu_gate(torch.zeros(4, 16, dtype=dtype, device="cuda"))
+        except TypeError:
+            continue
+        fail(f"gate: a {dtype} CUDA tensor did not raise")
+    return err
+
+
+def swiglu_gate_timing(gen) -> dict:
+    """Row 11 at ViT-g's 518^2 bs8 gate in bf16: the kernel by CUDA events
+    and device time beside its bound (x1 and x2 read once, the product
+    written once), the plain version (ATen's SiLU and product over w12's
+    strided halves: the path before the kernel), the same two ATen kernels on
+    contiguous halves (the library yardstick), and the backward kernel
+    beside its bound (g, x1, x2 read, dx12 written)."""
+    m, h = GATE_M, 4096
+    x12 = gate_input(m, h, torch.bfloat16, gen)
+    g = torch.randn(m, h, generator=gen, device="cuda").to(torch.bfloat16)
+    x1c, x2c = (t.contiguous() for t in x12.chunk(2, dim=-1))
+    nbytes = 3 * m * h * 2
+
+    def fwd():
+        return swiglu_gate(x12)
+
+    def plain():
+        return swiglu_gate_reference(x12)
+
+    def library():
+        return F.silu(x1c) * x2c
+
+    def bwd():
+        return swiglu_gate_backward(g, x12)
+
+    row = dict(shape="ViT-g 518^2 bs8", M=m, h=h, bytes=nbytes,
+               ms=cuda_ms(fwd, iters=50), device_split=device_split(fwd, 50),
+               plain_ms=cuda_ms(plain, iters=20), plain_split=device_split(plain, 20),
+               library_ms=cuda_ms(library, iters=20), library_split=device_split(library, 20),
+               bound_ms=bound(0.0, nbytes)[0],
+               bwd_ms=cuda_ms(bwd, iters=20), bwd_device_split=device_split(bwd, 20),
+               bwd_bound_ms=bound(0.0, 5 * m * h * 2)[0])
+    row["device_ms"] = sum(row["device_split"].values())
+    row["bwd_device_ms"] = sum(row["bwd_device_split"].values())
+    check(row["bwd_device_ms"] >= row["bwd_bound_ms"],
+          f"gate backward: {row['bwd_device_ms']:.4f} ms of device time under its "
+          f"{row['bwd_bound_ms']:.4f} ms bound")
+    row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+    row["bwd_share_of_bound"] = row["bwd_bound_ms"] / row["bwd_device_ms"]
+    row["tb_s"] = nbytes / row["device_ms"] / 1e9
+    log(f"[timing] swiglu gate: {json.dumps(row)}")
+    return row
 
 
 # ---------------------------------------------------------------- phase 14
@@ -1886,11 +2039,12 @@ def phase_register_family(images, qims) -> dict:
 
     t_phase = time.time()
     out = {}
-    # ViT-g through predict: kernel 1 once a block, kernel 2 at C = 384 once
+    # ViT-g through predict: kernel 1 and the SwiGLU gate (row 11) once a
+    # block, kernel 2 at C = 384 once
     giant = seeded(GIANT, "vitg")
     blocks = giant.cfg.encoder.depth
     depth, out["counts"] = run_predict("vitg", giant, images, GIANT_RES,
-                                       {"attention": blocks, "tail": 1})
+                                       {"attention": blocks, "tail": 1, "gate": blocks})
     cpu = cpu_copy(giant)
     t0 = time.time()
     ref = predict(cpu, images[:1], GIANT_RES, batch_size=1)[0]
@@ -1905,7 +2059,7 @@ def phase_register_family(images, qims) -> dict:
     qgiant.load_state_dict(giant.state_dict())
     qdepth, out["int8_pallas_counts"] = run_predict(
         "vitg int8_pallas", qgiant, images, GIANT_RES,
-        {"w8a8": 4 * blocks, "attention": blocks, "tail": 1})
+        {"w8a8": 4 * blocks, "attention": blocks, "tail": 1, "gate": blocks})
     corr = float(np.corrcoef(qdepth.ravel(), depth.ravel())[0, 1])
     ok = corr >= QUANT_VS_PLAIN_CORR
     log(f"[vitg int8_pallas] depth against the unquantized bf16 depth, {len(images)} images: "
@@ -1917,7 +2071,8 @@ def phase_register_family(images, qims) -> dict:
     # the teacher head
     greg = seeded(GIANT_REG, "vitg-reg")
     forwards = -(-GIANT_IMAGES // GIANT_BATCH)
-    want = {k: {"attention": blocks, "tail": 1}.get(k, 0) * forwards for k in COUNTERS}
+    want = {k: {"attention": blocks, "tail": 1, "gate": blocks}.get(k, 0) * forwards
+            for k in COUNTERS}
     reset_counts()
     t0 = time.time()
     labels = pseudo_label.label_batches(greg, qims[:GIANT_IMAGES], GIANT_RES, GIANT_BATCH)
@@ -2720,12 +2875,8 @@ def path10_exports(model, qmodel, wmodel) -> dict:
             torch.cuda.synchronize()
             eager = read_counts()
             eager_ms = cuda_ms(lambda: m(x), iters=5, warmup=1)
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                m(x)
-                torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-        eager_dev = (sum(e.self_device_time_total for e in events) / 1e3,
-                     sum(e.count for e in events))
+            events = traced_launches(lambda: m(x), 1, 512).values()
+        eager_dev = (sum(us for _, us in events) / 1e3, sum(n for n, _ in events))
         check(eager == {k: per_forward.get(k, 0) for k in COUNTERS},
               f"export {name}: eager launches {eager}")
         weights = str(d / f"{name}.safetensors") if as_args else None
@@ -3426,8 +3577,20 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
           vitg_launches_per_forward=path7["int8_pallas_counts"]["w8a8"],
           library_note="the int8 route (ops/quant.int8_matmul): a row-quant pass, "
                        "torch._int_mm (cuBLASLt int8) and the dequant; bf16_linear_ms per shape")
+    # row 11: the SwiGLU gate (no TPU kernel: XLA fused the gate)
+    gate = swiglu_gate_timing(gen)
+    entry("swiglu_gate", "gate", "swiglu_gate.cu", "models/vit.py SwiGLU (no kernel: XLA fused it)",
+          errs["swiglu_gate"], gate["ms"], gate["plain_ms"], gate["library_ms"], 0.0,
+          gate["bytes"], launches=path7["counts"]["gate"],
+          **{k: v for k, v in gate.items() if k not in ("ms", "plain_ms", "library_ms", "bound_ms")})
     kernels.append(tail_v1)
     for kd in kernels:
+        for row in (kd, *kd.get("shapes", ())):
+            # a device time under the bound counts too little work or drops launches
+            if "device_ms" in row and "bound_ms" in row:
+                check(row["device_ms"] >= row["bound_ms"],
+                      f"{kd['name']}: {row['device_ms']:.4f} ms of device time under its "
+                      f"{row['bound_ms']:.4f} ms bound")
         log(f"[timing] {kd['name']}: kernel {kd['ms']:.4f} ms, plain {kd['plain_ms']:.4f} ms, "
             f"library {kd['library_ms']}, bound {kd['bound_ms']:.4f} ms ({kd['bound_by']}), "
             f"launches {kd['launches_by_path']}")
@@ -3587,6 +3750,7 @@ def main() -> None:
     errs["attention_bias"], errs["attention_banded"] = phase_window_attention(gen)
     errs["attention_bias_bwd"], errs["attention_banded_bwd"] = phase_window_grad(gen)
     errs["w8a8"] = phase_w8a8(gen)
+    errs["swiglu_gate"] = phase_swiglu_gate(gen)
     model = create_model(ARCH, dtype=torch.bfloat16, device="cuda", seed=0)
     images = synthetic_images(BATCH)
     counts = phase_main_path(model, images)

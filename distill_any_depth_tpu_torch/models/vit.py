@@ -50,6 +50,7 @@ from distill_any_depth_tpu_torch.models.adapters import SSF, LoRALinear
 from distill_any_depth_tpu_torch.ops.attention import multi_head_attention_packed
 from distill_any_depth_tpu_torch.ops.flash_attention import banded_eligible
 from distill_any_depth_tpu_torch.ops.resize import resize_matrix
+from distill_any_depth_tpu_torch.ops.swiglu import swiglu_gate
 from distill_any_depth_tpu_torch.ops.window import local_window_bias
 from distill_any_depth_tpu_torch.parallel.tp import copy_to_model, model_size, row_parallel_linear
 from distill_any_depth_tpu_torch.utils.profiling import count, span
@@ -128,11 +129,16 @@ class SwiGLU(nn.Module):
     halves of the packed ``w12`` output, and the hidden width ``2/3`` of
     ``dim * mlp_ratio`` rounded up to a multiple of 8 (4096 for ViT-g).
 
+    The gate is ``ops/swiglu.swiglu_gate`` on w12's packed output: one
+    kernel on the card, the plain ``F.silu(x1) * x2`` on the CPU.
+
     Under ``utils/profiling.recording()`` each call is the span
     ``vit/swiglu`` (w12, the gate and w3) around ``vit/swiglu_gate``
     (``silu(x1) * x2`` alone), and counts ``vit/swiglu_gate_bytes``, the
     bytes the gate must move: ``x1`` and ``x2`` read, their product
-    written, ``rows * 3 * hidden`` elements."""
+    written, ``rows * 3 * hidden`` elements. The gate's wrapper counts
+    ``vit/swiglu_gate_launches``, one a launch of its kernels (forward or
+    backward), on the card only."""
 
     tp_group = None  # the model group under tensor parallelism
 
@@ -146,10 +152,10 @@ class SwiGLU(nn.Module):
         with span("vit/swiglu"):
             # a shard of w12 holds its columns of each half, so its output's
             # halves are this rank's x1 and x2
-            x1, x2 = self.w12(copy_to_model(x, self.tp_group)).chunk(2, dim=-1)
+            x12 = self.w12(copy_to_model(x, self.tp_group))
             with span("vit/swiglu_gate"):
-                count("vit/swiglu_gate_bytes", 3 * x1.numel() * x1.element_size())
-                gated = F.silu(x1) * x2
+                count("vit/swiglu_gate_bytes", 3 * (x12.numel() // 2) * x12.element_size())
+                gated = swiglu_gate(x12)
             return self.w3(gated)
 
 

@@ -35,6 +35,7 @@ SOURCES = {
     "dpt_tail": "dpt_tail.cu",
     "kth_select": "kth_select.cu",
     "w8a8_matmul": "w8a8_matmul.cu",
+    "swiglu_gate": "swiglu_gate.cu",
 }
 
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # used when nvcc is not on PATH
