@@ -258,12 +258,13 @@ from distill_any_depth_tpu_torch.ops.flash_attention import (  # noqa: E402
     mha_packed_reference,
     packed_attention_backward,
 )
-from distill_any_depth_tpu_torch.ops.quant import (  # noqa: E402
-    int8_matmul,
+from distill_any_depth_tpu_torch.ops.quant import int8_matmul  # noqa: E402
+from distill_any_depth_tpu_torch.ops.quant_matmul import (  # noqa: E402
     quantize_rows,
     quantize_weight,
+    w8a8_matmul,
+    w8a8_reference,
 )
-from distill_any_depth_tpu_torch.ops.quant_matmul import w8a8_matmul, w8a8_reference  # noqa: E402
 from distill_any_depth_tpu_torch.ops.swiglu import (  # noqa: E402
     swiglu_gate,
     swiglu_gate_backward,
@@ -276,6 +277,7 @@ from distill_any_depth_tpu_torch.ops.stats import (  # noqa: E402
 )
 from distill_any_depth_tpu_torch.ops.window import local_window_bias, segment_bias  # noqa: E402
 from distill_any_depth_tpu_torch.train.loop import Trainer  # noqa: E402
+from distill_any_depth_tpu_torch.utils.profiling import recording  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core peak
@@ -527,9 +529,9 @@ def attention_grad_case(name, b, n, h, dtype, tol, gen, negative=False, l2_tol=N
     qkv = attention_inputs(b, n, h, dtype, gen, negative)
     g = torch.randn(b, n, h * 64, generator=gen, device="cuda").to(dtype)
     x = qkv.clone().requires_grad_()
-    before = packed_attention_backward.launches
-    mha_flash_packed(x, h).backward(g)
-    check(packed_attention_backward.launches == before + 1,
+    with recording() as rec:
+        mha_flash_packed(x, h).backward(g)
+    check(rec.counts.get("kernels/attention_bwd") == 1,
           f"attention grad {name}: the backward kernel did not run")
     xr = qkv.clone().requires_grad_()
     mha_packed_reference(xr, h).backward(g)
@@ -813,9 +815,9 @@ def held(name, got, refs: dict, tol, exact=(), l2_tol=None, tag="masked attentio
 
 def bias_case(name, b, n, h, dtype, bias, tol, gen, negative=False) -> float:
     q, k, v = masked_inputs(b, n, h, dtype, gen, negative)
-    before = mha_flash_bias.launches
-    got = mha_flash_bias(q, k, v, bias)
-    check(mha_flash_bias.launches == before + 1, f"bias {name}: the kernel did not run")
+    with recording() as rec:
+        got = mha_flash_bias(q, k, v, bias)
+    check(rec.counts.get("kernels/attention_bias") == 1, f"bias {name}: the kernel did not run")
     btype = "none" if bias is None else str(bias.dtype)[6:]
     return held(f"bias {name}: B={b} N={n} H={h} {str(dtype)[6:]} bias {btype}", got,
                 {"plain": mha_bias_reference(q, k, v, bias)}, tol)
@@ -827,9 +829,9 @@ def banded_case(name, b, gh, gw, window, h, dtype, tol, gen, dense_plain=False,
     bit for bit (the two visit the same live tiles with the same arithmetic);
     if asked, against the dense plain version with that bias too."""
     q, k, v = masked_inputs(b, gh * gw, h, dtype, gen, negative)
-    before = mha_flash_banded.launches
-    got = mha_flash_banded(q, k, v, (gw, window))
-    check(mha_flash_banded.launches == before + 1, f"banded {name}: the kernel did not run")
+    with recording() as rec:
+        got = mha_flash_banded(q, k, v, (gw, window))
+    check(rec.counts.get("kernels/attention_banded") == 1, f"banded {name}: the kernel did not run")
     wb = local_window_bias(gh, gw, window, 0, "cuda", dtype)
     refs = {"plain": mha_banded_reference(q, k, v, (gw, window)),
             "kernel 5": mha_flash_bias(q, k, v, wb)}
@@ -910,9 +912,9 @@ def bias_grad_case(name, b, n, h, dtype, bias, tol, gen, negative=False, l2_tol=
     """Kernel 6 against its plain version from kernel 5's out and lse."""
     q, k, v, g = masked_grad_inputs(b, n, h, dtype, gen, negative)
     out, lse, live, terms = _bias_forward(q, k, v, bias, with_lse=True)
-    before = bias_attention_backward.launches
-    got = bias_attention_backward(q, k, v, bias, out, lse, g, live, terms)
-    check(bias_attention_backward.launches == before + 1, f"bias grad {name}: no kernel launch")
+    with recording() as rec:
+        got = bias_attention_backward(q, k, v, bias, out, lse, g, live, terms)
+    check(rec.counts.get("kernels/attention_bias_bwd") == 1, f"bias grad {name}: no kernel launch")
     btype = "none" if bias is None else str(bias.dtype)[6:]
     return held(f"bias grad {name}: B={b} N={n} H={h} {str(dtype)[6:]} bias {btype}", got,
                 {"plain": bias_attention_backward_reference(q, k, v, bias, out, lse, g)},
@@ -937,9 +939,9 @@ def banded_grad_case(name, b, gh, gw, window, h, dtype, tol, gen, negative=False
     band = (gw, window)
     q, k, v, g = masked_grad_inputs(b, gh * gw, h, dtype, gen, negative)
     out, lse = _banded_forward(q, k, v, band, with_lse=True)
-    before = banded_attention_backward.launches
-    got = banded_attention_backward(q, k, v, band, out, lse, g)
-    check(banded_attention_backward.launches == before + 1,
+    with recording() as rec:
+        got = banded_attention_backward(q, k, v, band, out, lse, g)
+    check(rec.counts.get("kernels/attention_banded_bwd") == 1,
           f"banded grad {name}: no kernel launch")
     wb = local_window_bias(gh, gw, window, 0, "cuda", dtype)
     refs = {"plain": banded_attention_backward_reference(q, k, v, band, out, lse, g),
@@ -962,11 +964,11 @@ def autograd_case(name, b, gh, gw, h, dtype, tol, gen, banded) -> None:
     qkv = torch.randn(b, n, 3 * h * 64, generator=gen, device="cuda").to(dtype)
     g = torch.randn(b, n, h * 64, generator=gen, device="cuda").to(dtype)
     wb = local_window_bias(gh, gw, 7, 0, "cuda", dtype)
-    counter = banded_attention_backward if banded else bias_attention_backward
-    before = counter.launches
+    counter = "kernels/attention_banded_bwd" if banded else "kernels/attention_bias_bwd"
     x = qkv.clone().requires_grad_()
-    mha_flash_qkv(x, h, None if banded else wb, (gw, 7)).backward(g)
-    check(counter.launches == before + 1, f"autograd {name}: the backward kernel did not run")
+    with recording() as rec:
+        mha_flash_qkv(x, h, None if banded else wb, (gw, 7)).backward(g)
+    check(rec.counts.get(counter) == 1, f"autograd {name}: the backward kernel did not run")
     xr = qkv.clone().requires_grad_()
     q, k, v = xr.view(b, n, 3, h, 64).unbind(2)
     mha_bias_reference(q, k, v, wb).reshape(b, n, h * 64).backward(g)
@@ -1073,20 +1075,20 @@ def compare_depth(tag: str, depth0: np.ndarray, ref: np.ndarray, limits, cpu_s: 
 
 
 def run_predict(tag, model, images, res, expected) -> tuple[np.ndarray, dict]:
-    """``predict`` at ``res`` bs8 with every launch count set to 0 just before
-    and read just after; the counts must be ``expected`` per forward."""
-    reset_counts()
-    t0 = time.time()
-    depth = predict(model, images, res, batch_size=BATCH)
-    torch.cuda.synchronize()
-    counts = read_counts()
+    """``predict`` at ``res`` bs8 with its launches counted in a
+    ``recording()`` block; the counts must be ``expected`` per forward."""
+    with recording() as rec:
+        t0 = time.time()
+        depth = predict(model, images, res, batch_size=BATCH)
+        torch.cuda.synchronize()
+    counts = launches(rec)
     forwards = -(-len(images) // BATCH)
     log(f"[{tag}] predict({model.cfg.arch_name}, {len(images)} images, {res}, bf16) in "
         f"{time.time() - t0:.2f} s (first call); launches {counts}")
     check(depth.shape == (len(images), res, res), f"{tag}: depth shape {depth.shape}")
     check(bool(np.isfinite(depth).all()), f"{tag}: non-finite depth")
     check(bool((depth >= 0).all()), f"{tag}: negative depth")
-    want = {k: expected.get(k, 0) * forwards for k in COUNTERS}
+    want = {k: expected.get(k, 0) * forwards for k in KERNELS}
     check(counts == want, f"{tag}: launches {counts}, expected {want}")
     log(f"[{tag}] depth: min {depth.min():.4g} max {depth.max():.4g} "
         f"positive share {(depth > 0).mean():.3f}")
@@ -1116,21 +1118,16 @@ def train_images(n: int, seed: int, res: int = RES) -> np.ndarray:
     return out
 
 
-COUNTERS = {"attention": mha_flash_packed, "tail": fused_dpt_tail,
-            "attention_bwd": packed_attention_backward, "select": kth_select,
-            "attention_bias": mha_flash_bias, "attention_banded": mha_flash_banded,
-            "attention_bias_bwd": bias_attention_backward,
-            "attention_banded_bwd": banded_attention_backward, "w8a8": w8a8_matmul,
-            "gate": swiglu_gate}
+# the kernels' launch counters, ``kernels/<name>`` under ``recording()``
+KERNELS = ("attention", "tail", "attention_bwd", "select", "attention_bias", "attention_banded",
+           "attention_bias_bwd", "attention_banded_bwd", "w8a8", "gate")
 
 
-def read_counts() -> dict:
-    return {k: fn.launches for k, fn in COUNTERS.items()}
-
-
-def reset_counts() -> None:
-    for fn in COUNTERS.values():
-        fn.launches = 0
+def launches(rec) -> dict:
+    """Each kernel's launches that the ``recording()`` block ``rec`` has
+    counted so far."""
+    counts = rec.counts
+    return {k: counts.get(f"kernels/{k}", 0) for k in KERNELS}
 
 
 def expected_step_counts(batch: int, chunk: int = 8, teacher_quant: str = "none",
@@ -1168,7 +1165,7 @@ def run_trainer(tag: str, cfg: TrainConfig) -> tuple[Trainer, dict]:
 
     def on_step(step, metrics):
         torch.cuda.synchronize()
-        now = read_counts()
+        now = launches(rec)
         per = {k: now[k] - last.get(k, 0) for k in now}
         last.update(now)
         vals = {k: float(v) for k, v in metrics.items() if k != "teacher_idx"}
@@ -1182,10 +1179,10 @@ def run_trainer(tag: str, cfg: TrainConfig) -> tuple[Trainer, dict]:
         for i in range(TRAIN_STEPS):
             yield {"image": images[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]}
 
-    reset_counts()
-    t0 = time.time()
-    trainer.run(batches, max_steps=TRAIN_STEPS, on_step=on_step)
-    torch.cuda.synchronize()
+    with recording() as rec:
+        t0 = time.time()
+        trainer.run(batches, max_steps=TRAIN_STEPS, on_step=on_step)
+        torch.cuda.synchronize()
     log(f"[{tag}] {TRAIN_STEPS} steps in {time.time() - t0:.1f} s (first includes set-up)")
     check(len(seen) == TRAIN_STEPS, f"{tag}: {len(seen)} steps ran")
     moved = (watched.detach() - before).abs().max().item()
@@ -1200,15 +1197,15 @@ def run_train_cli(tag: str, out: Path, teacher: str = TEACHER, teacher_quant: st
     392^2 with ``teacher``: launches, the history, finite losses."""
     from distill_any_depth_tpu_torch.cli import train as train_cli
 
-    reset_counts()
-    history = train_cli.main([
-        "--device", "cuda", "--dataset_dir", "data/smoke", "--output_dir", str(out),
-        "--batch_size", "2", "--num_iterations", "2", "--image_size", str(RES),
-        "--use_hdn_loss", "--log_interval", "1", "--teacher_models", teacher,
-        "--teacher_quant", teacher_quant, "--checkpoint_interval", str(checkpoint_interval),
-    ])
-    torch.cuda.synchronize()
-    counts = read_counts()
+    with recording() as rec:
+        history = train_cli.main([
+            "--device", "cuda", "--dataset_dir", "data/smoke", "--output_dir", str(out),
+            "--batch_size", "2", "--num_iterations", "2", "--image_size", str(RES),
+            "--use_hdn_loss", "--log_interval", "1", "--teacher_models", teacher,
+            "--teacher_quant", teacher_quant, "--checkpoint_interval", str(checkpoint_interval),
+        ])
+        torch.cuda.synchronize()
+    counts = launches(rec)
     want = expected_step_counts(2, teacher_quant=teacher_quant, teacher=teacher)
     log(f"[{tag}] cli.train --teacher_models {teacher} over data/smoke, bs2, 2 steps: history "
         f"{history}, launches {counts}")
@@ -1298,7 +1295,7 @@ def phase_window_train() -> dict:
 
         def on_step(step, metrics):
             torch.cuda.synchronize()
-            now = read_counts()
+            now = launches(rec)
             per = {k: now[k] - last.get(k, 0) for k in now}
             last.update(now)
             vals = {k: float(v) for k, v in metrics.items() if k != "teacher_idx"}
@@ -1314,10 +1311,10 @@ def phase_window_train() -> dict:
                 yield {"image": images[i * batch:(i + 1) * batch]}
 
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.time()
-        trainer.run(batches, max_steps=int(trainer.state.step) + TRAIN_STEPS, on_step=on_step)
-        torch.cuda.synchronize()
+        with recording() as rec:
+            t0 = time.time()
+            trainer.run(batches, max_steps=int(trainer.state.step) + TRAIN_STEPS, on_step=on_step)
+            torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 1e9
         moved = (watched.detach() - before).abs().max().item()
         log(f"[window train] {res}^2: {TRAIN_STEPS} steps in {time.time() - t0:.1f} s, block 0 "
@@ -1340,14 +1337,14 @@ def phase_window_train() -> dict:
     from distill_any_depth_tpu_torch.cli import train as train_cli
 
     out = OUT / "window_train_cli"
-    reset_counts()
-    history = train_cli.main([
-        "--device", "cuda", "--dataset_dir", "data/smoke", "--output_dir", str(out),
-        "--student_arch", WINDOW_ARCH, "--batch_size", "2", "--num_iterations", "2",
-        "--image_size", str(WINDOW_RES[0]), "--use_hdn_loss", "--log_interval", "1",
-    ])
-    torch.cuda.synchronize()
-    counts = read_counts()
+    with recording() as rec:
+        history = train_cli.main([
+            "--device", "cuda", "--dataset_dir", "data/smoke", "--output_dir", str(out),
+            "--student_arch", WINDOW_ARCH, "--batch_size", "2", "--num_iterations", "2",
+            "--image_size", str(WINDOW_RES[0]), "--use_hdn_loss", "--log_interval", "1",
+        ])
+        torch.cuda.synchronize()
+    counts = launches(rec)
     want = {k: 2 * v for k, v in expected_window_step_counts(WINDOW_RES[0], 2).items()}
     log(f"[window train] cli.train --student_arch {WINDOW_ARCH} over data/smoke, bs2 "
         f"{WINDOW_RES[0]}^2, 2 steps: history {history}, launches {counts}")
@@ -1369,11 +1366,11 @@ def step_vs_cpu(tag: str, cfg: TrainConfig, x: np.ndarray, tol: dict, want=None)
         t0 = time.time()
         trainer = Trainer(cfg, dev)
         metrics = {}
-        reset_counts()
-        trainer.run(lambda epoch: iter([{"image": x}]), max_steps=1,
-                    on_step=lambda step, m: metrics.update(m))
+        with recording() as rec:
+            trainer.run(lambda epoch: iter([{"image": x}]), max_steps=1,
+                        on_step=lambda step, m: metrics.update(m))
         if dev == "cuda" and want is not None:
-            got = {k: read_counts()[k] for k in want}
+            got = {k: launches(rec)[k] for k in want}
             check(got == want, f"{tag}: launches {got}, expected {want}")
         params = trainer.state.trained  # every parameter, or the adapters alone
         qkv = [p for name, p in trainer.student.named_parameters() if ".attn.qkv." in name]
@@ -1463,9 +1460,9 @@ def w8a8_case(name, m, k, n, dtype, with_bias, gen) -> float:
     the same separately rounded dequant). Returns the max abs error."""
     x, w, b = w8a8_inputs(m, k, n, dtype, gen, with_bias)
     wq, ws = quantize_weight(w)
-    before = w8a8_matmul.launches
-    got = w8a8_matmul(x, w, b, quantized=(wq, ws))
-    check(w8a8_matmul.launches == before + 1, f"w8a8 {name}: the kernel did not run")
+    with recording() as rec:
+        got = w8a8_matmul(x, w, b, quantized=(wq, ws))
+    check(rec.counts.get("kernels/w8a8") == 1, f"w8a8 {name}: the kernel did not run")
     ref = w8a8_reference(x, wq, ws, b, dtype)
     torch.cuda.synchronize()
     check(got.shape == (m, n) and got.dtype == dtype, f"w8a8 {name}: bad output")
@@ -1536,10 +1533,10 @@ def phase_swiglu_gate(gen) -> float:
         for dtype in (torch.bfloat16, torch.float32):
             x12 = gate_input(m, h, dtype, gen, off).requires_grad_()
             g = torch.randn(m, h, generator=gen, device="cuda").to(dtype)
-            before = swiglu_gate.launches
-            out = swiglu_gate(x12)
-            out.backward(g)
-            check(swiglu_gate.launches == before + 2, f"gate {label}: the kernels did not run")
+            with recording() as rec:
+                out = swiglu_gate(x12)
+                out.backward(g)
+            check(rec.counts.get("kernels/gate") == 2, f"gate {label}: the kernels did not run")
             ref_in = x12.detach().float().requires_grad_()
             ref = swiglu_gate_reference(ref_in)
             ref.backward(g.float())
@@ -1633,12 +1630,12 @@ def phase_pseudo_label():
     blocks = model.cfg.encoder.depth
     forwards = -(-QUANT_IMAGES // QUANT_BATCH)
     per_forward = {"w8a8": 4 * blocks, "attention": blocks, "tail": 1}
-    want = {k: per_forward.get(k, 0) * forwards for k in COUNTERS}
-    reset_counts()
-    t0 = time.time()
-    depth = pseudo_label.label_batches(model, ims, QUANT_RES, QUANT_BATCH)
-    torch.cuda.synchronize()
-    counts = read_counts()
+    want = {k: per_forward.get(k, 0) * forwards for k in KERNELS}
+    with recording() as rec:
+        t0 = time.time()
+        depth = pseudo_label.label_batches(model, ims, QUANT_RES, QUANT_BATCH)
+        torch.cuda.synchronize()
+    counts = launches(rec)
     log(f"[pseudo-label] label_batches({QUANT_ARCH}, {QUANT_IMAGES} images, {QUANT_RES}, bs"
         f"{QUANT_BATCH}, bf16, int8_pallas) in {time.time() - t0:.2f} s (first call); "
         f"launches {counts}")
@@ -1667,11 +1664,11 @@ def phase_pseudo_label():
     inp.mkdir(parents=True, exist_ok=True)
     for i, im in enumerate(synthetic_images(QUANT_IMAGES)):
         cv2.imwrite(str(inp / f"im{i:02d}.png"), cv2.cvtColor(im, cv2.COLOR_RGB2BGR))
-    reset_counts()
-    written = pseudo_label.main(["--input", str(inp), "--output_dir", str(out),
-                                 "--quant", "int8_pallas", "--device", "cuda"])
-    torch.cuda.synchronize()
-    cli_counts = read_counts()
+    with recording() as rec:
+        written = pseudo_label.main(["--input", str(inp), "--output_dir", str(out),
+                                     "--quant", "int8_pallas", "--device", "cuda"])
+        torch.cuda.synchronize()
+    cli_counts = launches(rec)
     log(f"[pseudo-label] cli.pseudo_label over {QUANT_IMAGES} PNGs: {len(written)} depth maps, "
         f"launches {cli_counts}")
     check(cli_counts == want, f"cli.pseudo_label: launches {cli_counts}, expected {want}")
@@ -1763,8 +1760,8 @@ def metrics_vs_cpu(tag: str, got: dict, ref: dict, tol: tuple[float, float]) -> 
 
 def run_evaluate(tag: str, argv: list[str], images: int, in_hw: tuple[int, int],
                  gt_hw: tuple[int, int], cpu_ref: dict) -> tuple[dict, dict]:
-    """``cli.evaluate`` on the card with every launch count set to 0 just
-    before and read just after (kernels 1 and 2 per batch); then, with the
+    """``cli.evaluate`` on the card with its launches counted in a
+    ``recording()`` block (kernels 1 and 2 per batch); then, with the
     model the CLI builds, images/s over the dataset (decode included) and
     the metrics of its first 2 images against the CPU fp32 model's
     (computed once per dataset into ``cpu_ref``). Returns the results and
@@ -1775,14 +1772,14 @@ def run_evaluate(tag: str, argv: list[str], images: int, in_hw: tuple[int, int],
     from distill_any_depth_tpu_torch.eval.metrics import METRIC_KEYS
 
     args = evaluate_cli.argument_parser().parse_args(argv)
-    reset_counts()
-    t0 = time.time()
-    results = evaluate_cli.main(args)
-    torch.cuda.synchronize()
-    counts = read_counts()
+    with recording() as rec:
+        t0 = time.time()
+        results = evaluate_cli.main(args)
+        torch.cuda.synchronize()
+    counts = launches(rec)
     batches = images // EVAL_BATCH
     blocks = model_config(args.arch_name).encoder.depth
-    want = {k: {"attention": blocks, "tail": 1}.get(k, 0) * batches for k in COUNTERS}
+    want = {k: {"attention": blocks, "tail": 1}.get(k, 0) * batches for k in KERNELS}
     log(f"[{tag}] cli.evaluate over {images} images in {time.time() - t0:.1f} s (first call, "
         f"model build included): {json.dumps(results)} launches {counts}")
     check(counts == want, f"{tag}: launches {counts}, expected {want}")
@@ -1880,15 +1877,15 @@ def phase_checkpoints_and_eval(trainer: Trainer, source: torch.nn.Module) -> dic
     check(equal, "student_final differs from the student's parameters")
 
     # the saved weights through cli.infer on the card
-    reset_counts()
-    written = infer_cli.main(infer_cli.argument_parser().parse_args([
-        "--device", "cuda", "--arch_name", ARCH, "--checkpoint", str(final), "--input",
-        "data/smoke/imgs", "--output_dir", str(OUT / "infer_checkpoint")]))
-    torch.cuda.synchronize()
-    counts, n_in = read_counts(), len(list(Path("data/smoke/imgs").iterdir()))
+    with recording() as rec:
+        written = infer_cli.main(infer_cli.argument_parser().parse_args([
+            "--device", "cuda", "--arch_name", ARCH, "--checkpoint", str(final), "--input",
+            "data/smoke/imgs", "--output_dir", str(OUT / "infer_checkpoint")]))
+        torch.cuda.synchronize()
+    counts, n_in = launches(rec), len(list(Path("data/smoke/imgs").iterdir()))
     forwards = -(-n_in // BATCH)
     want = {k: {"attention": model_config(ARCH).encoder.depth, "tail": 1}.get(k, 0) * forwards
-            for k in COUNTERS}
+            for k in KERNELS}
     log(f"[path 6] cli.infer --checkpoint student_final over data/smoke/imgs: {len(written)} "
         f"of {n_in} images written, launches {counts}")
     check(len(written) == n_in and all(Path(w).exists() for w in written), "cli.infer outputs")
@@ -1917,14 +1914,14 @@ def phase_checkpoints_and_eval(trainer: Trainer, source: torch.nn.Module) -> dic
     # continuation is a CPU test (tests/test_torch_checkpoint_io.py): cuDNN's
     # backward may pick non-deterministic algorithms on the card.
     resumed = OUT / "train_cli_resume"
-    reset_counts()
-    history = train_cli.main([
-        "--device", "cuda", "--dataset_dir", "data/smoke", "--output_dir", str(resumed),
-        "--batch_size", "2", "--num_iterations", "4", "--image_size", str(RES),
-        "--use_hdn_loss", "--log_interval", "1", "--resume", str(run),
-    ])
-    torch.cuda.synchronize()
-    counts, want = read_counts(), expected_step_counts(2)
+    with recording() as rec:
+        history = train_cli.main([
+            "--device", "cuda", "--dataset_dir", "data/smoke", "--output_dir", str(resumed),
+            "--batch_size", "2", "--num_iterations", "4", "--image_size", str(RES),
+            "--use_hdn_loss", "--log_interval", "1", "--resume", str(run),
+        ])
+        torch.cuda.synchronize()
+    counts, want = launches(rec), expected_step_counts(2)
     step = int(ckpt_io.restore_train_state(str(resumed))["step"])
     log(f"[path 6] cli.train --resume, 2 steps from step 2: history {history}, launches "
         f"{counts}, saved at step {step}")
@@ -2072,12 +2069,12 @@ def phase_register_family(images, qims) -> dict:
     greg = seeded(GIANT_REG, "vitg-reg")
     forwards = -(-GIANT_IMAGES // GIANT_BATCH)
     want = {k: {"attention": blocks, "tail": 1, "gate": blocks}.get(k, 0) * forwards
-            for k in COUNTERS}
-    reset_counts()
-    t0 = time.time()
-    labels = pseudo_label.label_batches(greg, qims[:GIANT_IMAGES], GIANT_RES, GIANT_BATCH)
-    torch.cuda.synchronize()
-    out["label_counts"] = read_counts()
+            for k in KERNELS}
+    with recording() as rec:
+        t0 = time.time()
+        labels = pseudo_label.label_batches(greg, qims[:GIANT_IMAGES], GIANT_RES, GIANT_BATCH)
+        torch.cuda.synchronize()
+    out["label_counts"] = launches(rec)
     log(f"[vitg-reg] label_batches({GIANT_REG}, {GIANT_IMAGES} images, {GIANT_RES}, bs"
         f"{GIANT_BATCH}, bf16) in {time.time() - t0:.2f} s (first call); launches "
         f"{out['label_counts']}")
@@ -2142,8 +2139,8 @@ def adapter_student():
 
 def steps_with_counts(tag: str, trainer: Trainer, batches, steps: int, want: dict,
                       stamps: list | None = None) -> list:
-    """``steps`` steps of ``trainer`` from its state on, every launch count
-    set to 0 just before and read after each step: each step's launches
+    """``steps`` steps of ``trainer`` from its state on in a ``recording()``
+    block, its launch counts read after each step: each step's launches
     equal ``want``, its losses and gradient norm are finite. Returns the
     metrics of each step and the last step's launches; ``stamps`` gets the
     host clock at the end of each step."""
@@ -2153,7 +2150,7 @@ def steps_with_counts(tag: str, trainer: Trainer, batches, steps: int, want: dic
         torch.cuda.synchronize()
         if stamps is not None:
             stamps.append(time.perf_counter())
-        now = read_counts()
+        now = launches(rec)
         per = {k: now[k] - last.get(k, 0) for k in now}
         last.update(now)
         vals = {k: float(v) for k, v in metrics.items() if k != "teacher_idx"}
@@ -2164,9 +2161,9 @@ def steps_with_counts(tag: str, trainer: Trainer, batches, steps: int, want: dic
         check(per == want, f"{tag} step {step}: launches {per}, expected {want}")
         check(all(np.isfinite(v) for v in vals.values()), f"{tag} step {step}: non-finite")
 
-    reset_counts()
-    trainer.run(batches, max_steps=int(trainer.state.step) + steps, on_step=on_step)
-    torch.cuda.synchronize()
+    with recording() as rec:
+        trainer.run(batches, max_steps=int(trainer.state.step) + steps, on_step=on_step)
+        torch.cuda.synchronize()
     check(len(seen) == steps, f"{tag}: {len(seen)} steps ran")
     return seen, per_step[-1]
 
@@ -2196,18 +2193,18 @@ def step_times(steps: dict, batch: int) -> dict:
 
 
 def run_cli(tag: str, argv: list[str], want_per_step: dict, steps: int = 2) -> dict:
-    """``cli.train`` on the card for ``steps`` steps at bs2 392^2 with the
-    counts set to 0 just before and read just after: launches ``steps``
+    """``cli.train`` on the card for ``steps`` steps at bs2 392^2 with its
+    launches counted in a ``recording()`` block: launches ``steps``
     times ``want_per_step``, finite losses. Returns the history."""
     from distill_any_depth_tpu_torch.cli import train as train_cli
 
-    reset_counts()
-    t0 = time.time()
-    history = train_cli.main(["--device", "cuda", "--batch_size", "2", "--num_iterations",
-                              str(steps), "--image_size", str(RES), "--use_hdn_loss",
-                              "--log_interval", "1", "--checkpoint_interval", "0", *argv])
-    torch.cuda.synchronize()
-    counts = read_counts()
+    with recording() as rec:
+        t0 = time.time()
+        history = train_cli.main(["--device", "cuda", "--batch_size", "2", "--num_iterations",
+                                  str(steps), "--image_size", str(RES), "--use_hdn_loss",
+                                  "--log_interval", "1", "--checkpoint_interval", "0", *argv])
+        torch.cuda.synchronize()
+    counts = launches(rec)
     log(f"[{tag}] cli.train {' '.join(argv)}: {time.time() - t0:.1f} s, history {history}, "
         f"launches {counts}")
     check(counts == {k: steps * v for k, v in want_per_step.items()},
@@ -2413,8 +2410,8 @@ def params_sha(params) -> str:
 
 def path9_train(tag: str, cfg: TrainConfig, images: np.ndarray, want: dict) -> tuple:
     """``TRAIN_STEPS`` steps of a ``Trainer`` of ``cfg`` on this data rank's
-    rows of each global batch of ``images``: launches per step (the counts
-    set to 0 just before the run), finite losses, each step's time and the
+    rows of each global batch of ``images``: launches per step (counted from
+    the start of the run), finite losses, each step's time and the
     rank's peak memory. Returns the trainer and the readings."""
     from distill_any_depth_tpu_torch.parallel.mesh import shard_batch
 
@@ -2546,11 +2543,11 @@ def path9_rank(teacher_file: str, folder: str) -> None:
                            quant="int8_pallas")
     ckpt_io.load_state_dict_file(teacher, teacher_file)
     shard_model(teacher, make_mesh(1, 2))
-    reset_counts()
-    with torch.no_grad():
-        int8_depth = teacher(x)[0].float().cpu()
-    torch.cuda.synchronize()
-    res["int8_tp2_counts"] = read_counts()
+    with recording() as rec:
+        with torch.no_grad():
+            int8_depth = teacher(x)[0].float().cpu()
+        torch.cuda.synchronize()
+    res["int8_tp2_counts"] = launches(rec)
     want = 4 * model_config(TEACHER).encoder.depth
     check(res["int8_tp2_counts"]["w8a8"] == want,
           f"path 9 int8 tp=2: kernel 9 ran {res['int8_tp2_counts']['w8a8']} times, not {want}")
@@ -2842,7 +2839,7 @@ json.dump(out, open(spec["result"], "w"))
 
 def export_counts(kernels: dict) -> dict:
     """A loaded program's launches by kernel name as this script's counts."""
-    counts = {k: 0 for k in COUNTERS}
+    counts = {k: 0 for k in KERNELS}
     counts.update({k: v for k, v in kernels.items() if k != "tail"})
     counts["tail"] = kernels["tail"] // 2
     return counts
@@ -2869,15 +2866,15 @@ def path10_exports(model, qmodel, wmodel) -> dict:
     for name, m, res, batch, as_args, per_forward in specs:
         x = torch.from_numpy(train_images(batch, seed=21, res=res)).cuda().permute(0, 3, 1, 2)
         x = x.contiguous()
-        reset_counts()
         with torch.no_grad():
-            want = m(x)[0].float()
-            torch.cuda.synchronize()
-            eager = read_counts()
+            with recording() as rec:
+                want = m(x)[0].float()
+                torch.cuda.synchronize()
+            eager = launches(rec)
             eager_ms = cuda_ms(lambda: m(x), iters=5, warmup=1)
             events = traced_launches(lambda: m(x), 1, 512).values()
         eager_dev = (sum(us for _, us in events) / 1e3, sum(n for n, _ in events))
-        check(eager == {k: per_forward.get(k, 0) for k in COUNTERS},
+        check(eager == {k: per_forward.get(k, 0) for k in KERNELS},
               f"export {name}: eager launches {eager}")
         weights = str(d / f"{name}.safetensors") if as_args else None
         t0 = time.time()
@@ -2914,7 +2911,7 @@ def path10_exports(model, qmodel, wmodel) -> dict:
     check(not [m for m in modules if ".models" in m], "export loader imported the model code")
     for name, res in loaded.items():
         counts = export_counts(res["kernels"])
-        want = {k: out[name]["per_forward"].get(k, 0) for k in COUNTERS}
+        want = {k: out[name]["per_forward"].get(k, 0) for k in KERNELS}
         log(f"[export] {name} loaded in {res['load_s']:.2f} s, first call {res['first_call_s']:.2f}"
             f" s, {res['ms']:.3f} ms a forward (eager {out[name]['eager_ms']:.3f} ms here), "
             f"{res['device_ms']:.3f} ms of {res['device_launches']} kernels on the device "
@@ -3076,12 +3073,12 @@ def phase_path10(model, qmodel, wmodel, trainer: Trainer, images) -> dict:
         cv2.imwrite(str(folder / f"{i:03d}.png"), cv2.cvtColor(im, cv2.COLOR_RGB2BGR))
     disparity, tail_counts = {}, {}
     for mode in ("auto", "off"):
-        reset_counts()
-        infer_cli.main(["--device", "cuda", "--arch_name", ARCH, "--input", str(folder),
-                        "--output_dir", str(OUT / f"path10_infer_{mode}"), "--processing_res",
-                        str(RES), "--save_npy", "--fused_tail", mode])
-        torch.cuda.synchronize()
-        tail_counts[mode] = read_counts()
+        with recording() as rec:
+            infer_cli.main(["--device", "cuda", "--arch_name", ARCH, "--input", str(folder),
+                            "--output_dir", str(OUT / f"path10_infer_{mode}"), "--processing_res",
+                            str(RES), "--save_npy", "--fused_tail", mode])
+            torch.cuda.synchronize()
+        tail_counts[mode] = launches(rec)
         disparity[mode] = np.load(OUT / f"path10_infer_{mode}" / "image_logs" / "depth_000.npy")
     log(f"[fused_tail] cli.infer launches: auto {tail_counts['auto']}, off {tail_counts['off']}")
     check(tail_counts["auto"]["tail"] == 1 and tail_counts["off"]["tail"] == 0
@@ -3144,14 +3141,15 @@ def phase_path10(model, qmodel, wmodel, trainer: Trainer, images) -> dict:
 
     def on_step(i, j, metrics):
         torch.cuda.synchronize()
-        now = read_counts()
+        now = launches(rec)
         step_counts.append((i, j, {k: now[k] - last.get(k, 0) for k in now}))
         last.update(now)
 
-    reset_counts()
     t0 = time.time()
-    results = tune_loss_weights_traced(tcfg, batches[:2], batches[2:], grid=TUNER_GRID,
-                                       steps_per_experiment=2, device="cuda", on_step=on_step)
+    with recording() as rec:
+        results = tune_loss_weights_traced(tcfg, batches[:2], batches[2:], grid=TUNER_GRID,
+                                           steps_per_experiment=2, device="cuda",
+                                           on_step=on_step)
     tuner_s = time.time() - t0
     val = {k: want[k] - (s if k == "attention_bwd" else 0) for k in want}  # no backward
     for i, j, per in step_counts:
@@ -3221,10 +3219,10 @@ def phase_path10(model, qmodel, wmodel, trainer: Trainer, images) -> dict:
     teacher_file.unlink()
 
     # the HDN demo on the card against the CPU, and a point cloud of path 1
-    reset_counts()
-    card = hdn_demo.main()
-    torch.cuda.synchronize()
-    hdn_counts = read_counts()
+    with recording() as rec:
+        card = hdn_demo.main()
+        torch.cuda.synchronize()
+    hdn_counts = launches(rec)
     cpu = hdn_demo.main(device="cpu")
     rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in card}
     log(f"[hdn demo] card {card}, CPU {cpu}: relative {rel}; launches {hdn_counts}")
@@ -3334,7 +3332,7 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
           tp_head_shapes=[v for k, v in tp_heads.items() if k.startswith("kernel 1")])
 
     # kernel 2 at every shape a path launches it (bf16; the weights prepared
-    # once, as the model's WeightCache keeps them): CUDA events and the
+    # once, as the DPT head keeps them): CUDA events and the
     # profiler's device time of its two launches, beside its bound; the
     # plain version and a call that packs the weights itself at path 1's
     tail_rows = []

@@ -27,7 +27,8 @@ from torch import nn
 
 from distill_any_depth_tpu_torch.configs import ModelConfig
 from distill_any_depth_tpu_torch.models.vit import Conv2d, DinoViT, Linear, gelu
-from distill_any_depth_tpu_torch.ops.dpt_tail import WeightCache, fused_dpt_tail
+from distill_any_depth_tpu_torch.ops.derived import Derived
+from distill_any_depth_tpu_torch.ops.dpt_tail import fused_dpt_tail, prepare_weights
 from distill_any_depth_tpu_torch.ops.resize import resize_nchw
 
 __all__ = ["ConvTranspose2d", "ResidualConvUnit", "FeatureFusionBlock", "DPTHead",
@@ -110,7 +111,7 @@ class DPTHead(nn.Module):
                  fused_tail: bool = True):
         super().__init__()
         self.fused_tail = fused_tail
-        self.tail_weights = WeightCache()  # the kernel's packed weights, per weight version
+        self.tail_weights = Derived()  # the kernel's packed weights, per weight version
         self.use_clstoken = use_clstoken
         self.trailing_relu = trailing_relu
         self.patch_size = patch_size
@@ -148,9 +149,8 @@ class DPTHead(nn.Module):
             weights = (s.output_conv1.weight.permute(2, 3, 1, 0), s.output_conv1.bias,
                        conv2.weight.permute(2, 3, 1, 0), conv2.bias,
                        head.weight[:, :, 0, 0].t(), head.bias)
-            # a trace (torch.export) prepares them in the traced graph
-            cached = t.is_cuda and not torch.compiler.is_compiling()
-            prepared = self.tail_weights.get(*weights, t.dtype) if cached else None
+            prepared = (self.tail_weights.get(weights, lambda: prepare_weights(*weights, t.dtype),
+                                              t.dtype) if t.is_cuda else None)
             d = fused_dpt_tail(t.permute(0, 2, 3, 1).contiguous(), (oh, ow), *weights,
                                trailing_relu=self.trailing_relu, weights=prepared)
             return d[:, None]

@@ -14,7 +14,7 @@ Parameters stay fp32; every layer casts its weights to the dtype of its
 input, as flax does with ``kernel.astype(dtype)``, so bf16 activations reach
 the attention kernels. ``quant`` ("int8" or "int8_pallas") runs the
 blocks' qkv, proj and FFN GEMMs (fc1 and fc2, or SwiGLU's w12 and w3) as
-dynamic W8A8 int8 GEMMs (``ops/quant.QuantLinear``, inference only; the
+dynamic W8A8 int8 GEMMs (``QuantLinear`` on ``ops/quant``, inference only; the
 patch embedding and the PEG conv stay unquantized, as in the JAX package).
 ``cfg.lora_rank`` puts LoRA on the blocks' attention qkv and proj (a
 ``models/adapters.LoRALinear`` in place of the plain or quantized layer, as
@@ -41,6 +41,7 @@ changes.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
@@ -48,15 +49,23 @@ from torch import nn
 from distill_any_depth_tpu_torch.configs import EncoderConfig
 from distill_any_depth_tpu_torch.models.adapters import SSF, LoRALinear
 from distill_any_depth_tpu_torch.ops.attention import multi_head_attention_packed
+from distill_any_depth_tpu_torch.ops.derived import Derived
 from distill_any_depth_tpu_torch.ops.flash_attention import banded_eligible
+from distill_any_depth_tpu_torch.ops.quant import int8_matmul, shard_product
+from distill_any_depth_tpu_torch.ops.quant_matmul import quantize_rows, w8a8_matmul
 from distill_any_depth_tpu_torch.ops.resize import resize_matrix
 from distill_any_depth_tpu_torch.ops.swiglu import swiglu_gate
 from distill_any_depth_tpu_torch.ops.window import local_window_bias
-from distill_any_depth_tpu_torch.parallel.tp import copy_to_model, model_size, row_parallel_linear
+from distill_any_depth_tpu_torch.parallel.tp import (
+    all_reduce_max,
+    copy_to_model,
+    model_size,
+    row_parallel_linear,
+)
 from distill_any_depth_tpu_torch.utils.profiling import count, span
 
-__all__ = ["QUANT_MODES", "Linear", "LayerNorm", "Conv2d", "gelu", "PatchEmbed", "Mlp",
-           "SwiGLU", "Attention", "Block", "interp_pos_embed", "PosConv", "DinoViT"]
+__all__ = ["QUANT_MODES", "Linear", "QuantLinear", "LayerNorm", "Conv2d", "gelu", "PatchEmbed",
+           "Mlp", "SwiGLU", "Attention", "Block", "interp_pos_embed", "PosConv", "DinoViT"]
 
 QUANT_MODES = ("none", "int8", "int8_pallas")
 
@@ -71,15 +80,75 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
+class QuantLinear(Linear):
+    """Drop-in for ``Linear`` running its GEMM as dynamic W8A8 int8, the
+    counterpart of the JAX package's ``QuantDense``. It declares the same
+    ``weight [out, in]`` and ``bias``, so state dicts load unchanged.
+    ``mode``: "int8" (``ops/quant.int8_matmul``) or "int8_pallas" (kernel 9,
+    ``ops/quant_matmul.w8a8_matmul``).
+
+    Inference only: in grad mode a weight that requires a gradient raises.
+    The int8 weight and its scales are an ``ops/derived.Derived`` of the
+    weight, so an in-place update (``load_state_dict``, an optimizer step)
+    quantizes anew."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 mode: str = "int8"):
+        if mode not in ("int8", "int8_pallas"):
+            raise ValueError(f"QuantLinear mode must be 'int8' or 'int8_pallas', not {mode!r}")
+        super().__init__(in_features, out_features, bias=bias)
+        self.mode = mode
+        self._int8 = Derived()
+
+    def quantized_weight(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(wq int8 [out, in], ws fp32 [out])``, kept until the weight
+        changes."""
+        return self._int8.get((self.weight,), self._quantize)
+
+    def _quantize(self) -> tuple[torch.Tensor, torch.Tensor]:
+        w = self.weight.detach()
+        amax = None
+        if self.reduce_group is not None:
+            # a shard's rows are slices of the unsharded rows: their scales
+            # come from the absmax over every shard
+            amax = all_reduce_max(w.float().abs().amax(-1, keepdim=True), self.reduce_group)
+        wq, ws = quantize_rows(w, amax)
+        return wq, ws[:, 0]
+
+    def _row_parallel(self, x: torch.Tensor) -> torch.Tensor:
+        """This shard's fp32 partial products at the global scales, summed
+        over the model group, then the bias as the route adds it."""
+        wq, ws = self.quantized_weight()
+        *lead, k = x.shape
+        x2 = x.reshape(-1, k)
+        amax = all_reduce_max(x2.float().abs().amax(-1, keepdim=True), self.reduce_group)
+        y = shard_product(x2, amax, wq, ws, self.mode)
+        dist.all_reduce(y, group=self.reduce_group)
+        if self.bias is None:
+            y = y.to(x.dtype)
+        elif self.mode == "int8_pallas":
+            y = (y + self.bias.float()).to(x.dtype)
+        else:
+            y = y.to(x.dtype) + self.bias.to(x.dtype)
+        return y.reshape(*lead, wq.shape[0])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and self.weight.requires_grad:
+            raise RuntimeError("int8 GEMMs are inference-only: run under torch.no_grad() "
+                               "or freeze the weights (a model that trains keeps quant='none')")
+        if self.reduce_group is not None:
+            return self._row_parallel(x)
+        matmul = w8a8_matmul if self.mode == "int8_pallas" else int8_matmul
+        return matmul(x, self.weight, self.bias, x.dtype, quantized=self.quantized_weight())
+
+
 def _linear(in_features: int, out_features: int, quant: str) -> Linear:
     """``Linear``, or its dynamic-W8A8 drop-in when ``quant`` is "int8"
     (the plain route) or "int8_pallas" (kernel 9); the same parameters
     either way (the JAX package's ``_dense``)."""
     if quant == "none":
         return Linear(in_features, out_features)
-    from distill_any_depth_tpu_torch.ops.quant import QUANT_IMPLS, QuantLinear
-
-    return QuantLinear(in_features, out_features, impl=QUANT_IMPLS[quant])
+    return QuantLinear(in_features, out_features, mode=quant)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -136,9 +205,9 @@ class SwiGLU(nn.Module):
     ``vit/swiglu`` (w12, the gate and w3) around ``vit/swiglu_gate``
     (``silu(x1) * x2`` alone), and counts ``vit/swiglu_gate_bytes``, the
     bytes the gate must move: ``x1`` and ``x2`` read, their product
-    written, ``rows * 3 * hidden`` elements. The gate's wrapper counts
-    ``vit/swiglu_gate_launches``, one a launch of its kernels (forward or
-    backward), on the card only."""
+    written, ``rows * 3 * hidden`` elements. Each launch of the gate's
+    kernels (forward or backward), on the card only, counts
+    ``kernels/gate``."""
 
     tp_group = None  # the model group under tensor parallelism
 

@@ -1,4 +1,4 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build, load and launch the hand-written CUDA kernels.
 
 Each ``csrc/*.cu`` file is compiled on its own by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, loaded with ``ctypes``.
@@ -6,6 +6,12 @@ Nothing includes PyTorch's headers, so a build takes seconds. Libraries are
 named by a hash of their source and of the shared headers in ``csrc/``
 (``*.cuh``), and go to ``build/`` at the repository root, so an edited
 source or header rebuilds and an unchanged one is reused.
+
+Every entry point is called through one ``Kernel``: its argument types
+from one kind string, the launch under the first tensor's device with the
+current stream appended last, the error check, and the count
+``kernels/<name>`` (``utils/profiling.count``), once per op call. A kernel
+wrapper in ``ops/`` keeps only its route, its checks and its buffers.
 """
 from __future__ import annotations
 
@@ -16,9 +22,11 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 from distill_any_depth_tpu_torch.utils.profiling import count, span
 
-__all__ = ["SOURCES", "build_all", "load"]
+__all__ = ["SOURCES", "DTYPES", "build_all", "load", "Kernel"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -39,6 +47,9 @@ SOURCES = {
 }
 
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # used when nvcc is not on PATH
+
+DTYPES = {torch.bfloat16: 0, torch.float32: 1}  # every kernel's dtype code
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_int64, "f": ctypes.c_float}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -105,3 +116,41 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         lib = _loaded[name] = ctypes.CDLL(str(_target(name)))
     return lib
+
+
+class Kernel:
+    """The entry point ``symbol`` of library ``lib``. ``kinds`` names its
+    arguments before the stream, one letter each: "p" a tensor's data (or
+    None, a null pointer), "i" int, "l" int64, "f" float; the pointers come
+    first. ``kernel([tensors], *scalars)`` launches it under the first
+    tensor's device on the current stream, raises with ``what`` on a
+    non-zero return, and counts ``kernels/<counter>`` (no ``counter``: the
+    launch is a part of an op call that another entry point counts). The
+    library is loaded, built if need be, and the function typed at the
+    first launch."""
+
+    __slots__ = ("lib", "symbol", "kinds", "what", "counter", "_fn")
+
+    def __init__(self, lib: str, symbol: str, kinds: str, what: str, counter: str | None):
+        self.lib, self.symbol, self.kinds, self.what = lib, symbol, kinds, what
+        self.counter = None if counter is None else f"kernels/{counter}"
+        self._fn = None
+
+    def _resolve(self):
+        fn = getattr(load(self.lib), self.symbol)
+        fn.argtypes = [_CTYPES[k] for k in self.kinds] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        self._fn = fn
+        return fn
+
+    def __call__(self, tensors: list, *scalars) -> None:
+        fn = self._fn
+        if fn is None:
+            fn = self._resolve()
+        with torch.cuda.device(tensors[0].device):
+            err = fn(*[None if t is None else t.data_ptr() for t in tensors], *scalars,
+                     torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{self.what} kernel launch failed (error {err})")
+        if self.counter is not None:
+            count(self.counter, 1)

@@ -12,8 +12,9 @@ Layouts follow the JAX contract: ``t`` channels-last, ``k1``/``k2`` HWIO,
 ``kd`` ``[32, 1]``. The kernel (``csrc/dpt_tail.cu``, two launches) takes
 C in {64, 128, 256, 384}, the DPT features of every preset (384: ViT-g's),
 and raises on any other width; its header states its bound on the H100
-and its design. Its bf16 convs read the weights packed by ``pack_conv_weight``;
-``WeightCache`` keeps the packing until a weight changes. Forward only.
+and its design. Its bf16 convs read the weights packed by ``pack_conv_weight``
+(``prepare_weights``; the DPT head keeps them in an ``ops/derived.Derived``
+until a weight changes). Forward only.
 
 The kernel is also the op ``dad::dpt_tail`` on the prepared weights
 (``prepare_weights``): the kernel on the card, the plain version on the CPU
@@ -24,20 +25,23 @@ as one node; eagerly it calls the kernel itself.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from distill_any_depth_tpu_torch.ops import _build
+from distill_any_depth_tpu_torch.ops._build import DTYPES, Kernel
 
 __all__ = ["fused_dpt_tail", "tail_reference", "pack_conv_weight", "unpack_conv_weight",
-           "prepare_weights", "TailWeights", "WeightCache"]
+           "prepare_weights", "TailWeights"]
 
-_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _CHANNELS = (64, 128, 256, 384)
 _C2 = 32
+# kernel 2's two launches, counted once as "tail": conv1 (t, w1, b1, v; B, ht,
+# wt, C, the dtype code), then the head (v, w2, b2, kd, bd, out; B, hv, wv,
+# C / 2, oh, ow, relu, the dtype code)
+_CONV1 = Kernel("dpt_tail", "dad_tail_conv1", "ppppiiiii", "DPT tail conv1", None)
+_HEAD = Kernel("dpt_tail", "dad_tail_head", "ppppppiiiiiiii", "DPT tail head", "tail")
 
 
 def tail_reference(t, out_hw, k1, b1, k2, b2, kd, bd, *, trailing_relu):
@@ -104,33 +108,12 @@ def prepare_weights(k1, b1, k2, b2, kd, bd, dtype: torch.dtype) -> TailWeights:
     return TailWeights(w1, w2, *small)
 
 
-class WeightCache:
-    """``prepare_weights`` kept until a weight changes: keyed on each
-    weight's device, storage and version counter (an in-place update, such
-    as ``load_state_dict`` or an optimizer step, bumps the version), as
-    ``ops/quant.QuantLinear`` keeps its int8 weight."""
-
-    def __init__(self):
-        self._key = None
-        self._weights = None
-
-    def get(self, k1, b1, k2, b2, kd, bd, dtype: torch.dtype) -> TailWeights:
-        arrays = (k1, b1, k2, b2, kd, bd)
-        key = (dtype, *((a.device, a.data_ptr(), a._version, a.shape, a.stride())
-                        for a in arrays))
-        if key != self._key:
-            self._weights = prepare_weights(*arrays, dtype)
-            self._key = key
-        return self._weights
-
-
 def fused_dpt_tail(t, out_hw, k1, b1, k2, b2, kd, bd, *, trailing_relu,
                    weights: TailWeights | None = None):
     """The tail on ``t``: the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor. Returns ``[B, oh, ow]`` in ``t``'s dtype.
-    ``weights``: the kernel's operands from ``prepare_weights`` (or a
-    ``WeightCache``) for these weights and ``t``'s dtype; prepared on this
-    call when None."""
+    ``weights``: the kernel's operands from ``prepare_weights`` for these
+    weights and ``t``'s dtype; prepared on this call when None."""
     if torch.compiler.is_compiling():
         if weights is None:
             weights = prepare_weights(k1, b1, k2, b2, kd, bd, t.dtype)
@@ -166,7 +149,7 @@ def _launch(t: torch.Tensor, weights: TailWeights, out_hw, trailing_relu: bool) 
     """Kernel 2's two launches on CUDA ``t`` (contiguous, aligned, bf16 or
     fp32 ``[B, ht, wt, C]`` with C in ``_CHANNELS``) with its prepared
     ``weights``."""
-    if t.dtype not in _DTYPES:
+    if t.dtype not in DTYPES:
         raise TypeError(f"DPT tail kernel takes bfloat16 or float32, not {t.dtype}")
     if t.ndim != 4 or not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError("DPT tail kernel needs a contiguous, 16-byte aligned [B, ht, wt, C] t")
@@ -182,35 +165,11 @@ def _launch(t: torch.Tensor, weights: TailWeights, out_hw, trailing_relu: bool) 
         raise ValueError("weights were prepared for another dtype, width or device")
     v = torch.empty((b, 2 * ht, 2 * wt, cm), dtype=dtype, device=t.device)
     out = torch.empty((b, oh, ow), dtype=dtype, device=t.device)
-    lib = _lib()
-    code = _DTYPES[dtype]
-    with torch.cuda.device(t.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dad_tail_conv1(t.data_ptr(), weights.w1.data_ptr(), weights.b1.data_ptr(),
-                                 v.data_ptr(), b, ht, wt, c, code, stream)
-        if err:
-            raise RuntimeError(f"DPT tail conv1 launch failed (error {err})")
-        err = lib.dad_tail_head(v.data_ptr(), weights.w2.data_ptr(), weights.b2.data_ptr(),
-                                weights.kd.data_ptr(), weights.bd.data_ptr(), out.data_ptr(), b,
-                                2 * ht, 2 * wt, cm, oh, ow, int(trailing_relu), code, stream)
-    if err:
-        raise RuntimeError(f"DPT tail head launch failed (error {err})")
-    fused_dpt_tail.launches += 1
+    code = DTYPES[dtype]
+    _CONV1([t, weights.w1, weights.b1, v], b, ht, wt, c, code)
+    _HEAD([v, weights.w2, weights.b2, weights.kd, weights.bd, out], b, 2 * ht, 2 * wt, cm, oh,
+          ow, int(trailing_relu), code)
     return out
-
-
-fused_dpt_tail.launches = 0
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("dpt_tail")
-    if lib.dad_tail_conv1.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dad_tail_conv1.argtypes = [p, p, p, p, i, i, i, i, i, p]
-        lib.dad_tail_conv1.restype = i
-        lib.dad_tail_head.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
-        lib.dad_tail_head.restype = i
-    return lib
 
 
 # ------------------------------------------------------------------ the op torch.export keeps

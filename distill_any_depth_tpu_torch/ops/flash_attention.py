@@ -39,11 +39,9 @@ dispatcher's cost on the host-bound forwards.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from distill_any_depth_tpu_torch.ops import _build
+from distill_any_depth_tpu_torch.ops._build import DTYPES, Kernel
 
 __all__ = ["mha_flash_packed", "mha_packed_reference", "packed_attention_backward",
            "mha_flash", "mha_flash_qkv", "mha_flash_bias", "mha_flash_banded",
@@ -51,12 +49,26 @@ __all__ = ["mha_flash_packed", "mha_packed_reference", "packed_attention_backwar
            "banded_attention_backward", "bias_attention_backward_reference",
            "banded_attention_backward_reference", "banded_eligible"]
 
-_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_DIM = 64
+_SCALE = _HEAD_DIM ** -0.5
 _TILE = 64  # key tile of the online softmax (the kernels' and the banded plain version's)
 # Below this token count a band runs the dense bias kernel, as in the JAX
 # package (its threshold; the two kernels compute the same function).
 _BANDED_MIN_SEQ = 3000
+
+# the pointers; the shape, strides and dtype codes; the scale
+_K1 = Kernel("flash_attention", "dad_packed_attention", "pppiiiiif", "packed attention",
+             "attention")
+_K3 = Kernel("flash_attention_bwd", "dad_packed_attention_bwd", "ppppppiiiiif",
+             "packed attention backward", "attention_bwd")
+_K5 = Kernel("flash_attention_bias", "dad_bias_attention", "ppppppppiiiilliif",
+             "biased attention", "attention_bias")
+_K6 = Kernel("flash_attention_bias_bwd", "dad_bias_attention_bwd", "p" * 13 + "iiiilllliiiif",
+             "biased attention backward", "attention_bias_bwd")
+_K7 = Kernel("flash_attention_banded", "dad_banded_attention", "pppppiiiilliiiif",
+             "banded attention", "attention_banded")
+_K8 = Kernel("flash_attention_banded_bwd", "dad_banded_attention_bwd", "p" * 10 + "iiiilllliiiif",
+             "banded attention backward", "attention_banded_bwd")
 
 
 def mha_packed_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -76,7 +88,7 @@ def mha_packed_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def _check(qkv: torch.Tensor, num_heads: int) -> None:
-    if qkv.dtype not in _DTYPES:
+    if qkv.dtype not in DTYPES:
         raise TypeError(f"packed attention kernel takes bfloat16 or float32, not {qkv.dtype}")
     if qkv.shape[-1] // 3 // num_heads != _HEAD_DIM:
         raise ValueError(f"packed attention kernel needs head dim {_HEAD_DIM}, "
@@ -91,9 +103,7 @@ def _forward(qkv: torch.Tensor, num_heads: int, with_lse: bool):
     out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
            if with_lse else None)
-    _launch("packed attention", "flash_attention", "dad_packed_attention", qkv.device,
-            [qkv, out, lse], [b, n, num_heads, _HEAD_DIM, _DTYPES[qkv.dtype]], "iiiii")
-    mha_flash_packed.launches += 1
+    _K1([qkv, out, lse], b, n, num_heads, _HEAD_DIM, DTYPES[qkv.dtype], _SCALE)
     return out, lse
 
 
@@ -114,14 +124,8 @@ def packed_attention_backward(qkv: torch.Tensor, out: torch.Tensor, lse: torch.T
         raise ValueError("packed attention backward needs contiguous, aligned operands")
     dqkv = torch.empty_like(qkv)
     delta = torch.empty_like(lse)
-    _launch("packed attention backward", "flash_attention_bwd", "dad_packed_attention_bwd",
-            qkv.device, [qkv, out, g, lse, delta, dqkv],
-            [b, n, num_heads, _HEAD_DIM, _DTYPES[qkv.dtype]], "iiiii")
-    packed_attention_backward.launches += 1
+    _K3([qkv, out, g, lse, delta, dqkv], b, n, num_heads, _HEAD_DIM, DTYPES[qkv.dtype], _SCALE)
     return dqkv
-
-
-packed_attention_backward.launches = 0
 
 
 class _PackedAttention(torch.autograd.Function):
@@ -157,28 +161,6 @@ def mha_flash_packed(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _PackedAttention.apply(qkv, num_heads)
     return _forward(qkv, num_heads, with_lse=False)[0]
-
-
-mha_flash_packed.launches = 0
-
-
-def _launch(what: str, name: str, fn_name: str, device: torch.device, ptrs: list,
-            ints: list, kinds: str) -> None:
-    """Call ``fn_name`` of library ``name`` (built at first use) with
-    ``ptrs`` (tensors, or None for a null pointer), then ``ints`` of
-    ``kinds`` ("i" int, "l" int64), the head-dim scale and the current
-    stream; raise if the launch failed."""
-    fn = getattr(_build.load(name), fn_name)
-    if fn.argtypes is None:
-        types = {"i": ctypes.c_int, "l": ctypes.c_int64}
-        fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [types[k] for k in kinds]
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        err = fn(*(None if x is None else x.data_ptr() for x in ptrs), *ints, _HEAD_DIM ** -0.5,
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{what} kernel launch failed (error {err})")
 
 
 # ------------------------------------------------------------------ biased and banded attention
@@ -384,7 +366,7 @@ def banded_eligible(n: int, band: tuple[int, int] | None) -> bool:
 def _check_heads(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """The kernels read q, k, v ``[B, N, H, 64]`` in place: one shape, dtype
     and stride pattern, heads contiguous, rows and batches 16-byte aligned."""
-    if q.dtype not in _DTYPES:
+    if q.dtype not in DTYPES:
         raise TypeError(f"{name} kernel takes bfloat16 or float32, not {q.dtype}")
     if q.shape[-1] != _HEAD_DIM:
         raise ValueError(f"{name} kernel needs head dim {_HEAD_DIM}, got {q.shape[-1]}")
@@ -402,7 +384,7 @@ def _check_heads(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
 
 def _checked_bias(bias: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     n = q.shape[1]
-    if bias.shape != (n, n) or bias.dtype not in _DTYPES or bias.device != q.device:
+    if bias.shape != (n, n) or bias.dtype not in DTYPES or bias.device != q.device:
         raise ValueError(f"biased attention kernel needs a bfloat16 or float32 [N, N] bias "
                          f"on {q.device}; got {tuple(bias.shape)} {bias.dtype} {bias.device}")
     return bias.contiguous()
@@ -429,16 +411,14 @@ def _bias_forward(q, k, v, bias, with_lse: bool):
         bias = _checked_bias(bias, q)
         nt = -(-n // _TILE)
         live = torch.empty(nt * nt, dtype=torch.uint8, device=q.device)
-        bias_dtype = _DTYPES[bias.dtype]
+        bias_dtype = DTYPES[bias.dtype]
     if q.dtype == torch.bfloat16:
         tn = _term_rows(n)
         terms = torch.empty((tn, tn), dtype=torch.float32, device=q.device)
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
-    _launch("biased attention", "flash_attention_bias", "dad_bias_attention", q.device,
-            [q, k, v, bias, live, terms, out, lse],
-            [b, n, h, d, q.stride(1), q.stride(0), _DTYPES[q.dtype], bias_dtype], "iiiillii")
-    mha_flash_bias.launches += 1
+    _K5([q, k, v, bias, live, terms, out, lse], b, n, h, d, q.stride(1), q.stride(0),
+        DTYPES[q.dtype], bias_dtype, _SCALE)
     return out, lse, live, terms
 
 
@@ -450,10 +430,8 @@ def _banded_forward(q, k, v, band, with_lse: bool):
     gw, window = band
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
-    _launch("banded attention", "flash_attention_banded", "dad_banded_attention", q.device,
-            [q, k, v, out, lse], [b, n, h, d, q.stride(1), q.stride(0), n // gw, gw, window,
-                                  _DTYPES[q.dtype]], "iiiilliiii")
-    mha_flash_banded.launches += 1
+    _K7([q, k, v, out, lse], b, n, h, d, q.stride(1), q.stride(0), n // gw, gw, window,
+        DTYPES[q.dtype], _SCALE)
     return out, lse
 
 
@@ -489,7 +467,7 @@ def _bias_backward(q, k, v, bias, out, lse, g, live, terms, dqkv) -> None:
     bias_dtype, mark, copy = -1, 0, 0
     if bias is not None:
         bias = _checked_bias(bias, q)
-        bias_dtype = _DTYPES[bias.dtype]
+        bias_dtype = DTYPES[bias.dtype]
         if live is None:
             nt = -(-n // _TILE)
             live, mark = torch.empty(nt * nt, dtype=torch.uint8, device=q.device), 1
@@ -503,11 +481,8 @@ def _bias_backward(q, k, v, bias, out, lse, g, live, terms, dqkv) -> None:
         raise ValueError(f"biased attention backward: terms {tuple(terms.shape)} {terms.dtype}")
     ptrs, strides = _dst(dqkv)
     delta = torch.empty_like(lse)
-    _launch("biased attention backward", "flash_attention_bias_bwd", "dad_bias_attention_bwd",
-            q.device, [q, k, v, out, g, lse, delta, bias, live, terms, *ptrs],
-            [b, n, h, d, q.stride(1), q.stride(0), *strides, _DTYPES[q.dtype], bias_dtype, mark,
-             copy], "iiiilllliiii")
-    bias_attention_backward.launches += 1
+    _K6([q, k, v, out, g, lse, delta, bias, live, terms, *ptrs], b, n, h, d, q.stride(1),
+        q.stride(0), *strides, DTYPES[q.dtype], bias_dtype, mark, copy, _SCALE)
 
 
 def _banded_backward(q, k, v, band, out, lse, g, dqkv) -> None:
@@ -518,11 +493,8 @@ def _banded_backward(q, k, v, band, out, lse, g, dqkv) -> None:
     gw, window = band
     ptrs, strides = _dst(dqkv)
     delta = torch.empty_like(lse)
-    _launch("banded attention backward", "flash_attention_banded_bwd",
-            "dad_banded_attention_bwd", q.device, [q, k, v, out, g, lse, delta, *ptrs],
-            [b, n, h, d, q.stride(1), q.stride(0), *strides, n // gw, gw, window,
-             _DTYPES[q.dtype]], "iiiilllliiii")
-    banded_attention_backward.launches += 1
+    _K8([q, k, v, out, g, lse, delta, *ptrs], b, n, h, d, q.stride(1), q.stride(0), *strides,
+        n // gw, gw, window, DTYPES[q.dtype], _SCALE)
 
 
 def bias_attention_backward(q, k, v, bias, out, lse, g, live=None, terms=None):
@@ -543,8 +515,6 @@ def bias_attention_backward(q, k, v, bias, out, lse, g, live=None, terms=None):
     return dqkv.unbind(2)
 
 
-bias_attention_backward.launches = 0
-
 
 def banded_attention_backward(q, k, v, band, out, lse, g):
     """Kernel 8: ``(dq, dk, dv)`` of ``mha_flash_banded`` from the forward's
@@ -558,8 +528,6 @@ def banded_attention_backward(q, k, v, band, out, lse, g):
     _banded_backward(q, k, v, band, out, lse, g, dqkv)
     return dqkv.unbind(2)
 
-
-banded_attention_backward.launches = 0
 
 
 class _MaskedAttention(torch.autograd.Function):
@@ -638,8 +606,6 @@ def mha_flash_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _bias_forward(q, k, v, bias, with_lse=False)[0]
 
 
-mha_flash_bias.launches = 0
-
 
 def mha_flash_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      band: tuple[int, int]) -> torch.Tensor:
@@ -662,8 +628,6 @@ def mha_flash_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _MaskedAttention.apply(_pack(q, k, v), q.shape[2], None, band)
     return _banded_forward(q, k, v, band, with_lse=False)[0]
 
-
-mha_flash_banded.launches = 0
 
 
 def _shared_bias(bias: torch.Tensor | None) -> torch.Tensor | None:

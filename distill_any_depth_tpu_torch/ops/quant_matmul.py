@@ -29,17 +29,16 @@ round-half-even tie, so the scales divide by a 0-dim tensor.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from distill_any_depth_tpu_torch.ops import _build
+from distill_any_depth_tpu_torch.ops._build import DTYPES, Kernel
 
 __all__ = ["quantize_rows", "quantize_weight", "int_product_exact", "w8a8_matmul",
            "w8a8_reference"]
 
-_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _EPS = 1e-8
+# x, wq, ws, bias, out, the workspace xq and xs; M, N, K, the dtype code
+_W8A8 = Kernel("w8a8_matmul", "dad_w8a8_matmul", "pppppppiiii", "W8A8", "w8a8")
 
 
 def _scale(amax: torch.Tensor) -> torch.Tensor:
@@ -116,7 +115,7 @@ def _launch(x2: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, bias: torch.Te
     """Kernel 9 on CUDA ``x2 [M, K]``: checks the operands, returns ``[M, N]``."""
     m, k = x2.shape
     n = wq.shape[0]
-    if x2.dtype not in _DTYPES or out_dtype != x2.dtype:
+    if x2.dtype not in DTYPES or out_dtype != x2.dtype:
         raise TypeError(f"W8A8 kernel takes bfloat16 or float32 x and writes its dtype, not "
                         f"{x2.dtype} -> {out_dtype}")
     if k % 16 or n % 2:
@@ -135,28 +134,8 @@ def _launch(x2: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, bias: torch.Te
     out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
     xq = torch.empty((m, k), dtype=torch.int8, device=x2.device)  # the kernels' workspace
     xs = torch.empty((m,), dtype=torch.float32, device=x2.device)
-    lib = _lib()
-    with torch.cuda.device(x2.device):
-        err = lib.dad_w8a8_matmul(x2.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-                                  None if b is None else b.data_ptr(), out.data_ptr(),
-                                  xq.data_ptr(), xs.data_ptr(), m, n, k, _DTYPES[x2.dtype],
-                                  torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"W8A8 kernel launch failed (error {err})")
-    w8a8_matmul.launches += 1
+    _W8A8([x2, wq, ws, b, out, xq, xs], m, n, k, DTYPES[x2.dtype])
     return out
-
-
-w8a8_matmul.launches = 0
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("w8a8_matmul")
-    if lib.dad_w8a8_matmul.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dad_w8a8_matmul.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
-        lib.dad_w8a8_matmul.restype = i
-    return lib
 
 
 # ------------------------------------------------------------------ the op torch.export keeps

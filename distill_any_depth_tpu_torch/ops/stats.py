@@ -26,14 +26,14 @@ Semantics, as torch's:
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from distill_any_depth_tpu_torch.ops import _build
+from distill_any_depth_tpu_torch.ops._build import Kernel
 
 __all__ = ["masked_median", "masked_quantile", "median_all", "masked_mean",
            "kth_select", "kth_select_reference"]
+
+_SELECT = Kernel("kth_select", "dad_kth_select", "pppii", "select", "select")  # u, k, out; R, N
 
 
 def _order_bits(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
@@ -75,17 +75,8 @@ def kth_select(u: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     u = u.contiguous()
     k = k.to(device=u.device, dtype=torch.int32).contiguous()
     out = torch.empty(u.shape[0], dtype=torch.int32, device=u.device)
-    lib = _lib()
-    with torch.cuda.device(u.device):
-        err = lib.dad_kth_select(u.data_ptr(), k.data_ptr(), out.data_ptr(), u.shape[0],
-                                 u.shape[1], torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"select kernel launch failed (error {err})")
-    kth_select.launches += 1
+    _SELECT([u, k, out], u.shape[0], u.shape[1])
     return out.long()
-
-
-kth_select.launches = 0
 
 
 def _kth_valid_index(u: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -133,12 +124,3 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 0.0) -> torch.
     the count."""
     s = torch.where(mask, x, 0.0).sum(dim=-1)
     return s / (mask.sum(dim=-1).to(x.dtype) + eps)
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("kth_select")
-    if lib.dad_kth_select.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dad_kth_select.argtypes = [p, p, p, i, i, p]
-        lib.dad_kth_select.restype = i
-    return lib

@@ -20,18 +20,18 @@ this module.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 import torch.nn.functional as F
 
-from distill_any_depth_tpu_torch.ops import _build
-from distill_any_depth_tpu_torch.utils.profiling import count
+from distill_any_depth_tpu_torch.ops._build import DTYPES, Kernel
 
 __all__ = ["swiglu_gate", "swiglu_gate_reference", "swiglu_gate_backward"]
 
-_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# x12 (and g), the output; rows, h, the dtype code, the SM count
+_FWD = Kernel("swiglu_gate", "dad_swiglu_gate_fwd", "ppllii", "SwiGLU gate", "gate")
+_BWD = Kernel("swiglu_gate", "dad_swiglu_gate_bwd", "pppllii", "SwiGLU gate backward", "gate")
 
 
 def swiglu_gate_reference(x12: torch.Tensor) -> torch.Tensor:
@@ -59,9 +59,6 @@ def swiglu_gate(x12: torch.Tensor) -> torch.Tensor:
     return _forward(x12)
 
 
-swiglu_gate.launches = 0  # forward and backward kernel launches
-
-
 def swiglu_gate_backward(g: torch.Tensor, x12: torch.Tensor) -> torch.Tensor:
     """The backward kernel: ``dx12 [..., 2h]`` from the cotangent ``g [...,
     h]`` of the gate's output and its input ``x12``, on the card."""
@@ -70,7 +67,7 @@ def swiglu_gate_backward(g: torch.Tensor, x12: torch.Tensor) -> torch.Tensor:
                          f"{tuple(g.shape)} for x12 {x12.dtype} {tuple(x12.shape)}")
     x12, g = _check(x12), g.contiguous()
     dx12 = torch.empty_like(x12)
-    _launch("dad_swiglu_gate_bwd", x12, [g, x12, dx12])
+    _launch(_BWD, x12, [g, x12, dx12])
     return dx12
 
 
@@ -89,7 +86,7 @@ class _Gate(torch.autograd.Function):
 def _check(x12: torch.Tensor) -> torch.Tensor:
     if x12.device.type != "cuda":
         raise ValueError(f"the SwiGLU gate kernel takes a CUDA tensor, not {x12.device}")
-    if x12.dtype not in _DTYPES:
+    if x12.dtype not in DTYPES:
         raise TypeError(f"the SwiGLU gate kernel takes bfloat16 or float32, not {x12.dtype}")
     return x12.contiguous()
 
@@ -97,43 +94,22 @@ def _check(x12: torch.Tensor) -> torch.Tensor:
 def _forward(x12: torch.Tensor) -> torch.Tensor:
     x12 = _check(x12)
     out = x12.new_empty((*x12.shape[:-1], x12.shape[-1] // 2))
-    _launch("dad_swiglu_gate_fwd", x12, [x12, out])
+    _launch(_FWD, x12, [x12, out])
     return out
 
 
-def _launch(fn_name: str, x12: torch.Tensor, tensors: list) -> None:
-    """Call ``fn_name`` on the contiguous ``tensors`` with x12's rows and
-    half width, its dtype, the card's SM count and the current stream, and
-    count the launch (``swiglu_gate.launches`` and, under
-    ``utils/profiling.recording()``, ``vit/swiglu_gate_launches``);
-    nothing for an empty x12."""
+def _launch(kernel: Kernel, x12: torch.Tensor, tensors: list) -> None:
+    """``kernel`` on the contiguous ``tensors`` with x12's rows and half
+    width, its dtype and the card's SM count; nothing for an empty x12."""
     if x12.numel() == 0:
         return
     h = x12.shape[-1] // 2
-    rows = x12.numel() // (2 * h)
-    fn = getattr(_lib(), fn_name)
-    with torch.cuda.device(x12.device):
-        err = fn(*(t.data_ptr() for t in tensors), rows, h, _DTYPES[x12.dtype],
-                 _sm_count(x12.device.index), torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"SwiGLU gate kernel launch failed (error {err})")
-    swiglu_gate.launches += 1
-    count("vit/swiglu_gate_launches", 1)
+    kernel(tensors, x12.numel() // (2 * h), h, DTYPES[x12.dtype], _sm_count(x12.device.index))
 
 
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("swiglu_gate")
-    if lib.dad_swiglu_gate_fwd.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.dad_swiglu_gate_fwd.argtypes = [p, p, ll, ll, i, i, p]
-        lib.dad_swiglu_gate_bwd.argtypes = [p, p, p, ll, ll, i, i, p]
-        lib.dad_swiglu_gate_fwd.restype = lib.dad_swiglu_gate_bwd.restype = i
-    return lib
 
 
 # ------------------------------------------------------------------ the op torch.export keeps

@@ -179,8 +179,9 @@ def load_state_dict(model: torch.nn.Module, state: Mapping[str, torch.Tensor]) -
     """Load a reference-layout ``state`` into ``model``: keys normalized,
     the unused ones that the model lacks dropped, everything else strict.
     The parameters are updated in place (``copy_``), which bumps their
-    version counters, so the caches keyed on them (``ops/dpt_tail.
-    WeightCache``, ``ops/quant.QuantLinear``) rebuild."""
+    version counters, so the weights derived from them and kept in an
+    ``ops/derived.Derived`` (the DPT tail's packed weights, a
+    ``QuantLinear``'s int8 weight) are computed anew."""
     held = model.state_dict()
     state = {k: v for k, v in normalize_keys(state).items()
              if k in held or not _UNUSED.match(k)}

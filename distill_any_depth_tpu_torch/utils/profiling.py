@@ -11,9 +11,15 @@ call or step on the host (``with span("train/backward"): ...``) and
 ``count(name, n)`` adds to a counter. Both record only inside a
 ``recording()`` block, which returns what was recorded; outside one, the
 default, ``span`` hands back one shared no-op context and ``count`` returns
-at once. Times are ``time.time_ns()``, the clock of the profiler's Chrome
-export, so a span lines up with the kernels its phase launched. A span
-never synchronizes the device nor reads a device value.
+at once. Blocks nest: a count reaches every block open when it is made, and
+a span every block open when it began, so a counted region that holds a
+``trace()`` block still sees what the trace recorded. Times are
+``time.time_ns()``, the clock of the profiler's Chrome export, so a span
+lines up with the kernels its phase launched. A span never synchronizes the
+device nor reads a device value.
+
+Each launch of a hand-written kernel counts ``kernels/<name>`` once
+(``ops/_build.Kernel``).
 """
 from __future__ import annotations
 
@@ -72,7 +78,7 @@ class Recording:
                          [c for c in self.counted if start_ns <= c[2] <= end_ns])
 
 
-_recording: Recording | None = None  # the innermost open recording() block's
+_recording: tuple[Recording, ...] | None = None  # every open recording() block's
 _OFF = contextlib.nullcontext()
 _roots = itertools.count(1)
 _local = threading.local()  # each thread's stack of open spans
@@ -86,10 +92,10 @@ def _open_spans() -> list:
 
 
 class _Open:
-    __slots__ = ("rec", "name", "parent", "root", "start")
+    __slots__ = ("recs", "name", "parent", "root", "start")
 
-    def __init__(self, rec: Recording, name: str):
-        self.rec, self.name = rec, name
+    def __init__(self, recs: tuple[Recording, ...], name: str):
+        self.recs, self.name = recs, name
 
     def __enter__(self):
         stack = _open_spans()
@@ -103,36 +109,39 @@ class _Open:
     def __exit__(self, *exc) -> bool:
         end = time.time_ns()
         _open_spans().pop()
-        self.rec.spans.append(Span(self.name, self.start, end, self.parent, self.root,
-                                   threading.get_ident()))
+        done = Span(self.name, self.start, end, self.parent, self.root, threading.get_ident())
+        for rec in self.recs:
+            rec.spans.append(done)
         return False
 
 
 def span(name: str):
     """A context that records the block as the span ``name`` while a
     ``recording()`` block is open; otherwise a shared no-op."""
-    rec = _recording
-    if rec is None:
+    recs = _recording
+    if recs is None:
         return _OFF
-    return _Open(rec, name)
+    return _Open(recs, name)
 
 
 def count(name: str, n: int) -> None:
     """Add ``n`` (a host number) to the counter ``name`` while a
     ``recording()`` block is open."""
-    rec = _recording
-    if rec is not None:
-        rec.counted.append((name, n, time.time_ns()))
+    recs = _recording
+    if recs is not None:
+        entry = (name, n, time.time_ns())
+        for rec in recs:
+            rec.counted.append(entry)
 
 
 @contextlib.contextmanager
 def recording():
     """Record spans and counts, from every thread, while the block runs:
     ``with recording() as rec: ...``, then ``rec.spans`` and ``rec.counts``.
-    Blocks nest; the innermost open one records."""
+    Blocks nest; every open one records."""
     global _recording
     outer, rec = _recording, Recording()
-    _recording = rec
+    _recording = (rec,) if outer is None else (*outer, rec)
     try:
         yield rec
     finally:

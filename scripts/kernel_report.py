@@ -53,8 +53,7 @@ from distill_any_depth_tpu_torch.ops import _build  # noqa: E402
 from distill_any_depth_tpu_torch.ops import dpt_tail as dt  # noqa: E402
 from distill_any_depth_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from distill_any_depth_tpu_torch.ops import stats  # noqa: E402
-from distill_any_depth_tpu_torch.ops.quant import quantize_weight  # noqa: E402
-from distill_any_depth_tpu_torch.ops.quant_matmul import w8a8_matmul  # noqa: E402
+from distill_any_depth_tpu_torch.ops.quant_matmul import quantize_weight, w8a8_matmul  # noqa: E402
 from distill_any_depth_tpu_torch.ops.window import local_window_bias  # noqa: E402
 
 OPCODES = ("HGMMA", "IGMMA", "HMMA", "IMMA", "LDSM", "UTMALDG", "SYNCS", "BAR", "BRA", "MUFU",

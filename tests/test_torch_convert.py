@@ -14,7 +14,7 @@ from distill_any_depth_tpu.models.factory import create_model as jax_create_mode
 from distill_any_depth_tpu.utils.torch_interop import params_to_torch
 from distill_any_depth_tpu_torch.configs import MODELS
 from distill_any_depth_tpu_torch.models.factory import create_model
-from distill_any_depth_tpu_torch.ops.quant import QuantLinear
+from distill_any_depth_tpu_torch.models.vit import QuantLinear
 from distill_any_depth_tpu_torch.utils.convert import params_from_jax
 
 

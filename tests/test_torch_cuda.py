@@ -57,8 +57,13 @@ from distill_any_depth_tpu_torch.ops.flash_attention import (
 from distill_any_depth_tpu_torch.ops.preprocess import preprocess_on_device
 from distill_any_depth_tpu_torch.ops.window import local_window_bias, segment_bias
 from distill_any_depth_tpu_torch.ops.stats import _order_bits, kth_select, kth_select_reference
-from distill_any_depth_tpu_torch.ops.quant import quantize_rows, quantize_weight, shard_product
-from distill_any_depth_tpu_torch.ops.quant_matmul import w8a8_matmul, w8a8_reference
+from distill_any_depth_tpu_torch.ops.quant import shard_product
+from distill_any_depth_tpu_torch.ops.quant_matmul import (
+    quantize_rows,
+    quantize_weight,
+    w8a8_matmul,
+    w8a8_reference,
+)
 from distill_any_depth_tpu_torch.train.state import create_train_state
 from distill_any_depth_tpu_torch.train.step import make_train_step
 from distill_any_depth_tpu_torch.utils.profiling import recording
@@ -81,14 +86,20 @@ def cuda_device():
 ATTENTION_NS = [1, 63, 64, 65, 127, 128, 129, 197, 785]
 
 
+def _launched(rec, *names) -> list:
+    """Each kernel's launches that the ``recording()`` block ``rec``
+    counted (``kernels/<name>``; 0 for none)."""
+    return [rec.counts.get(f"kernels/{name}", 0) for name in names]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 6e-3)])
 @pytest.mark.parametrize("n", ATTENTION_NS)
 def test_attention_kernel_matches_plain(cuda_device, n, dtype, tol):
     gen = torch.Generator(device=cuda_device).manual_seed(n)
     qkv = torch.randn(2, n, 3 * 128, generator=gen, device=cuda_device).to(dtype)
-    before = mha_flash_packed.launches
-    got = mha_flash_packed(qkv, 2)
-    assert mha_flash_packed.launches == before + 1
+    with recording() as rec:
+        got = mha_flash_packed(qkv, 2)
+    assert rec.counts.get("kernels/attention") == 1
     ref = mha_packed_reference(qkv, 2)
     assert got.dtype == dtype and got.shape == (2, n, 128)
     assert ((got.float() - ref.float()).abs() <= tol * (1 + ref.float().abs())).all()
@@ -101,9 +112,9 @@ def test_attention_kernel_refuses(cuda_device):
     with pytest.raises(ValueError, match="head dim"):
         mha_flash_packed(qkv, 4)
     # a qkv that requires a gradient goes through the kernels' autograd Function
-    before = packed_attention_backward.launches
-    mha_flash_packed(qkv.requires_grad_(), 2).sum().backward()
-    assert packed_attention_backward.launches == before + 1
+    with recording() as rec:
+        mha_flash_packed(qkv.requires_grad_(), 2).sum().backward()
+    assert rec.counts.get("kernels/attention_bwd") == 1
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.5e-2)])
@@ -165,11 +176,11 @@ def test_row_parallel_int8_shards_sum_to_unsharded(cuda_device, m, k, n):
     amax = x.float().abs().amax(-1, keepdim=True)
     parts = []
     for half in (slice(0, k // 2), slice(k // 2, k)):
-        before = w8a8_matmul.launches
-        got = shard_product(x[:, half], amax, wq[:, half], ws, "pallas")
-        assert w8a8_matmul.launches == before + 1 and got.dtype == torch.float32
+        with recording() as rec:
+            got = shard_product(x[:, half], amax, wq[:, half], ws, "int8_pallas")
+        assert rec.counts.get("kernels/w8a8") == 1 and got.dtype == torch.float32
         plain = shard_product(x[:, half].cpu(), amax.cpu(), wq[:, half].cpu(), ws.cpu(),
-                              "pallas")
+                              "int8_pallas")
         assert torch.equal(got.cpu(), plain)
         parts.append(got)
     want = w8a8_reference(x, wq, ws, None, torch.float32)
@@ -191,9 +202,9 @@ def test_select_kernel_matches_plain(cuda_device, n):
     count = mask.sum(-1)
     k = (count - 1).clamp(min=0) // 2
     k[3], k[4] = 0, n - 1
-    before = kth_select.launches
-    got = kth_select(u, k)
-    assert kth_select.launches == before + 1
+    with recording() as rec:
+        got = kth_select(u, k)
+    assert rec.counts.get("kernels/select") == 1
     assert torch.equal(got, kth_select_reference(u, k))
 
 
@@ -245,9 +256,9 @@ def _tail_inputs(c, b, ht, wt, dtype, device, seed):
 ])
 def test_tail_kernel_matches_plain(cuda_device, c, ht, wt, oh, ow, relu, dtype, tol):
     t, w = _tail_inputs(c, 2, ht, wt, dtype, cuda_device, c + ht)
-    before = fused_dpt_tail.launches
-    got = fused_dpt_tail(t, (oh, ow), trailing_relu=relu, **w)
-    assert fused_dpt_tail.launches == before + 1
+    with recording() as rec:
+        got = fused_dpt_tail(t, (oh, ow), trailing_relu=relu, **w)
+    assert rec.counts.get("kernels/tail") == 1
     ref = tail_reference(t, (oh, ow), trailing_relu=relu, **w)
     assert got.dtype == dtype and got.shape == (2, oh, ow)
     err = (got.float() - ref.float()).abs().max().item()
@@ -288,19 +299,17 @@ def test_model_runs_kernels_in_grad_mode_or_raises(cuda_device):
     cfg = dataclasses.replace(cfg, encoder=enc, features=64, out_channels=(32, 64, 96, 128))
     model = create_model(cfg, dtype=torch.bfloat16, device=cuda_device).requires_grad_(False)
     x = torch.rand(1, 3, 98, 98, device=cuda_device)
-    attn, tail = mha_flash_packed.launches, fused_dpt_tail.launches
-    depth, _ = model(x)
-    assert (mha_flash_packed.launches - attn, fused_dpt_tail.launches - tail) == (2, 1)
+    with recording() as rec:
+        depth, _ = model(x)
+    assert _launched(rec, "attention", "tail") == [2, 1]
     assert depth.shape == (1, 98, 98) and torch.isfinite(depth).all()
     model.requires_grad_(True)
     with pytest.raises(RuntimeError, match="forward-only"):
         model(x)
     student = create_model(cfg, dtype=torch.bfloat16, device=cuda_device, fused_tail=False)
-    attn, tail, bwd = (mha_flash_packed.launches, fused_dpt_tail.launches,
-                       packed_attention_backward.launches)
-    student(x)[0].mean().backward()
-    assert (mha_flash_packed.launches - attn, fused_dpt_tail.launches - tail,
-            packed_attention_backward.launches - bwd) == (2, 0, 2)
+    with recording() as rec:
+        student(x)[0].mean().backward()
+    assert _launched(rec, "attention", "tail", "attention_bwd") == [2, 0, 2]
     assert torch.isfinite(student.pretrained.blocks[0].attn.qkv.weight.grad).all()
 
 
@@ -329,9 +338,9 @@ def test_bias_kernel_matches_plain(cuda_device, kind, n, dtype, tol):
         "segment": lambda: segment_bias(torch.arange(n) // 40).to(cuda_device, dtype),
         "none": lambda: None,
     }[kind]()
-    before = mha_flash_bias.launches
-    got = mha_flash_bias(q, k, v, bias)
-    assert mha_flash_bias.launches == before + 1
+    with recording() as rec:
+        got = mha_flash_bias(q, k, v, bias)
+    assert rec.counts.get("kernels/attention_bias") == 1
     _within(got, mha_bias_reference(q, k, v, bias), tol)
 
 
@@ -342,9 +351,9 @@ def test_bias_kernel_matches_plain(cuda_device, kind, n, dtype, tol):
 def test_banded_kernel_matches_plain_and_bias_kernel(cuda_device, gh, gw, window, dtype, tol):
     gen = torch.Generator(device=cuda_device).manual_seed(gh * gw)
     q, k, v = _masked_qkv(2, gh * gw, 2, dtype, gen)
-    before = mha_flash_banded.launches
-    got = mha_flash_banded(q, k, v, (gw, window))
-    assert mha_flash_banded.launches == before + 1
+    with recording() as rec:
+        got = mha_flash_banded(q, k, v, (gw, window))
+    assert rec.counts.get("kernels/attention_banded") == 1
     _within(got, mha_banded_reference(q, k, v, (gw, window)), tol)
     # kernel 5 with the window bias visits the same live tiles with the same arithmetic
     wb = local_window_bias(gh, gw, window, 0, cuda_device, dtype)
@@ -468,14 +477,15 @@ def test_bias_backward_matches_plain(cuda_device, kind, n, dtype, tol, kept):
     out, lse, live, terms = _bias_forward(q, k, v, bias, with_lse=True)
     if not kept:
         live = terms = None
-    before = bias_attention_backward.launches
-    got = bias_attention_backward(q, k, v, bias, out, lse, g, live, terms)
-    assert bias_attention_backward.launches == before + 1
+    with recording() as rec:
+        got = bias_attention_backward(q, k, v, bias, out, lse, g, live, terms)
+    assert rec.counts.get("kernels/attention_bias_bwd") == 1
     _grads_within(got, bias_attention_backward_reference(q, k, v, bias, out, lse, g), tol)
     # the autograd path: kernel 5 with lse, then kernel 6
     xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    mha_flash_bias(*xs, bias).backward(g)
-    assert bias_attention_backward.launches == before + 2
+    with recording() as rec:
+        mha_flash_bias(*xs, bias).backward(g)
+    assert rec.counts.get("kernels/attention_bias_bwd") == 1
     xr = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     mha_bias_reference(*xr, bias).backward(g)
     _grads_within([x.grad for x in xs], [x.grad for x in xr], 2.5e-2 if tol > 1e-3 else tol)
@@ -495,9 +505,9 @@ def test_banded_backward_matches_plain_and_bias_backward(cuda_device, gh, gw, wi
     q, k, v = _masked_qkv(2, n, 2, dtype, gen)
     g = torch.randn(2, n, 2, 64, generator=gen, device=cuda_device).to(dtype)
     out, lse = _banded_forward(q, k, v, (gw, window), with_lse=True)
-    before = banded_attention_backward.launches
-    got = banded_attention_backward(q, k, v, (gw, window), out, lse, g)
-    assert banded_attention_backward.launches == before + 1
+    with recording() as rec:
+        got = banded_attention_backward(q, k, v, (gw, window), out, lse, g)
+    assert rec.counts.get("kernels/attention_banded_bwd") == 1
     _grads_within(got, banded_attention_backward_reference(q, k, v, (gw, window), out, lse, g),
                   tol)
     wb = local_window_bias(gh, gw, window, 0, cuda_device, dtype)
@@ -545,19 +555,18 @@ def test_windowed_model_runs_masked_kernels(cuda_device, monkeypatch, res, kerne
     cfg = dataclasses.replace(cfg, encoder=enc, features=64, out_channels=(32, 64, 96, 128))
     model = create_model(cfg, dtype=torch.bfloat16, device=cuda_device)
     x = torch.rand(1, 3, res, res, device=cuda_device)
-    fns = (mha_flash_packed, mha_flash_bias, mha_flash_banded, fused_dpt_tail,
-           packed_attention_backward, bias_attention_backward, banded_attention_backward)
-    before = [f.launches for f in fns]
-    with torch.no_grad():
+    names = ("attention", "attention_bias", "attention_banded", "tail", "attention_bwd",
+             "attention_bias_bwd", "attention_banded_bwd")
+    with torch.no_grad(), recording() as rec:
         depth, _ = model(x)
-    ran = [f.launches - b for f, b in zip(fns, before)]
+    ran = _launched(rec, *names)
     assert ran == ([0, 2, 0, 1, 0, 0, 0] if kernel == "bias" else [0, 0, 2, 1, 0, 0, 0])
     assert depth.shape == (1, res, res) and torch.isfinite(depth).all()
 
     student = create_model(cfg, dtype=torch.bfloat16, device=cuda_device, fused_tail=False)
-    before = [f.launches for f in fns]
-    student(x)[0].mean().backward()
-    ran = [f.launches - b for f, b in zip(fns, before)]
+    with recording() as rec:
+        student(x)[0].mean().backward()
+    ran = _launched(rec, *names)
     assert ran == ([0, 2, 0, 0, 0, 2, 0] if kernel == "bias" else [0, 0, 2, 0, 0, 0, 2])
     qkv = student.pretrained.blocks[0].attn.qkv.weight.grad
     assert qkv is not None and torch.isfinite(qkv).all() and qkv.abs().max() > 0
@@ -578,9 +587,9 @@ def test_w8a8_kernel_matches_plain(cuda_device, m, k, n, dtype, with_bias):
         x[1] = 0  # an all-zero row
     weight = torch.randn(n, k, generator=gen, device=cuda_device) * k ** -0.5
     bias = torch.randn(n, generator=gen, device=cuda_device) if with_bias else None
-    before = w8a8_matmul.launches
-    got = w8a8_matmul(x, weight, bias)
-    assert w8a8_matmul.launches == before + 1
+    with recording() as rec:
+        got = w8a8_matmul(x, weight, bias)
+    assert rec.counts.get("kernels/w8a8") == 1
     wq, ws = quantize_weight(weight)
     ref = w8a8_reference(x, wq, ws, bias, dtype)
     assert got.dtype == dtype and got.shape == (m, n)
@@ -642,11 +651,10 @@ def test_quant_model_runs_w8a8_kernel(cuda_device):
     model = create_model(cfg, dtype=torch.bfloat16, device=cuda_device, quant="int8_pallas")
     plain = create_model(cfg, dtype=torch.bfloat16, device=cuda_device)
     x = torch.rand(2, 3, 98, 98, device=cuda_device)
-    before = w8a8_matmul.launches
-    with torch.no_grad():
+    with torch.no_grad(), recording() as rec:
         depth, _ = model(x)
         ref, _ = plain(x)
-    assert w8a8_matmul.launches - before == 8
+    assert _launched(rec, "w8a8") == [8]
     assert torch.isfinite(depth).all()
     corr = torch.corrcoef(torch.stack([depth.float().flatten(), ref.float().flatten()]))[0, 1]
     assert corr > 0.99
@@ -668,14 +676,14 @@ def test_register_swiglu_model_runs_kernels(cuda_device):
                          quant="int8_pallas")
     model.load_state_dict(plain.state_dict())
     x = torch.rand(2, 3, 98, 98, device=cuda_device)
-    fns = (mha_flash_packed, fused_dpt_tail, w8a8_matmul)
+    names = ("attention", "tail", "w8a8")
     with torch.no_grad():
-        before = [f.launches for f in fns]
-        ref, feat = plain(x)
-        assert [f.launches - b for f, b in zip(fns, before)] == [2, 1, 0]
-        before = [f.launches for f in fns]
-        depth, _ = model(x)
-        assert [f.launches - b for f, b in zip(fns, before)] == [2, 1, 8]
+        with recording() as rec:
+            ref, feat = plain(x)
+        assert _launched(rec, *names) == [2, 1, 0]
+        with recording() as rec:
+            depth, _ = model(x)
+        assert _launched(rec, *names) == [2, 1, 8]
     assert feat.shape == (2, 49, 192) and torch.isfinite(depth).all()
     corr = torch.corrcoef(torch.stack([depth.float().flatten(), ref.float().flatten()]))[0, 1]
     assert corr > 0.99
@@ -710,12 +718,12 @@ def test_two_view_step_launches(cuda_device):
     step = make_train_step(student, [teacher], LossConfig(), views_shared=False)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     g, l = (torch.randn(2, 3, 98, 98, generator=gen, device=cuda_device) for _ in range(2))
-    fns = (mha_flash_packed, packed_attention_backward, fused_dpt_tail, kth_select)
     for _ in range(2):
-        before = [f.launches for f in fns]
-        metrics = step(state, 0, g, l)
-        torch.cuda.synchronize()
-        assert [f.launches - b for f, b in zip(fns, before)] == [2 + 2 * 2, 2 * 2, 1, 2]
+        with recording() as rec:
+            metrics = step(state, 0, g, l)
+            torch.cuda.synchronize()
+        assert _launched(rec, "attention", "attention_bwd", "tail", "select") == [
+            2 + 2 * 2, 2 * 2, 1, 2]
         assert float(metrics["lg"]) > 0 and torch.isfinite(metrics["grad_norm"])
 
 
@@ -754,31 +762,31 @@ def _tiny_model(cuda_device, preset="depthanything-base", **kw):
 @pytest.mark.parametrize("case", ["plain", "window", "int8_pallas"])
 def test_exported_program_launches_the_kernels(cuda_device, tmp_path, case):
     """An exported bf16 program, saved and loaded, runs the kernels through
-    their ops (each wrapper's count ticks once a call) and gives the eager
+    their ops (each kernel's count ticks once a call) and gives the eager
     depth bit for bit; the weights-as-arguments program likewise."""
     from distill_any_depth_tpu_torch.utils import export
 
     if case == "window":
         model, size = _tiny_model(cuda_device, "depthanything-base-window"), 126
-        attn = mha_flash_bias
+        attn = "attention_bias"
     else:
         model, size = _tiny_model(cuda_device, quant="int8_pallas" if case == "int8_pallas"
                                   else "none"), 98
-        attn = mha_flash_packed
+        attn = "attention"
     x = torch.rand(2, 3, size, size, device=cuda_device)
     with torch.no_grad():
         want = model(x)[0].float()
-    fns = (attn, fused_dpt_tail, w8a8_matmul)
+    names = (attn, "tail", "w8a8")
     expect = [2, 1, 8 if case == "int8_pallas" else 0]
     programs = [export.load_exported(export.export_forward(model, size, 2))]
     blob = export.export_forward_with_params(model, str(tmp_path / "w.safetensors"), size, 2)
     programs.append(export.load_exported_with_params(blob, str(tmp_path / "w.safetensors"),
                                                      cuda_device))
     for run in programs:
-        before = [f.launches for f in fns]
-        got = run(x)
-        torch.cuda.synchronize()
-        assert [f.launches - b for f, b in zip(fns, before)] == expect
+        with recording() as rec:
+            got = run(x)
+            torch.cuda.synchronize()
+        assert _launched(rec, *names) == expect
         assert torch.equal(got, want)
 
 
@@ -788,17 +796,16 @@ def test_remat_step_launches_and_matches(cuda_device):
     without remat bit for bit and its gradient norm within 1e-5."""
     x = torch.rand(2, 3, 98, 98, generator=torch.Generator(device=cuda_device).manual_seed(2),
                    device=cuda_device)
-    fns = (mha_flash_packed, packed_attention_backward, fused_dpt_tail, kth_select)
     seen = []
     for remat in (False, True):
         student, teacher = _tiny_train_pair(cuda_device)
         student.pretrained.remat = remat
         state = create_train_state(student, OptimizerConfig(lr=1e-4, warmup_steps=0))
         step = make_train_step(student, [teacher], LossConfig(), views_shared=True)
-        before = [f.launches for f in fns]
-        metrics = step(state, 0, x, x)
-        torch.cuda.synchronize()
-        seen.append(([f.launches - b for f, b in zip(fns, before)],
+        with recording() as rec:
+            metrics = step(state, 0, x, x)
+            torch.cuda.synchronize()
+        seen.append((_launched(rec, "attention", "attention_bwd", "tail", "select"),
                      {k: float(v) for k, v in metrics.items()}))
     (plain_counts, plain), (remat_counts, remat) = seen
     assert plain_counts == [4, 2, 1, 2] and remat_counts == [6, 2, 1, 2]

@@ -3,7 +3,12 @@ nothing of the JAX package, and not the ``safetensors`` package (the card
 machine has none: the port reads and writes the format itself), found by
 scanning the import statements of their source files; every module of
 the port imports cleanly; and the port's native C++ source (its own copy,
-``native/dad_loader.cpp``) names no path of the JAX package."""
+``native/dad_loader.cpp``) names no path of the JAX package.
+
+The ops layer's structure, by the same scan: only ``ops/_build.py`` types a
+ctypes function (``argtypes``) or reads a stream (``cuda_stream``), no
+module of ``ops/`` keeps a ``.launches`` counter, and none imports
+``models/``."""
 import ast
 import importlib
 from pathlib import Path
@@ -13,6 +18,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "distill_any_depth_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+OPS = sorted(p for p in (PORT / "ops").glob("*.py") if p.name != "_build.py")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "distill_any_depth_tpu")
 
 
@@ -70,3 +76,45 @@ def test_native_source_is_the_ports_own():
 def test_module_imports(path):
     mod = ".".join(path.relative_to(ROOT).with_suffix("").parts)
     importlib.import_module(mod)
+
+
+@pytest.mark.parametrize("path", OPS, ids=lambda p: p.name)
+def test_ops_launch_only_through_the_build_layer(path):
+    """Kernel wrappers call ``ops/_build.Kernel``: none sets ``argtypes``,
+    reads ``cuda_stream`` or assigns a ``.launches`` attribute."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Attribute) and node.attr in ("argtypes", "cuda_stream"):
+            bad.append(f"{node.attr} at line {node.lineno}")
+        if isinstance(node, ast.Attribute) and node.attr == "launches" \
+                and isinstance(node.ctx, ast.Store):
+            bad.append(f".launches set at line {node.lineno}")
+    assert not bad, f"{path.relative_to(ROOT)}: {bad}"
+
+
+@pytest.mark.parametrize("path", OPS + [PORT / "ops" / "_build.py"], ids=lambda p: p.name)
+def test_ops_import_nothing_of_models(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [name for name in _imported_modules(path)
+           if name.startswith("distill_any_depth_tpu_torch.models")]
+    bad += [f"from {'.' * n.level}{n.module or ''}" for n in ast.walk(tree)
+            if isinstance(n, ast.ImportFrom) and n.level and "models" in (n.module or "")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_ops_scan_sees_the_kernel_wrappers():
+    names = {p.name for p in OPS}
+    for module in ("flash_attention.py", "dpt_tail.py", "stats.py", "quant_matmul.py",
+                   "swiglu.py", "quant.py", "derived.py"):
+        assert module in names, module
+
+
+def test_vit_imports_at_module_top():
+    """``models/vit.py`` imports ``ops/quant`` at the top: no import inside a
+    function to dodge a cycle."""
+    path = PORT / "models" / "vit.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    inner = [(f.name, n.lineno) for f in ast.walk(tree)
+             if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+             for n in ast.walk(f) if isinstance(n, (ast.Import, ast.ImportFrom))]
+    assert not inner, inner

@@ -19,16 +19,18 @@ from distill_any_depth_tpu.ops.dpt_tail import tail_reference as jax_tail_refere
 from distill_any_depth_tpu.ops.flash_attention import mha_flash_packed as jax_mha_flash_packed
 from distill_any_depth_tpu_torch.ops import resize
 from distill_any_depth_tpu_torch.ops.attention import multi_head_attention_packed
+from distill_any_depth_tpu_torch.ops.derived import Derived
 from distill_any_depth_tpu_torch.ops.dpt_tail import (
-    WeightCache,
     fused_dpt_tail,
     pack_conv_weight,
+    prepare_weights,
     tail_reference,
 )
 from distill_any_depth_tpu_torch.ops.flash_attention import (
     mha_flash_packed,
     mha_packed_reference,
 )
+from distill_any_depth_tpu_torch.utils.profiling import recording
 
 ATTN_TOL = 2e-6  # fp32, |err| <= ATTN_TOL * (1 + |ref|)
 # fp32, |err| <= TAIL_TOL * (1 + |ref|): two 3x3 convs summed in another
@@ -126,11 +128,11 @@ def test_tail_matches_jax(ht, wt, ci, cm, oh, ow, trailing):
     _close(got.numpy(), want_kernel, TAIL_TOL)
     _close(got.numpy(), want_plain, TAIL_TOL)
     # on a CPU tensor the wrapper is the plain version, and counts no launch
-    before = fused_dpt_tail.launches
-    np.testing.assert_array_equal(
-        fused_dpt_tail(torch.from_numpy(t), (oh, ow), trailing_relu=trailing, **tp).numpy(),
-        got.numpy())
-    assert fused_dpt_tail.launches == before
+    with recording() as rec:
+        np.testing.assert_array_equal(
+            fused_dpt_tail(torch.from_numpy(t), (oh, ow), trailing_relu=trailing, **tp).numpy(),
+            got.numpy())
+    assert "kernels/tail" not in rec.counts
 
 
 def test_v1_tail_served_by_kernel_2_entry():
@@ -153,9 +155,9 @@ def test_v1_tail_served_by_kernel_2_entry():
 
 def test_cpu_wrappers_count_no_launch():
     qkv = torch.randn(1, 10, 3 * 64)
-    before = mha_flash_packed.launches
-    mha_flash_packed(qkv, 1)
-    assert mha_flash_packed.launches == before
+    with recording() as rec:
+        mha_flash_packed(qkv, 1)
+    assert "kernels/attention" not in rec.counts
 
 
 def unpack_conv_weight(packed: torch.Tensor, cin: int) -> torch.Tensor:
@@ -192,23 +194,27 @@ def test_conv_weight_packing_unpacks_to_hwio(c):
 
 
 def test_weight_cache_repacks_only_after_an_inplace_change():
-    """``WeightCache`` (the DPT head keeps one) packs the weights once and
-    hands back the same tensors until a weight changes in place, then packs
-    the new values."""
+    """A ``Derived`` of ``prepare_weights`` (the DPT head keeps one) packs
+    the weights once and hands back the same tensors until a weight changes
+    in place, then packs the new values."""
     rng = np.random.RandomState(0)
     ws = [torch.from_numpy(a.astype(np.float32)) for a in _tail_params(rng, 128, 64).values()]
-    cache = WeightCache()
-    first = cache.get(*ws, torch.bfloat16)
-    assert cache.get(*ws, torch.bfloat16) is first
+    cache = Derived()
+
+    def get(dtype):
+        return cache.get(ws, lambda: prepare_weights(*ws, dtype), dtype)
+
+    first = get(torch.bfloat16)
+    assert get(torch.bfloat16) is first
     assert torch.equal(unpack_conv_weight(first.w1, 128), ws[0].to(torch.bfloat16))
     with torch.no_grad():
         ws[0].mul_(2.0)
-    second = cache.get(*ws, torch.bfloat16)
+    second = get(torch.bfloat16)
     assert second is not first
     assert torch.equal(unpack_conv_weight(second.w1, 128), ws[0].to(torch.bfloat16))
-    assert cache.get(*ws, torch.bfloat16) is second
+    assert get(torch.bfloat16) is second
     # another compute dtype is another packing: the fp32 kernel's plain matrices
-    plain = cache.get(*ws, torch.float32)
+    plain = get(torch.float32)
     assert plain.w1.dtype == torch.float32 and torch.equal(plain.w1, ws[0].reshape(-1, 64))
 
 

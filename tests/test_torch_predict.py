@@ -19,10 +19,9 @@ from distill_any_depth_tpu.ops.preprocess import preprocess_on_device as jax_pre
 from distill_any_depth_tpu_torch.cli import infer
 from distill_any_depth_tpu_torch.configs import MODELS
 from distill_any_depth_tpu_torch.models.factory import create_model, resolve_device
-from distill_any_depth_tpu_torch.ops.dpt_tail import fused_dpt_tail
-from distill_any_depth_tpu_torch.ops.flash_attention import mha_flash_packed
 from distill_any_depth_tpu_torch.ops.preprocess import preprocess_on_device, snap_to_bucket
 from distill_any_depth_tpu_torch.utils.convert import params_from_jax
+from distill_any_depth_tpu_torch.utils.profiling import recording
 
 
 def _images(n, h=60, w=80, seed=0):
@@ -144,10 +143,10 @@ def test_predict_vitb_392_on_cpu():
     392^2, batch 2, fp32, plain attention and tail."""
     model = create_model("depthanything-base", device="cpu")
     assert model.dtype == torch.float32
-    before = (mha_flash_packed.launches, fused_dpt_tail.launches)
-    depth = infer.predict(model, _images(2, 48, 64, seed=1), 392, batch_size=2)
+    with recording() as rec:
+        depth = infer.predict(model, _images(2, 48, 64, seed=1), 392, batch_size=2)
     assert depth.shape == (2, 392, 392) and np.isfinite(depth).all() and (depth >= 0).all()
-    assert (mha_flash_packed.launches, fused_dpt_tail.launches) == before
+    assert "kernels/attention" not in rec.counts and "kernels/tail" not in rec.counts
 
 
 def test_cuda_device_without_card_raises(monkeypatch):

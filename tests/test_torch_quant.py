@@ -28,16 +28,17 @@ from distill_any_depth_tpu.ops.quant_matmul import w8a8_matmul as jax_w8a8_matmu
 from distill_any_depth_tpu_torch.cli import pseudo_label
 from distill_any_depth_tpu_torch.configs import MODELS
 from distill_any_depth_tpu_torch.models.factory import create_model
-from distill_any_depth_tpu_torch.ops.quant import (
-    QuantLinear,
-    int8_matmul,
+from distill_any_depth_tpu_torch.models.vit import QuantLinear
+from distill_any_depth_tpu_torch.ops.quant import int8_matmul, quantize_cols
+from distill_any_depth_tpu_torch.ops.quant_matmul import (
     int_product_exact,
-    quantize_cols,
     quantize_rows,
     quantize_weight,
+    w8a8_matmul,
+    w8a8_reference,
 )
-from distill_any_depth_tpu_torch.ops.quant_matmul import w8a8_matmul, w8a8_reference
 from distill_any_depth_tpu_torch.utils.convert import params_from_jax
+from distill_any_depth_tpu_torch.utils.profiling import recording
 
 BF16_ULP = 2.0 ** -7  # bf16 keeps 8 significant bits: one ulp is at most 2^-7 relative
 
@@ -139,9 +140,9 @@ def test_gemms_equal_jax_fp32(with_bias, lead):
                                              out_dtype=jnp.float32, interpret=True))
     tx = torch.from_numpy(x)
     got_xla = int8_matmul(tx, weight, bias_t, torch.float32)
-    before = w8a8_matmul.launches
-    got_pallas = w8a8_matmul(tx, weight, bias_t, torch.float32)
-    assert w8a8_matmul.launches == before  # a CPU tensor runs the plain version
+    with recording() as rec:
+        got_pallas = w8a8_matmul(tx, weight, bias_t, torch.float32)
+    assert "kernels/w8a8" not in rec.counts  # a CPU tensor runs the plain version
     assert got_xla.shape == got_pallas.shape == (*lead, 200)
     np.testing.assert_array_equal(got_xla.numpy(), want_xla)
     np.testing.assert_array_equal(got_pallas.numpy(), want_xla)
@@ -201,7 +202,7 @@ def test_quant_linear_matches_quant_dense(impl):
     params = jax.tree_util.tree_map(np.asarray,
                                     qd.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"])
     want = np.asarray(qd.apply({"params": params}, jnp.asarray(x)))
-    ql = QuantLinear(96, 200, impl=impl)
+    ql = QuantLinear(96, 200, mode={"xla": "int8", "pallas": "int8_pallas"}[impl])
     ql.load_state_dict({"weight": torch.from_numpy(params["kernel"].T.copy()),
                         "bias": torch.from_numpy(params["bias"].copy())}, strict=True)
     with torch.no_grad():
@@ -209,7 +210,7 @@ def test_quant_linear_matches_quant_dense(impl):
 
 
 def test_quant_linear_is_inference_only():
-    ql = QuantLinear(32, 16, impl="pallas")
+    ql = QuantLinear(32, 16, mode="int8_pallas")
     x = torch.randn(4, 32)
     with pytest.raises(RuntimeError, match="inference-only"):
         ql(x)
@@ -217,8 +218,8 @@ def test_quant_linear_is_inference_only():
         ql(x)
     ql.requires_grad_(False)
     assert ql(x).shape == (4, 16)
-    with pytest.raises(ValueError, match="impl"):
-        QuantLinear(32, 16, impl="int4")
+    with pytest.raises(ValueError, match="mode"):
+        QuantLinear(32, 16, mode="int4")
 
 
 def test_quant_linear_requantizes_after_in_place_update():
@@ -279,10 +280,9 @@ def test_quant_model_matches_jax(quant):
     plain, jmodel, params, tmodel = _pair(quant)
     x = np.random.RandomState(1).rand(2, 98, 126, 3).astype(np.float32)
     jdepth, jfeat = jax.jit(jmodel.apply)({"params": params}, jnp.asarray(x))
-    before = w8a8_matmul.launches
-    with torch.no_grad():
+    with torch.no_grad(), recording() as rec:
         depth, feat = tmodel(torch.from_numpy(x).permute(0, 3, 1, 2))
-    assert w8a8_matmul.launches == before
+    assert "kernels/w8a8" not in rec.counts
     for got, want in ((depth, jdepth), (feat, jfeat)):
         got, want = got.numpy().astype(np.float64), np.asarray(want, np.float64)
         assert got.shape == want.shape

@@ -79,6 +79,27 @@ def test_nothing_is_recorded_while_off():
     assert profiling._recording is None
 
 
+def test_nested_recordings_each_see_every_count_and_span():
+    """A count and a span inside a nested ``recording()`` block reach both
+    blocks; what ran before the inner block opened reaches the outer one
+    alone."""
+    with recording() as outer:
+        count("kernels/attention", 1)
+        with span("before"):
+            pass
+        with recording() as inner:
+            with span("inside"):
+                count("kernels/attention", 2)
+                count("kernels/tail", 1)
+        assert profiling._recording == (outer,)
+    assert profiling._recording is None
+    assert inner.counts == {"kernels/attention": 2, "kernels/tail": 1}
+    assert outer.counts == {"kernels/attention": 3, "kernels/tail": 1}
+    assert [s.name for s in inner.spans] == ["inside"]
+    assert [s.name for s in outer.spans] == ["before", "inside"]
+    assert inner.spans[0] is outer.spans[1]
+
+
 def test_nesting_parent_root_and_threads():
     entered, release = threading.Event(), threading.Event()
 
