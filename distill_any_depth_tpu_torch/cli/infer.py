@@ -3,8 +3,10 @@
 Counterpart of distill_any_depth_tpu/cli/infer.py, in two parts:
 
 - ``predict(model, images_u8, processing_res)``: device preprocessing, the
-  batched forward under ``torch.no_grad()`` and the padding of the tail
-  batch. It needs numpy and torch only.
+  batched forward under ``torch.inference_mode()`` (so the model keeps its
+  weights cast to the compute dtype from one call to the next,
+  ``models/vit.cast_weights``) and the padding of the tail batch. It needs
+  numpy and torch only.
 - ``main``: the file I/O shell (glob, cv2 decode, min-max normalize,
   colorize, save), which imports cv2, PIL and matplotlib lazily.
 
@@ -80,7 +82,7 @@ def _forward_batches(model, xs: torch.Tensor, batch_size: int) -> np.ndarray:
     torch's caching host allocator by non-blocking copies, which are waited
     for before the tensor's NumPy view is returned."""
     out = None
-    with torch.no_grad():
+    with torch.inference_mode():
         for i in range(0, xs.shape[0], batch_size):
             chunk = xs[i : i + batch_size]
             n = chunk.shape[0]

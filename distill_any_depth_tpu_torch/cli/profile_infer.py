@@ -10,7 +10,8 @@ runs the bias kernel, ``--res 1036`` the banded one; path 5, the ViT-L
 pseudo-labelling forward: ``--arch_name depthanything-large --res 518
 --quant int8_pallas``, whose GEMMs are kernel 9).
 
-It measures the host time to enqueue a forward and the time the device
+Under ``torch.inference_mode()``, as ``cli/infer.predict`` runs the model,
+it measures the host time to enqueue a forward and the time the device
 still needs after that, then traces 10 forwards with ``torch.profiler`` and
 prints, from the trace's kernel events: device time per forward by kernel
 class and for the top kernels, and the device's busy share of the traced
@@ -118,7 +119,7 @@ def main(argv=None) -> dict:
                          quant=args.quant)
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(args.batch, 3, args.res, args.res, generator=gen, device="cuda")
-    with torch.no_grad():
+    with torch.inference_mode():
         for _ in range(3):
             model(x)
         torch.cuda.synchronize()

@@ -6,7 +6,8 @@ image (and, if asked, a min-max 16-bit PNG) for a later distillation. In two
 parts:
 
 - ``label_batches(model, images_u8, target, batch_size)``: device
-  preprocessing and the batched forward without gradient, the last batch
+  preprocessing and the batched forward under ``torch.inference_mode()``
+  (the model keeps its bf16 weights between batches), the last batch
   padded with zero images as the JAX CLI pads it. It needs numpy and torch
   only.
 - ``main``: the file I/O shell (glob, cv2 decode, BGR -> RGB, the host
@@ -68,14 +69,14 @@ def argument_parser() -> argparse.ArgumentParser:
 def label_batches(model, images_u8: np.ndarray, target: int, batch_size: int = 8) -> np.ndarray:
     """fp32 depth ``[n, target, target]`` (the teacher resizes to its input)
     for ``images_u8 [n, target, target, 3]`` uint8 RGB: each batch goes to
-    the model's device raw, is normalized there and runs without gradient;
+    the model's device raw, is normalized there and runs under inference mode;
     the last batch is padded with zero images to ``batch_size``."""
     from distill_any_depth_tpu_torch.ops.preprocess import preprocess_on_device
 
     device = next(model.parameters()).device
     bs = max(batch_size, 1)
     out = []
-    with torch.no_grad():
+    with torch.inference_mode():
         for start in range(0, len(images_u8), bs):
             chunk = np.asarray(images_u8[start:start + bs])
             n = len(chunk)

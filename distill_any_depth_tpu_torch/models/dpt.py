@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distill_any_depth_tpu_torch.configs import ModelConfig
-from distill_any_depth_tpu_torch.models.vit import Conv2d, DinoViT, Linear, gelu
+from distill_any_depth_tpu_torch.models.vit import Conv2d, DinoViT, Linear, cast_weights, gelu
 from distill_any_depth_tpu_torch.ops.derived import Derived
 from distill_any_depth_tpu_torch.ops.dpt_tail import fused_dpt_tail, prepare_weights
 from distill_any_depth_tpu_torch.ops.resize import resize_nchw
@@ -38,8 +38,12 @@ __all__ = ["ConvTranspose2d", "ResidualConvUnit", "FeatureFusionBlock", "DPTHead
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``PatchExpand``: a transposed conv with kernel == stride."""
 
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.casts = Derived()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+        return F.conv_transpose2d(x, *cast_weights(self.casts, x.dtype, (self.weight, self.bias)),
                                   self.stride)
 
 

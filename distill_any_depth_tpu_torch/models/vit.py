@@ -12,10 +12,15 @@ state dict from ``utils/convert.params_from_jax`` loads with
 
 Parameters stay fp32; every layer casts its weights to the dtype of its
 input, as flax does with ``kernel.astype(dtype)``, so bf16 activations reach
-the attention kernels. ``quant`` ("int8" or "int8_pallas") runs the
-blocks' qkv, proj and FFN GEMMs (fc1 and fc2, or SwiGLU's w12 and w3) as
-dynamic W8A8 int8 GEMMs (``QuantLinear`` on ``ops/quant``, inference only; the
-patch embedding and the PEG conv stay unquantized, as in the JAX package).
+the attention kernels. Under ``torch.inference_mode()`` the casts
+(``cast_weights``: the layers' weights, the pos-embed of a grid, the cls and
+register tokens) are kept per weight version in an ``ops/derived.Derived``
+of the module, so a forward reads its bf16 weights instead of casting them
+again; in grad mode and under ``torch.no_grad()`` each forward casts anew.
+``quant`` ("int8" or "int8_pallas") runs the blocks' qkv, proj and FFN
+GEMMs (fc1 and fc2, or SwiGLU's w12 and w3) as dynamic W8A8 int8 GEMMs
+(``QuantLinear`` on ``ops/quant``, inference only; the patch embedding and
+the PEG conv stay unquantized, as in the JAX package).
 ``cfg.lora_rank`` puts LoRA on the blocks' attention qkv and proj (a
 ``models/adapters.LoRALinear`` in place of the plain or quantized layer, as
 the JAX ``LoRADense``; the qkv output with its update goes to the
@@ -64,20 +69,43 @@ from distill_any_depth_tpu_torch.parallel.tp import (
 )
 from distill_any_depth_tpu_torch.utils.profiling import count, span
 
-__all__ = ["QUANT_MODES", "Linear", "QuantLinear", "LayerNorm", "Conv2d", "gelu", "PatchEmbed",
-           "Mlp", "SwiGLU", "Attention", "Block", "interp_pos_embed", "PosConv", "DinoViT"]
+__all__ = ["QUANT_MODES", "cast_weights", "Linear", "QuantLinear",
+           "LayerNorm", "Conv2d", "gelu", "PatchEmbed", "Mlp", "SwiGLU", "Attention", "Block",
+           "interp_pos_embed", "PosConv", "DinoViT"]
 
 QUANT_MODES = ("none", "int8", "int8_pallas")
+
+
+def cast_weights(kept: Derived, dtype: torch.dtype, tensors, compute=None, extra=None):
+    """``tensors`` cast to ``dtype`` (a list; None stays None), or with
+    ``compute`` the value it makes from them in ``dtype``. Under
+    ``torch.inference_mode()``, where a tensor has another dtype, the result
+    is ``kept``'s: made at the first call and again after a tensor,
+    ``dtype`` or ``extra`` changed. Elsewhere each call makes it anew: in
+    grad mode a cast is part of autograd's graph and a trained weight
+    changes every step, and a copy kept under ``torch.no_grad()`` (a
+    distillation teacher) would hold its memory through training."""
+    if torch.is_inference_mode_enabled() and any(
+            t is not None and t.dtype != dtype for t in tensors):
+        if compute is None:
+            compute = lambda: [None if t is None else t.to(dtype) for t in tensors]  # noqa: E731
+        return kept.get([t for t in tensors if t is not None], compute, (dtype, extra))
+    if compute is not None:
+        return compute()
+    return [None if t is None else t.to(dtype) for t in tensors]
 
 
 class Linear(nn.Linear):
     reduce_group = None  # the model group of a row-parallel shard
 
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.casts = Derived()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.reduce_group is not None:
             return row_parallel_linear(x, self.weight, self.bias, self.reduce_group)
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        return F.linear(x, *cast_weights(self.casts, x.dtype, (self.weight, self.bias)))
 
 
 class QuantLinear(Linear):
@@ -152,16 +180,23 @@ def _linear(in_features: int, out_features: int, quant: str) -> Linear:
 
 
 class LayerNorm(nn.LayerNorm):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.casts = Derived()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, self.normalized_shape, self.weight.to(x.dtype),
-                            self.bias.to(x.dtype), self.eps)
+        return F.layer_norm(x, self.normalized_shape,
+                            *cast_weights(self.casts, x.dtype, (self.weight, self.bias)), self.eps)
 
 
 class Conv2d(nn.Conv2d):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.casts = Derived()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
-                        self.dilation, self.groups)
+        return F.conv2d(x, *cast_weights(self.casts, x.dtype, (self.weight, self.bias)),
+                        self.stride, self.padding, self.dilation, self.groups)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -257,9 +292,11 @@ class LayerScale(nn.Module):
     def __init__(self, dim: int, init_values: float):
         super().__init__()
         self.gamma = nn.Parameter(torch.full((dim,), float(init_values)))
+        self.casts = Derived()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.gamma.to(x.dtype)
+        (gamma,) = cast_weights(self.casts, x.dtype, (self.gamma,))
+        return x * gamma
 
 
 class Block(nn.Module):
@@ -357,6 +394,8 @@ class DinoViT(nn.Module):
         )
         self.norm = LayerNorm(d, eps=1e-6)
         self._pe_mats: dict = {}  # (gh, gw, device) -> pos-embed resampling matrices
+        self.pe_casts = Derived()  # the pos-embed of a grid in the compute dtype
+        self.token_casts = Derived()  # the cls and register tokens in it
 
     def _pos_embed(self, gh: int, gw: int, dtype: torch.dtype) -> torch.Tensor:
         """The pos-embed for a ``gh x gw`` grid: DINOv2's bicubic resampling
@@ -370,6 +409,10 @@ class DinoViT(nn.Module):
         bs8 forward on an H100. The matrices are built once per grid and
         device (a host-to-device copy inside every forward would stall it).
         """
+        return cast_weights(self.pe_casts, dtype, (self.pos_embed,),
+                            lambda: self._grid_pos_embed(gh, gw, dtype), (gh, gw))
+
+    def _grid_pos_embed(self, gh: int, gw: int, dtype: torch.dtype) -> torch.Tensor:
         cfg = self.cfg
         base = cfg.base_img_size // cfg.patch_size
         if (gh, gw) == (base, base):
@@ -377,11 +420,14 @@ class DinoViT(nn.Module):
         dev = self.pos_embed.device
         mats = self._pe_mats.get((gh, gw, dev))
         if mats is None:
-            mats = tuple(
-                torch.from_numpy(resize_matrix(base, g, "bicubic", False,
-                                               (g + cfg.interpolate_offset) / base)).to(dev)
-                for g in (gh, gw)
-            )
+            # plain tensors even under inference mode: a training forward
+            # saves them for its backward, which an inference tensor refuses
+            with torch.inference_mode(False):
+                mats = tuple(
+                    torch.from_numpy(resize_matrix(base, g, "bicubic", False,
+                                                   (g + cfg.interpolate_offset) / base)).to(dev)
+                    for g in (gh, gw)
+                )
             if not torch.compiler.is_compiling():  # a trace's constants are its own
                 self._pe_mats[(gh, gw, dev)] = mats
         return interp_pos_embed(self.pos_embed, *mats, dtype, cfg.use_cls_token)
@@ -409,8 +455,9 @@ class DinoViT(nn.Module):
             raise ValueError(f"input {h}x{w} must be a multiple of patch {p}")
         gh, gw = h // p, w // p
         tokens = self.patch_embed(x)
-        if self.cls_token is not None:
-            cls = self.cls_token.to(x.dtype).expand(b, -1, -1)
+        cls, reg = cast_weights(self.token_casts, x.dtype, (self.cls_token, self.register_tokens))
+        if cls is not None:
+            cls = cls.expand(b, -1, -1)
             tokens = torch.cat([cls, tokens], dim=1)
         if self.pos_conv is None:
             tokens = tokens + self._pos_embed(gh, gw, x.dtype)
@@ -427,10 +474,10 @@ class DinoViT(nn.Module):
                 coef = coef.clamp(0.0, 1.0).to(x.dtype)
                 tokens = tokens + (1.0 - coef) * self._pos_embed(gh, gw, x.dtype) + coef * gpe
         n_prefix = 1 if cfg.use_cls_token else 0
-        if self.register_tokens is not None:
+        if reg is not None:
             # the registers go between the cls token and the patch tokens,
             # after the position embedding (which has no entries for them)
-            reg = self.register_tokens.to(x.dtype).expand(b, -1, -1)
+            reg = reg.expand(b, -1, -1)
             tokens = torch.cat([tokens[:, :n_prefix], reg, tokens[:, n_prefix:]], dim=1)
             n_prefix += cfg.num_register_tokens
         # a token-major residual stream: without a cls token to concatenate,

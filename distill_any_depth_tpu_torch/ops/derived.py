@@ -1,19 +1,30 @@
 """A value derived from parameter tensors, kept until any of them changes.
 
 The one cache of the port for weights prepared from parameters (the DPT
-tail's packed weights, a ``QuantLinear``'s int8 weight): ``Derived.get``
-keys the value on each tensor's device, storage pointer, version counter
-(an in-place update, such as ``load_state_dict`` or an optimizer step,
-bumps it), shape and stride, plus an extra key such as a compute dtype,
-and computes it again when the key changes. Under tracing
-(``torch.compiler.is_compiling()``: ``torch.export``) a tensor has no
-storage to key on: the value is computed in the traced graph and not kept.
+tail's packed weights, a ``QuantLinear``'s int8 weight, the encoder's and
+head's weights cast to the compute dtype under ``torch.inference_mode()``):
+``Derived.get`` keys the value on each tensor's device, storage pointer,
+version counter (an in-place update, such as ``load_state_dict`` or an
+optimizer step, bumps it), shape and stride, plus an extra key such as a
+compute dtype and whether inference mode is on, and computes it again when
+the key changes. So a value made under inference mode (an inference tensor,
+which autograd refuses to save) is handed out only under inference mode. A
+write that bypasses the version counter (through ``.data``) is not seen.
+Under tracing (``torch.compiler.is_compiling()``: ``torch.export``) a tensor
+has no storage to key on, and an inference tensor keeps no version counter:
+the value is computed and not kept.
+
+Under ``utils/profiling.recording()`` each kept lookup counts
+``derived/hit`` (the kept value handed out) or ``derived/miss`` (computed
+and kept).
 """
 from __future__ import annotations
 
 from typing import Callable, Sequence, TypeVar
 
 import torch
+
+from distill_any_depth_tpu_torch.utils.profiling import count
 
 __all__ = ["Derived"]
 
@@ -34,9 +45,16 @@ class Derived:
     def get(self, tensors: Sequence[torch.Tensor], compute: Callable[[], T], extra=None) -> T:
         if torch.compiler.is_compiling():
             return compute()
-        key = (extra, *[(t.device, t.data_ptr(), t._version, t.shape, t.stride())
-                        for t in tensors])
-        if key != self._key:
+        try:
+            key = (extra, torch.is_inference_mode_enabled(),
+                   *[(t.device, t.data_ptr(), t._version, t.shape, t.stride())
+                     for t in tensors])
+        except RuntimeError:  # an inference tensor: no version counter to key on
+            return compute()
+        if key == self._key:
+            count("derived/hit", 1)
+        else:
+            count("derived/miss", 1)
             self._value = compute()
             self._key = key
         return self._value

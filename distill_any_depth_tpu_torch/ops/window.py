@@ -43,7 +43,12 @@ def _bias_np(gh: int, gw: int, window: int, n_prefix: int) -> np.ndarray:
 @functools.lru_cache(maxsize=16)
 def _bias_tensor(gh: int, gw: int, window: int, n_prefix: int, device: torch.device,
                  dtype: torch.dtype) -> torch.Tensor:
-    return torch.from_numpy(_bias_np(gh, gw, window, n_prefix)).to(device=device, dtype=dtype)
+    # a plain tensor even when first asked for under inference mode: a
+    # training forward saves it for its backward, which an inference tensor
+    # refuses
+    with torch.inference_mode(False):
+        return torch.from_numpy(_bias_np(gh, gw, window, n_prefix)).to(device=device,
+                                                                      dtype=dtype)
 
 
 def local_window_bias(gh: int, gw: int, window: int, n_prefix: int = 1,

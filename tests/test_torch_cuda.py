@@ -25,7 +25,9 @@ plain version) sum to the unsharded layer's product. An exported program
 gives the eager depth bit for bit; a remat step launches kernel 1 once more
 per student block, with the loss of the step without remat bit for bit.
 ``predict`` returns its depth bit for bit in page-locked memory, a new
-array each call.
+array each call. A forward under ``torch.inference_mode()`` casts no
+parameter to bf16 after its first call, with the ``no_grad`` depth bit for
+bit.
 """
 import dataclasses
 
@@ -35,7 +37,9 @@ import torch
 
 from distill_any_depth_tpu_torch.cli import infer
 from distill_any_depth_tpu_torch.configs import LossConfig, OptimizerConfig, model_config
+from distill_any_depth_tpu_torch.models import vit
 from distill_any_depth_tpu_torch.models.adapters import adapter_parameters, is_adapter_name
+from distill_any_depth_tpu_torch.models.dpt import ConvTranspose2d
 from distill_any_depth_tpu_torch.models.factory import create_model
 from distill_any_depth_tpu_torch.ops.dpt_tail import fused_dpt_tail, tail_reference
 from distill_any_depth_tpu_torch.ops.flash_attention import (
@@ -843,3 +847,54 @@ def test_predict_reads_back_into_pinned_memory(cuda_device):
         out = infer.predict(model, _frames(5, 13), size, batch_size=4)
     assert rec.counts["predict/readback_bytes"] == out.nbytes
     assert rec.counts["predict/readback_pinned_bytes"] == rec.counts["predict/readback_bytes"]
+
+
+def _param_casts(model, x) -> int:
+    """The fp32 parameter tensors a forward casts to bf16: each parameter
+    of each layer call, the pos-embed of a grid other than the base one, and
+    the cls and register tokens."""
+    calls = []
+    hooks = [m.register_forward_hook(lambda mod, *_: calls.append(mod))
+             for m in model.modules() if isinstance(m, (vit.Linear, vit.LayerNorm, vit.Conv2d,
+                                                        vit.LayerScale, ConvTranspose2d))]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    enc = model.pretrained
+    own = [enc.pos_embed, enc.cls_token, enc.register_tokens]
+    return (sum(len(list(m.parameters(recurse=False))) for m in calls)
+            + sum(t is not None for t in own))
+
+
+def _bf16_copies(forward) -> int:
+    """Launches of ATen's fp32 -> bf16 copy kernel in ``forward()``."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        forward()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if "bfloat16_copy_kernel" in e.key)
+
+
+def test_inference_mode_forward_casts_no_weights(cuda_device):
+    """A ViT-B 392^2 bs8 forward under ``torch.inference_mode()``, after its
+    first call, launches none of the fp32 -> bf16 casts of the parameters
+    that a ``no_grad`` forward launches (each forward's other casts, the
+    input's, are in both), and its depth equals the ``no_grad`` depth bit for
+    bit."""
+    model = create_model("depthanything-base", dtype=torch.bfloat16, device=cuda_device, seed=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(8, 3, 392, 392, generator=gen, device=cuda_device)
+    casts = _param_casts(model, x)
+
+    def forward(mode):
+        with mode():
+            return model(x)[0]
+
+    want = forward(torch.no_grad)
+    plain = _bf16_copies(lambda: forward(torch.no_grad))
+    forward(torch.inference_mode)
+    with recording() as rec:
+        kept = _bf16_copies(lambda: forward(torch.inference_mode))
+    assert casts > 100 and plain - kept == casts, (plain, kept, casts)
+    assert rec.counts.get("derived/miss", 0) == 0 and rec.counts["derived/hit"] > 100
+    assert torch.equal(forward(torch.inference_mode), want)
