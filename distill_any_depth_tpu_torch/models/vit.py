@@ -60,7 +60,7 @@ from distill_any_depth_tpu_torch.ops.quant import int8_matmul, shard_product
 from distill_any_depth_tpu_torch.ops.quant_matmul import quantize_rows, w8a8_matmul
 from distill_any_depth_tpu_torch.ops.resize import resize_matrix
 from distill_any_depth_tpu_torch.ops.swiglu import swiglu_gate
-from distill_any_depth_tpu_torch.ops.window import local_window_bias
+from distill_any_depth_tpu_torch.ops.window import local_window_bias, window_pairs
 from distill_any_depth_tpu_torch.parallel.tp import (
     all_reduce_max,
     copy_to_model,
@@ -279,11 +279,24 @@ class Attention(nn.Module):
             self.proj = _linear(dim, dim, quant)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor | None = None,
-                band: tuple[int, int] | None = None) -> torch.Tensor:
+                band: tuple[int, int] | None = None, pairs: int | None = None) -> torch.Tensor:
+        """Attention of ``x [B, N, C]``, over every key or, windowed, under
+        ``bias``/``band``. ``pairs`` (windowed only) is the live (query, key)
+        pairs of one image and head: under ``utils/profiling.recording()``
+        a windowed call is the span ``vit/window_attention`` (qkv, the
+        attention, proj) and counts ``vit/window_pairs``, ``B * heads *
+        pairs`` over this rank's heads."""
         # qkv columns are (q|k|v, head, dim): the layout the kernels read as
         # is, with this rank's heads of each of q, k and v under tensor
         # parallelism
         heads = self.num_heads // model_size(self.tp_group)
+        if pairs is None:
+            return self._attend(x, heads, bias, band)
+        with span("vit/window_attention"):
+            count("vit/window_pairs", x.shape[0] * heads * pairs)
+            return self._attend(x, heads, bias, band)
+
+    def _attend(self, x, heads, bias, band):
         qkv = self.qkv(copy_to_model(x, self.tp_group))
         return self.proj(multi_head_attention_packed(qkv, heads, bias, band, self.attn_impl))
 
@@ -320,8 +333,9 @@ class Block(nn.Module):
             SSF(dim) if use_ssf else nn.Identity() for _ in range(4))
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor | None = None,
-                band: tuple[int, int] | None = None) -> torch.Tensor:
-        x = x + self.ls1(self.ssf_attn(self.attn(self.ssf_norm1(self.norm1(x)), bias, band)))
+                band: tuple[int, int] | None = None, pairs: int | None = None) -> torch.Tensor:
+        a = self.attn(self.ssf_norm1(self.norm1(x)), bias, band, pairs)
+        x = x + self.ls1(self.ssf_attn(a))
         return x + self.ls2(self.ssf_mlp(self.mlp(self.ssf_norm2(self.norm2(x)))))
 
 
@@ -341,7 +355,11 @@ def interp_pos_embed(pos_embed: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor
 class PosConv(nn.Module):
     """PEG conv positional encoding: a 37x37 depthwise conv over the token
     grid plus the identity, ``[B, N, C]`` tokens on a ``gh x gw`` grid. The
-    conv is ``proj.0`` (the reference key ``pos_conv.proj.0``)."""
+    conv is ``proj.0`` (the reference key ``pos_conv.proj.0``).
+
+    Under ``utils/profiling.recording()`` each call is the span
+    ``vit/pos_conv`` and counts ``vit/pos_conv_flops``, the conv's
+    multiply-adds twice: ``2 * B * C * 37^2 * gh * gw``."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -349,11 +367,14 @@ class PosConv(nn.Module):
 
     def forward(self, tokens: torch.Tensor, gh: int, gw: int) -> torch.Tensor:
         b, n, c = tokens.shape
-        # NCHW-contiguous whatever the tokens' layout: PyTorch's depthwise
-        # kernel took 7x longer on the channels-last view that contiguous
-        # tokens give (ViT-B 518^2 bs8 on an H100)
-        x = tokens.transpose(1, 2).reshape(b, c, gh, gw).contiguous()
-        return (self.proj(x) + x).flatten(2).transpose(1, 2)
+        with span("vit/pos_conv"):
+            kh, kw = self.proj[0].kernel_size
+            count("vit/pos_conv_flops", 2 * b * c * kh * kw * gh * gw)
+            # NCHW-contiguous whatever the tokens' layout: PyTorch's depthwise
+            # kernel took 7x longer on the channels-last view that contiguous
+            # tokens give (ViT-B 518^2 bs8 on an H100)
+            x = tokens.transpose(1, 2).reshape(b, c, gh, gw).contiguous()
+            return (self.proj(x) + x).flatten(2).transpose(1, 2)
 
 
 class DinoViT(nn.Module):
@@ -485,17 +506,19 @@ class DinoViT(nn.Module):
         # elementwise op of the blocks would run strided
         tokens = tokens.contiguous()
         bias, band = self._attention_mask(gh, gw, tokens.shape[1], x.device, x.dtype)
+        pairs = None if cfg.window_size is None else window_pairs(gh, gw, cfg.window_size,
+                                                                   n_prefix)
         raw = {}
         # the blocks draw no random numbers: no RNG state to keep for the
         # recompute
         remat = self.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
             if remat:
-                tokens = torch.utils.checkpoint.checkpoint(blk, tokens, bias, band,
+                tokens = torch.utils.checkpoint.checkpoint(blk, tokens, bias, band, pairs,
                                                            use_reentrant=False,
                                                            preserve_rng_state=False)
             else:
-                tokens = blk(tokens, bias, band)
+                tokens = blk(tokens, bias, band, pairs)
             if i in cfg.out_indices:
                 raw[i] = tokens
         if cfg.final_taps:

@@ -7,7 +7,8 @@ The port's own copy of distill_any_depth_tpu/ops/window.py: additive
 clamped inward at the borders (corner/edge completion: a border token sees a
 full window, not a truncated one; a grid smaller than the window sees the
 whole axis); prefix tokens (cls, registers) attend and are attended
-everywhere.
+everywhere. ``window_pairs`` counts the bias's live (query, key) pairs on
+the host.
 
 The bias is built once with numpy and kept per grid, device and dtype, so a
 forward does not copy it from the host again.
@@ -19,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["local_window_bias", "segment_bias"]
+__all__ = ["local_window_bias", "window_pairs", "segment_bias"]
 
 
 @functools.lru_cache(maxsize=64)
@@ -61,6 +62,16 @@ def local_window_bias(gh: int, gw: int, window: int, n_prefix: int = 1,
     if torch.compiler.is_compiling():
         return torch.from_numpy(_bias_np(gh, gw, window, n_prefix)).to(device=device, dtype=dtype)
     return _bias_tensor(gh, gw, window, n_prefix, torch.device(device), dtype)
+
+
+def window_pairs(gh: int, gw: int, window: int, n_prefix: int = 0) -> int:
+    """Live (query, key) pairs of ``local_window_bias(gh, gw, window,
+    n_prefix)``, from the shapes alone. The window is separable and its
+    clamped centre keeps it whole, so an axis of ``g`` tokens gives each
+    query ``min(window, g)`` keys; a prefix token pairs with every token."""
+    grid = gh * min(window, gh) * gw * min(window, gw)
+    n = n_prefix + gh * gw
+    return grid + n_prefix * (2 * n - n_prefix)
 
 
 def segment_bias(segment_ids: torch.Tensor) -> torch.Tensor:
