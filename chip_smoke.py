@@ -205,6 +205,17 @@ Phases, each of which fails the run if it fails:
    bytes (run after phase 13; path 7 counts its 40 launches a ViT-g
    forward and a ViT-g-reg teacher's chunk, phase 16 times it).
 
+23. hold the PEG conv kernel (row 12, ``csrc/peg_conv.cu``: the windowed
+   model's 37x37 depthwise conv with its bias and identity) against the
+   plain ``F.conv2d(x, w, b, padding=18, groups=C) + x`` computed in fp32
+   from the same inputs (bf16 within one rounding of the output plus 1e-5
+   of the terms' size, fp32 within that 1e-5), in bf16 and fp32 at the
+   windowed teacher's 1036^2 and 518^2 bs8 grids, a non-square, a wide (the
+   direct kernel in bf16) and an odd grid and an x off 4 bytes, each against
+   its own second call bit for bit, and its autograd Function's gradients
+   against ATen's bit for bit (run after phase 22; paths 3, 4 and 10 count
+   its launch once a windowed forward, phase 16 times it).
+
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -265,6 +276,7 @@ from distill_any_depth_tpu_torch.ops.quant_matmul import (  # noqa: E402
     w8a8_matmul,
     w8a8_reference,
 )
+from distill_any_depth_tpu_torch.ops.peg_conv import peg_conv, peg_conv_reference  # noqa: E402
 from distill_any_depth_tpu_torch.ops.swiglu import (  # noqa: E402
     swiglu_gate,
     swiglu_gate_backward,
@@ -1120,7 +1132,7 @@ def train_images(n: int, seed: int, res: int = RES) -> np.ndarray:
 
 # the kernels' launch counters, ``kernels/<name>`` under ``recording()``
 KERNELS = ("attention", "tail", "attention_bwd", "select", "attention_bias", "attention_banded",
-           "attention_bias_bwd", "attention_banded_bwd", "w8a8", "gate")
+           "attention_bias_bwd", "attention_banded_bwd", "w8a8", "gate", "peg_conv")
 
 
 def launches(rec) -> dict:
@@ -1143,7 +1155,7 @@ def expected_step_counts(batch: int, chunk: int = 8, teacher_quant: str = "none"
             "attention_bias": 0, "attention_banded": 0, "attention_bias_bwd": 0,
             "attention_banded_bwd": 0,
             "w8a8": 4 * chunks * t if teacher_quant == "int8_pallas" else 0,
-            "gate": chunks * t if tcfg.ffn == "swiglu" else 0}
+            "gate": chunks * t if tcfg.ffn == "swiglu" else 0, "peg_conv": 0}
 
 
 def run_trainer(tag: str, cfg: TrainConfig) -> tuple[Trainer, dict]:
@@ -1250,7 +1262,7 @@ def phase_window_path(images) -> tuple[torch.nn.Module, dict]:
     counts = {}
     for res in WINDOW_RES:
         depth, counts[res] = run_predict(f"window {res}", model, images, res,
-                                         {kernel[res]: blocks, "tail": 1})
+                                         {kernel[res]: blocks, "tail": 1, "peg_conv": 1})
         depth_vs_cpu(f"window {res}", WINDOW_ARCH, res, depth[0], images,
                      (WINDOW_E2E_MAX, WINDOW_E2E_MEAN, WINDOW_E2E_CORR))
     return model, counts
@@ -1260,7 +1272,7 @@ def phase_window_path(images) -> tuple[torch.nn.Module, dict]:
 def expected_window_step_counts(res: int, batch: int, chunk: int = 8) -> dict:
     """Per step of the windowed student under the ViT-L teacher: kernel 1 in
     the teacher only, kernels 5 + 6 below the banded threshold, 7 + 8 above
-    it, no kernel 3."""
+    it, no kernel 3, the PEG conv once (its backward is ATen's)."""
     s, t = model_config(WINDOW_ARCH).encoder.depth, model_config(TEACHER).encoder.depth
     chunks = batch // chunk if batch > chunk and batch % chunk == 0 else 1
     g = res // 14
@@ -1268,7 +1280,7 @@ def expected_window_step_counts(res: int, batch: int, chunk: int = 8) -> dict:
     return {"attention": chunks * t, "tail": chunks, "attention_bwd": 0, "select": 2,
             "attention_bias": 0 if banded else s, "attention_banded": s if banded else 0,
             "attention_bias_bwd": 0 if banded else s, "attention_banded_bwd": s if banded else 0,
-            "w8a8": 0, "gate": 0}
+            "w8a8": 0, "gate": 0, "peg_conv": 1}
 
 
 def phase_window_train() -> dict:
@@ -1433,7 +1445,7 @@ def phase_window_train_vs_cpu() -> dict:
         want = {"attention": model_config("depthanything-small").encoder.depth,
                 "attention_bwd": 0, "attention_bias": 0 if banded else s,
                 "attention_bias_bwd": 0 if banded else s, "attention_banded": s if banded else 0,
-                "attention_banded_bwd": s if banded else 0}
+                "attention_banded_bwd": s if banded else 0, "peg_conv": 1}
         readings[res] = step_vs_cpu(f"window fp32 step {res}", cfg,
                                     train_images(batch, seed=seed, res=res),
                                     WINDOW_FP32_STEP_TOL, want)
@@ -1603,6 +1615,115 @@ def swiglu_gate_timing(gen) -> dict:
     row["tb_s"] = nbytes / row["device_ms"] / 1e9
     log(f"[timing] swiglu gate: {json.dumps(row)}")
     return row
+
+
+# ---------------------------------------------------------------- phase 23
+# the PEG conv's x [B, C, H, W]: the windowed teacher's 1036^2 and 518^2 grids
+# at bs8, a non-square grid, one wider than 80 (the direct kernel in bf16),
+# an odd width, and an x one element off 4 bytes (one column a copy)
+PEG_CASES = (("1036^2 bs8", (BATCH, 768, 74, 74), 0), ("518^2 bs8", (BATCH, 768, 37, 37), 0),
+             ("12x16", (2, 40, 12, 16), 0), ("20x90", (3, 24, 20, 90), 0),
+             ("13x17", (2, 8, 13, 17), 0), ("off 4 bytes", (2, 16, 74, 74), 1))
+# |got - ref| per element against the fp32 plain version: the sums' error in
+# another order, 1e-5 of the terms' size (|w| * |x| summed, + |b| + |x|), and
+# in bf16 one rounding of the output, 2^-8 of its size
+PEG_SUM_TOL = 1e-5
+
+
+def peg_inputs(shape, dtype, gen, offset=0):
+    b, c, h, w = shape
+    x = torch.randn(b * c * h * w + offset, generator=gen, device="cuda").to(dtype)
+    weight = (torch.randn(c, 1, 37, 37, generator=gen, device="cuda") / 37).to(dtype)
+    bias = torch.randn(c, generator=gen, device="cuda").to(dtype)
+    return x[offset:].view(shape), weight, bias
+
+
+def peg_reading(got, x, weight, bias) -> float:
+    """The largest |got - ref| over its allowance (``PEG_SUM_TOL`` of the
+    terms' size, plus 2^-8 |ref| in bf16); at most 1 passes."""
+    f = [t.float() for t in (x, weight, bias)]
+    ref = peg_conv_reference(*f)
+    terms = (F.conv2d(f[0].abs(), f[1].abs(), None, padding=18, groups=x.shape[1])
+             + f[2].abs().view(1, -1, 1, 1) + f[0].abs())
+    allowed = PEG_SUM_TOL * terms + (2.0 ** -8 * ref.abs() if got.dtype == torch.bfloat16 else 0)
+    return float(((got.float() - ref).abs() / allowed).max())
+
+
+def phase_peg_conv(gen) -> float:
+    """The PEG conv kernel at every case in both dtypes, against the plain
+    version in fp32 and against its own second call; its autograd Function
+    against autograd of the plain version (ATen's backward) bit for bit.
+    Returns the largest abs error at the 1036^2 grid in bf16."""
+    err = 0.0
+    for label, shape, off in PEG_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, b = peg_inputs(shape, dtype, gen, off)
+            with recording() as rec:
+                out = peg_conv(x, w, b)
+                torch.cuda.synchronize()
+            check(rec.counts.get("kernels/peg_conv") == 1, f"peg conv {label}: no launch")
+            reading = peg_reading(out, x, w, b)
+            twice = torch.equal(peg_conv(x, w, b), out)
+            ok = reading <= 1 and twice and bool(torch.isfinite(out).all())
+            log(f"[peg conv] {label} {list(shape)} {str(dtype)[6:]}, x 4-byte aligned "
+                f"{x.data_ptr() % 4 == 0}: {reading:.3f} of the allowance (<= 1), second call "
+                f"bit-equal {twice} {'ok' if ok else 'FAIL'}")
+            check(ok, f"peg conv {label} {dtype}: outside tolerance or not repeatable")
+            if label == PEG_CASES[0][0] and dtype == torch.bfloat16:
+                err = errors(out, peg_conv_reference(x.float(), w.float(), b.float()))[0]
+            del x, w, b, out
+    for dtype in (torch.bfloat16, torch.float32):
+        x, w, b = peg_inputs((2, 64, 74, 74), dtype, gen)
+        g = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+        got = [t.clone().requires_grad_() for t in (x, w, b)]
+        ref = [t.clone().requires_grad_() for t in (x, w, b)]
+        peg_conv(*got).backward(g)
+        peg_conv_reference(*ref).backward(g)
+        same = [bool(torch.equal(p.grad, q.grad)) for p, q in zip(got, ref)]
+        log(f"[peg conv] autograd {str(dtype)[6:]}: d(x), d(w), d(b) equal ATen's {same}")
+        check(all(same), f"peg conv autograd {dtype}: gradients differ from ATen's")
+    for dtype in (torch.float16, torch.float64):
+        try:
+            peg_conv(*peg_inputs((1, 4, 8, 8), dtype, gen))
+        except TypeError:
+            continue
+        fail(f"peg conv: a {dtype} CUDA tensor did not raise")
+    return err
+
+
+def peg_conv_timing(gen) -> dict:
+    """Row 12 at the windowed teacher's bs8 grids in bf16: the kernel by CUDA
+    events and device time beside its bound (dense taps, 2 B C 37^2 H W at
+    989 TFLOP/s, as ``portbench/window_flops.pos_conv`` counts them), the
+    plain version (ATen's depthwise conv, then ``+ x``: the path before the
+    kernel) and ATen's ``F.conv2d`` alone (the library yardstick)."""
+    shapes = []
+    for label, shape, _ in PEG_CASES[:2]:
+        x, w, b = peg_inputs(shape, torch.bfloat16, gen)
+        bsz, c, h, wd = shape
+        flops = 2.0 * bsz * c * 37 * 37 * h * wd
+        nbytes = (2 * bsz * c * h * wd + c * 37 * 37 + c) * 2
+
+        def fwd():
+            return peg_conv(x, w, b)
+
+        def plain():
+            return peg_conv_reference(x, w, b)
+
+        def library():
+            return F.conv2d(x, w, b, padding=18, groups=c)
+
+        row = dict(shape=label, dims=list(shape), flops=flops, bytes=nbytes,
+                   ms=cuda_ms(fwd, iters=50), device_split=device_split(fwd, 20),
+                   plain_ms=cuda_ms(plain, iters=5), plain_split=device_split(plain, 5),
+                   library_ms=cuda_ms(library, iters=5), bound_ms=bound(flops, nbytes)[0])
+        row["device_ms"] = sum(row["device_split"].values())
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        row["tflop_s"] = flops / row["device_ms"] / 1e9
+        log(f"[timing] peg conv {label}: {json.dumps(row)}")
+        shapes.append(row)
+        del x, w, b
+    return {**shapes[0], "shapes": shapes}
 
 
 # ---------------------------------------------------------------- phase 14
@@ -2771,7 +2892,8 @@ EXPORT_KERNELS = {"attention": r"packed_attn_wgmma[<(]",
                   "tail": r"tail_conv_wgmma<",
                   "attention_bias": r"masked_attn_wgmma<.*BiasMask",
                   "attention_banded": r"masked_attn_wgmma<.*WindowMask",
-                  "w8a8": r"gemm_wgmma<"}
+                  "w8a8": r"gemm_wgmma<",
+                  "peg_conv": r"dad_peg_conv_depthwise2d_"}
 # path 10's budget of seconds (the phase prints its time)
 PATH10_BUDGET_S = 150
 # relative difference of the gradient norm of a remat step against the step
@@ -2859,9 +2981,9 @@ def path10_exports(model, qmodel, wmodel) -> dict:
              ("vitl_int8_518_args", qmodel, QUANT_RES, QUANT_BATCH, True,
               {"attention": 24, "tail": 1, "w8a8": 96}),
              ("window_518", wmodel, WINDOW_RES[0], BATCH, False,
-              {"attention_bias": 12, "tail": 1}),
+              {"attention_bias": 12, "tail": 1, "peg_conv": 1}),
              ("window_1036", wmodel, WINDOW_RES[1], 1, False,
-              {"attention_banded": 12, "tail": 1})]
+              {"attention_banded": 12, "tail": 1, "peg_conv": 1})]
     programs, out = [], {}
     for name, m, res, batch, as_args, per_forward in specs:
         x = torch.from_numpy(train_images(batch, seed=21, res=res)).cuda().permute(0, 3, 1, 2)
@@ -3581,6 +3703,14 @@ def phase_timing(model, images, counts, errs, trainer, train_counts, wmodel, wco
           errs["swiglu_gate"], gate["ms"], gate["plain_ms"], gate["library_ms"], 0.0,
           gate["bytes"], launches=path7["counts"]["gate"],
           **{k: v for k, v in gate.items() if k not in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    # row 12: the PEG conv (no TPU kernel: XLA ran flax's grouped conv)
+    pegrow = peg_conv_timing(gen)
+    entry("peg_conv", "peg_conv", "peg_conv.cu",
+          "models/vit.py PosConv (no kernel: XLA ran flax's grouped conv)", errs["peg_conv"],
+          pegrow["ms"], pegrow["plain_ms"], pegrow["library_ms"], pegrow["flops"], pegrow["bytes"],
+          launches=wcounts[WINDOW_RES[1]]["peg_conv"],
+          **{k: v for k, v in pegrow.items()
+             if k not in ("ms", "plain_ms", "library_ms", "bound_ms", "flops")})
     kernels.append(tail_v1)
     for kd in kernels:
         for row in (kd, *kd.get("shapes", ())):
@@ -3749,6 +3879,7 @@ def main() -> None:
     errs["attention_bias_bwd"], errs["attention_banded_bwd"] = phase_window_grad(gen)
     errs["w8a8"] = phase_w8a8(gen)
     errs["swiglu_gate"] = phase_swiglu_gate(gen)
+    errs["peg_conv"] = phase_peg_conv(gen)
     model = create_model(ARCH, dtype=torch.bfloat16, device="cuda", seed=0)
     images = synthetic_images(BATCH)
     counts = phase_main_path(model, images)

@@ -194,11 +194,6 @@ __device__ __forceinline__ void store2(T* p, float y0, float y1) {
   }
 }
 
-// Sync the `count` threads of named barrier `id` (0 is __syncthreads').
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
 
 
 template <typename T>

@@ -56,6 +56,7 @@ from distill_any_depth_tpu_torch.models.adapters import SSF, LoRALinear
 from distill_any_depth_tpu_torch.ops.attention import multi_head_attention_packed
 from distill_any_depth_tpu_torch.ops.derived import Derived
 from distill_any_depth_tpu_torch.ops.flash_attention import banded_eligible
+from distill_any_depth_tpu_torch.ops.peg_conv import peg_conv
 from distill_any_depth_tpu_torch.ops.quant import int8_matmul, shard_product
 from distill_any_depth_tpu_torch.ops.quant_matmul import quantize_rows, w8a8_matmul
 from distill_any_depth_tpu_torch.ops.resize import resize_matrix
@@ -355,7 +356,9 @@ def interp_pos_embed(pos_embed: torch.Tensor, mh: torch.Tensor, mw: torch.Tensor
 class PosConv(nn.Module):
     """PEG conv positional encoding: a 37x37 depthwise conv over the token
     grid plus the identity, ``[B, N, C]`` tokens on a ``gh x gw`` grid. The
-    conv is ``proj.0`` (the reference key ``pos_conv.proj.0``).
+    conv is ``proj.0`` (the reference key ``pos_conv.proj.0``); its weights,
+    the bias and the identity go to ``ops/peg_conv.peg_conv``: one kernel on
+    the card, the plain ``F.conv2d(...) + x`` on the CPU.
 
     Under ``utils/profiling.recording()`` each call is the span
     ``vit/pos_conv`` and counts ``vit/pos_conv_flops``, the conv's
@@ -370,11 +373,14 @@ class PosConv(nn.Module):
         with span("vit/pos_conv"):
             kh, kw = self.proj[0].kernel_size
             count("vit/pos_conv_flops", 2 * b * c * kh * kw * gh * gw)
-            # NCHW-contiguous whatever the tokens' layout: PyTorch's depthwise
-            # kernel took 7x longer on the channels-last view that contiguous
-            # tokens give (ViT-B 518^2 bs8 on an H100)
+            # NCHW-contiguous whatever the tokens' layout, as the kernel reads
+            # it (PyTorch's depthwise kernel took 7x longer on the
+            # channels-last view that contiguous tokens give, ViT-B 518^2 bs8
+            # on an H100)
             x = tokens.transpose(1, 2).reshape(b, c, gh, gw).contiguous()
-            return (self.proj(x) + x).flatten(2).transpose(1, 2)
+            conv = self.proj[0]
+            weight, bias = cast_weights(conv.casts, x.dtype, (conv.weight, conv.bias))
+            return peg_conv(x, weight, bias).flatten(2).transpose(1, 2)
 
 
 class DinoViT(nn.Module):

@@ -44,6 +44,7 @@ SOURCES = {
     "kth_select": "kth_select.cu",
     "w8a8_matmul": "w8a8_matmul.cu",
     "swiglu_gate": "swiglu_gate.cu",
+    "peg_conv": "peg_conv.cu",
 }
 
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # used when nvcc is not on PATH

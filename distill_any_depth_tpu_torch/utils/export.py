@@ -6,11 +6,12 @@ a fixed shape as a ``torch.export`` program, serialized with
 code. The kernels stay in the program as single nodes: the port's
 wrappers call their registered ops under tracing (``dad::packed_attention``,
 ``dad::bias_attention``, ``dad::banded_attention``, ``dad::dpt_tail``,
-``dad::w8a8_matmul``, ``dad::swiglu_gate``; ``ops/flash_attention``,
-``ops/dpt_tail``, ``ops/quant_matmul``, ``ops/swiglu``), whose CUDA
-implementations launch the kernels and whose CPU implementations are the
-plain versions. Loading imports those four modules, which register the
-ops, and nothing of ``models/``.
+``dad::w8a8_matmul``, ``dad::swiglu_gate``, ``dad::peg_conv``;
+``ops/flash_attention``, ``ops/dpt_tail``, ``ops/quant_matmul``,
+``ops/swiglu``, ``ops/peg_conv``), whose CUDA implementations launch the
+kernels and whose CPU implementations are the plain versions. Loading
+imports those five modules, which register the ops, and nothing of
+``models/``.
 
 Two artifact flavours, as in the JAX package:
 
@@ -31,7 +32,13 @@ import torch
 from torch import nn
 
 # registers the dad:: ops that the programs call
-from distill_any_depth_tpu_torch.ops import dpt_tail, flash_attention, quant_matmul, swiglu  # noqa: F401
+from distill_any_depth_tpu_torch.ops import (  # noqa: F401
+    dpt_tail,
+    flash_attention,
+    peg_conv,
+    quant_matmul,
+    swiglu,
+)
 from distill_any_depth_tpu_torch.utils.checkpoint import read_safetensors, write_safetensors
 
 __all__ = [

@@ -25,7 +25,12 @@ plain version) sum to the unsharded layer's product. An exported program
 gives the eager depth bit for bit; a remat step launches kernel 1 once more
 per student block, with the loss of the step without remat bit for bit.
 ``predict`` returns its depth bit for bit in page-locked memory, a new
-array each call. A forward under ``torch.inference_mode()`` casts no
+array each call. The PEG conv kernel follows its plain version in fp32 (bf16
+within one rounding of the output plus the sums' error; fp32 within the
+sums' error) at the windowed teacher's grids, a non-square, a wide and an
+odd grid, reads a token-major view, repeats its bits, gives ATen's
+gradients bit for bit and runs once a windowed forward. A forward under
+``torch.inference_mode()`` casts no
 parameter to bf16 after its first call, with the ``no_grad`` depth bit for
 bit.
 """
@@ -766,8 +771,9 @@ def _tiny_model(cuda_device, preset="depthanything-base", **kw):
 @pytest.mark.parametrize("case", ["plain", "window", "int8_pallas"])
 def test_exported_program_launches_the_kernels(cuda_device, tmp_path, case):
     """An exported bf16 program, saved and loaded, runs the kernels through
-    their ops (each kernel's count ticks once a call) and gives the eager
-    depth bit for bit; the weights-as-arguments program likewise."""
+    their ops (each kernel's count ticks once a call; the windowed model's
+    PEG conv too) and gives the eager depth bit for bit; the
+    weights-as-arguments program likewise."""
     from distill_any_depth_tpu_torch.utils import export
 
     if case == "window":
@@ -780,8 +786,8 @@ def test_exported_program_launches_the_kernels(cuda_device, tmp_path, case):
     x = torch.rand(2, 3, size, size, device=cuda_device)
     with torch.no_grad():
         want = model(x)[0].float()
-    names = (attn, "tail", "w8a8")
-    expect = [2, 1, 8 if case == "int8_pallas" else 0]
+    names = (attn, "tail", "w8a8", "peg_conv")
+    expect = [2, 1, 8 if case == "int8_pallas" else 0, 1 if case == "window" else 0]
     programs = [export.load_exported(export.export_forward(model, size, 2))]
     blob = export.export_forward_with_params(model, str(tmp_path / "w.safetensors"), size, 2)
     programs.append(export.load_exported_with_params(blob, str(tmp_path / "w.safetensors"),
@@ -898,3 +904,124 @@ def test_inference_mode_forward_casts_no_weights(cuda_device):
     assert casts > 100 and plain - kept == casts, (plain, kept, casts)
     assert rec.counts.get("derived/miss", 0) == 0 and rec.counts["derived/hit"] > 100
     assert torch.equal(forward(torch.inference_mode), want)
+
+
+# ------------------------------------------------------------------ the PEG conv
+# (B, C, H, W): the windowed teacher's 1036^2 and 518^2 grids at bs8, a
+# non-square grid, a grid wider than 80 (the direct kernel in bf16) and an odd
+# width (one column a copy)
+PEG_SHAPES = [(8, 768, 74, 74), (8, 768, 37, 37), (2, 40, 12, 16), (3, 24, 20, 90), (2, 8, 13, 17)]
+# |got - ref| against the fp32 plain version on the same inputs, per element:
+# bf16, one rounding of the output (2^-8 of its size) plus the fp32 sums'
+# error in another order (1e-5 of the terms' size, |conv|(|x|) + |b| + |x|);
+# fp32, the sums' error alone. Readings on an H100: 0.0011-0.0021 and
+# 3e-7-8e-7 of the terms' size
+PEG_SUM_TOL = 1e-5
+
+
+def _peg_inputs(shape, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b, c, h, w = shape
+    x = torch.randn(b, c, h, w, generator=gen, device=device).to(dtype)
+    weight = (torch.randn(c, 1, 37, 37, generator=gen, device=device) / 37).to(dtype)
+    bias = torch.randn(c, generator=gen, device=device).to(dtype)
+    return x, weight, bias
+
+
+def _peg_held(got, x, weight, bias):
+    from distill_any_depth_tpu_torch.ops.peg_conv import peg_conv_reference
+
+    f = [t.float() for t in (x, weight, bias)]
+    ref = peg_conv_reference(*f)
+    terms = (torch.nn.functional.conv2d(f[0].abs(), f[1].abs(), None, padding=18,
+                                        groups=x.shape[1])
+             + f[2].abs().view(1, -1, 1, 1) + f[0].abs())
+    err = (got.float() - ref).abs()
+    rounding = 2.0 ** -8 * ref.abs() if got.dtype == torch.bfloat16 else 0.0
+    assert got.dtype == x.dtype and got.shape == x.shape and torch.isfinite(got).all()
+    assert (err <= rounding + PEG_SUM_TOL * terms).all(), float((err / terms).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", PEG_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_peg_conv_kernel_matches_plain_in_fp32(cuda_device, shape, dtype):
+    """The kernel (one launch, ``kernels/peg_conv`` once; the launch's error
+    checked by the wrapper) against the plain version in fp32 with TF32
+    off, and against its own second call bit for bit."""
+    from distill_any_depth_tpu_torch.ops.peg_conv import peg_conv
+
+    x, weight, bias = _peg_inputs(shape, dtype, cuda_device, seed=sum(shape))
+    with recording() as rec:
+        got = peg_conv(x, weight, bias)
+        torch.cuda.synchronize()
+    assert _launched(rec, "peg_conv") == [1]
+    _peg_held(got, x, weight, bias)
+    assert torch.equal(peg_conv(x, weight, bias), got)
+
+
+@pytest.mark.parametrize("grid", [74, 37])
+def test_peg_conv_kernel_reads_a_token_major_view(cuda_device, grid):
+    """``PosConv``'s NCHW view of token-major ``[B, N, C]`` tokens (what a
+    contiguous token stream gives) takes the kernel on its NCHW copy: the
+    same output bit for bit as the NCHW-contiguous input."""
+    from distill_any_depth_tpu_torch.ops.peg_conv import peg_conv
+
+    x, weight, bias = _peg_inputs((8, 768, grid, grid), torch.bfloat16, cuda_device, seed=grid)
+    tokens = x.flatten(2).transpose(1, 2).contiguous()
+    view = tokens.transpose(1, 2).reshape(x.shape)
+    assert not view.is_contiguous()
+    assert torch.equal(peg_conv(view, weight, bias), peg_conv(x, weight, bias))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_peg_conv_gradients_are_atens(cuda_device, dtype):
+    """Through the autograd Function (the kernel forward, ATen's convolution
+    backward): d(x), d(weight), d(bias) equal autograd of the plain version
+    on the card bit for bit, at the 1036^2 grid."""
+    from distill_any_depth_tpu_torch.ops.peg_conv import peg_conv, peg_conv_reference
+
+    x, weight, bias = _peg_inputs((2, 64, 74, 74), dtype, cuda_device, seed=9)
+    g = torch.randn(x.shape, generator=torch.Generator(device=cuda_device).manual_seed(1),
+                    device=cuda_device).to(dtype)
+    got = [t.clone().requires_grad_() for t in (x, weight, bias)]
+    ref = [t.clone().requires_grad_() for t in (x, weight, bias)]
+    with recording() as rec:
+        peg_conv(*got).backward(g)
+    assert _launched(rec, "peg_conv") == [1]
+    peg_conv_reference(*ref).backward(g)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.grad, b.grad)
+
+
+def test_peg_conv_kernel_refuses_other_dtypes(cuda_device):
+    from distill_any_depth_tpu_torch.ops.peg_conv import peg_conv
+
+    for dtype in (torch.float16, torch.float64):
+        x, weight, bias = _peg_inputs((1, 4, 8, 8), dtype, cuda_device, seed=0)
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
+            peg_conv(x, weight, bias)
+
+
+@pytest.mark.parametrize("res", [98, 518])
+def test_windowed_forward_launches_the_peg_conv_once(cuda_device, res):
+    """The windowed teacher (full width, 2 blocks) runs the PEG conv kernel
+    once a forward, at the 7x7 and the 37x37 grid, and its PosConv output
+    follows the plain version within the kernel's tolerance."""
+    cfg = model_config("depthanything-base-window")
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, depth=2))
+    model = create_model(cfg, dtype=torch.bfloat16, device=cuda_device, seed=0)
+    x = torch.rand(2, 3, res, res, device=cuda_device)
+    with torch.no_grad(), recording() as rec:
+        depth, _ = model(x)
+        torch.cuda.synchronize()
+    assert _launched(rec, "peg_conv") == [1]
+    assert depth.shape == (2, res, res) and torch.isfinite(depth).all()
+    pos = model.pretrained.pos_conv
+    g = res // 14
+    tokens = torch.randn(2, g * g, 768, device=cuda_device).to(torch.bfloat16)
+    with torch.no_grad():
+        got = pos(tokens, g, g)
+    conv = pos.proj[0]
+    xin = tokens.transpose(1, 2).reshape(2, 768, g, g)
+    _peg_held(got.transpose(1, 2).reshape(xin.shape), xin, conv.weight.to(torch.bfloat16),
+              conv.bias.to(torch.bfloat16))

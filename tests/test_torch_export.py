@@ -2,9 +2,10 @@
 
 - The exported graph holds one op node per attention and per tail call
   (``dad::packed_attention``, ``dad::bias_attention`` or
-  ``dad::banded_attention``, ``dad::dpt_tail``) and, in an ``int8_pallas``
-  model, one ``dad::w8a8_matmul`` per block GEMM: the kernels stay single
-  nodes, not their decompositions.
+  ``dad::banded_attention``, ``dad::dpt_tail``), in a windowed model one
+  ``dad::peg_conv`` (the PEG conv with its bias and identity) and, in an
+  ``int8_pallas`` model, one ``dad::w8a8_matmul`` per block GEMM: the
+  kernels stay single nodes, not their decompositions.
 - Every program, loaded in a subprocess that imports only
   ``utils/export`` (which registers the ops) and nothing of ``models/``,
   gives the live port forward's depth bit for bit (the ops' CPU
@@ -52,8 +53,10 @@ CASES = {
 # op nodes a forward holds: attention and tail calls, and 4 GEMMs a block
 WANT_OPS = {
     "plain": {"dad.packed_attention.default": DEPTH, "dad.dpt_tail.default": 1},
-    "window_bias": {"dad.bias_attention.default": DEPTH, "dad.dpt_tail.default": 1},
-    "window_banded": {"dad.banded_attention.default": DEPTH, "dad.dpt_tail.default": 1},
+    "window_bias": {"dad.bias_attention.default": DEPTH, "dad.dpt_tail.default": 1,
+                    "dad.peg_conv.default": 1},
+    "window_banded": {"dad.banded_attention.default": DEPTH, "dad.dpt_tail.default": 1,
+                      "dad.peg_conv.default": 1},
     "int8_pallas": {"dad.packed_attention.default": DEPTH, "dad.dpt_tail.default": 1,
                     "dad.w8a8_matmul.default": 4 * DEPTH},
 }
