@@ -68,7 +68,7 @@ from distill_any_depth_tpu_torch.parallel.tp import (
     model_size,
     row_parallel_linear,
 )
-from distill_any_depth_tpu_torch.utils.profiling import count, span
+from distill_any_depth_tpu_torch.utils.profiling import backward_span, count, span
 
 __all__ = ["QUANT_MODES", "cast_weights", "Linear", "QuantLinear",
            "LayerNorm", "Conv2d", "gelu", "PatchEmbed", "Mlp", "SwiGLU", "Attention", "Block",
@@ -286,7 +286,10 @@ class Attention(nn.Module):
         pairs of one image and head: under ``utils/profiling.recording()``
         a windowed call is the span ``vit/window_attention`` (qkv, the
         attention, proj) and counts ``vit/window_pairs``, ``B * heads *
-        pairs`` over this rank's heads."""
+        pairs`` over this rank's heads; its backward from the attention's
+        output to ``qkv`` (the banded or the biased kernel's backward on the
+        card) is the span ``vit/window_attention_bwd`` and counts
+        ``vit/window_bwd_pairs``, the same number."""
         # qkv columns are (q|k|v, head, dim): the layout the kernels read as
         # is, with this rank's heads of each of q, k and v under tensor
         # parallelism
@@ -295,11 +298,14 @@ class Attention(nn.Module):
             return self._attend(x, heads, bias, band)
         with span("vit/window_attention"):
             count("vit/window_pairs", x.shape[0] * heads * pairs)
-            return self._attend(x, heads, bias, band)
+            return self._attend(x, heads, bias, band, x.shape[0] * heads * pairs)
 
-    def _attend(self, x, heads, bias, band):
+    def _attend(self, x, heads, bias, band, pairs=None):
         qkv = self.qkv(copy_to_model(x, self.tp_group))
-        return self.proj(multi_head_attention_packed(qkv, heads, bias, band, self.attn_impl))
+        out = multi_head_attention_packed(qkv, heads, bias, band, self.attn_impl)
+        if pairs is not None:
+            backward_span("vit/window_attention_bwd", out, qkv, "vit/window_bwd_pairs", pairs)
+        return self.proj(out)
 
 
 class LayerScale(nn.Module):
@@ -362,7 +368,10 @@ class PosConv(nn.Module):
 
     Under ``utils/profiling.recording()`` each call is the span
     ``vit/pos_conv`` and counts ``vit/pos_conv_flops``, the conv's
-    multiply-adds twice: ``2 * B * C * 37^2 * gh * gw``."""
+    multiply-adds twice: ``2 * B * C * 37^2 * gh * gw``. Its backward (on
+    the card ``ops/peg_conv``'s autograd Function: d(x) and d(weight), each
+    the forward's taps) is the span ``vit/pos_conv_bwd`` and counts
+    ``vit/pos_conv_bwd_flops``, twice the forward's."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -380,7 +389,10 @@ class PosConv(nn.Module):
             x = tokens.transpose(1, 2).reshape(b, c, gh, gw).contiguous()
             conv = self.proj[0]
             weight, bias = cast_weights(conv.casts, x.dtype, (conv.weight, conv.bias))
-            return peg_conv(x, weight, bias).flatten(2).transpose(1, 2)
+            y = peg_conv(x, weight, bias)
+            backward_span("vit/pos_conv_bwd", y, x, "vit/pos_conv_bwd_flops",
+                          2 * 2 * b * c * kh * kw * gh * gw)
+            return y.flatten(2).transpose(1, 2)
 
 
 class DinoViT(nn.Module):

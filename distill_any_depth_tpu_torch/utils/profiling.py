@@ -8,7 +8,9 @@ gives steps/s and images/s.
 
 The program's own spans and counters: ``span(name)`` marks a phase of a
 call or step on the host (``with span("train/backward"): ...``) and
-``count(name, n)`` adds to a counter. Both record only inside a
+``count(name, n)`` adds to a counter; ``backward_span(name, out, inp,
+counter, n)`` marks the part of a backward that runs from ``out``'s
+gradient to ``inp``'s and counts. All three record only inside a
 ``recording()`` block, which returns what was recorded; outside one, the
 default, ``span`` hands back one shared no-op context and ``count`` returns
 at once. Blocks nest: a count reaches every block open when it is made, and
@@ -34,8 +36,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["TRACE_FILE", "Span", "Recording", "span", "count", "recording", "add_spans",
-           "trace", "device_sync", "StepTimer"]
+__all__ = ["TRACE_FILE", "Span", "Recording", "span", "count", "backward_span", "recording",
+           "add_spans", "trace", "device_sync", "StepTimer"]
 
 TRACE_FILE = "trace.json"  # inside the trace directory
 SPANS_PID = 1 << 30  # the Chrome trace's process id of the "program spans" track
@@ -132,6 +134,34 @@ def count(name: str, n: int) -> None:
         entry = (name, n, time.time_ns())
         for rec in recs:
             rec.counted.append(entry)
+
+
+def backward_span(name: str, out: torch.Tensor, inp: torch.Tensor, counter: str, n: int) -> None:
+    """While a ``recording()`` block is open, mark the backward of the
+    operations from ``inp`` to ``out`` as the span ``name``: it opens when
+    ``out``'s gradient is ready, and counts ``n`` to ``counter``, and it
+    closes when ``inp``'s gradient is, on whichever thread runs the backward
+    (on a card, autograd's device thread). Call it in the forward, after the
+    operations; it registers the two gradient hooks only where a recording
+    is open, both tensors need a gradient and nothing is being traced, and
+    the span records only if a recording is open when the backward runs."""
+    if (_recording is None or not torch.is_grad_enabled() or not out.requires_grad
+            or not inp.requires_grad or torch.compiler.is_compiling()):
+        return
+    opened = []
+
+    def open_(grad):
+        s = span(name)
+        if s is not _OFF:
+            opened.append(s.__enter__())
+            count(counter, n)
+
+    def close(grad):
+        if opened:
+            opened.pop().__exit__(None, None, None)
+
+    out.register_hook(open_)
+    inp.register_hook(close)
 
 
 @contextlib.contextmanager
