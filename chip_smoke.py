@@ -213,8 +213,14 @@ Phases, each of which fails the run if it fails:
    windowed teacher's 1036^2 and 518^2 bs8 grids, a non-square, a wide (the
    direct kernel in bf16) and an odd grid and an x off 4 bytes, each against
    its own second call bit for bit, and its autograd Function's gradients
-   against ATen's bit for bit (run after phase 22; paths 3, 4 and 10 count
-   its launch once a windowed forward, phase 16 times it).
+   (the backward kernels: d(x) on the forward's kernels, d(weight) and
+   d(bias) on their own) against ATen's backward of the plain version in
+   fp32 (bf16 within one rounding of each plus 1e-5 of the terms' size,
+   fp32 within that 1e-5), each against its second call bit for bit, at the
+   1036^2 grid at bs2 and at the windowed student's bs16 1036^2 and 518^2
+   grids (run after phase 22; paths 3, 4 and 10 count its forward's launch
+   once a windowed forward, path 4 and 10's windowed steps its backward's
+   once a step, phase 16 times both).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -276,7 +282,12 @@ from distill_any_depth_tpu_torch.ops.quant_matmul import (  # noqa: E402
     w8a8_matmul,
     w8a8_reference,
 )
-from distill_any_depth_tpu_torch.ops.peg_conv import peg_conv, peg_conv_reference  # noqa: E402
+from distill_any_depth_tpu_torch.ops.peg_conv import _backward as _peg_backward  # noqa: E402
+from distill_any_depth_tpu_torch.ops.peg_conv import (  # noqa: E402
+    peg_conv,
+    peg_conv_backward,
+    peg_conv_reference,
+)
 from distill_any_depth_tpu_torch.ops.swiglu import (  # noqa: E402
     swiglu_gate,
     swiglu_gate_backward,
@@ -1132,7 +1143,8 @@ def train_images(n: int, seed: int, res: int = RES) -> np.ndarray:
 
 # the kernels' launch counters, ``kernels/<name>`` under ``recording()``
 KERNELS = ("attention", "tail", "attention_bwd", "select", "attention_bias", "attention_banded",
-           "attention_bias_bwd", "attention_banded_bwd", "w8a8", "gate", "peg_conv")
+           "attention_bias_bwd", "attention_banded_bwd", "w8a8", "gate", "peg_conv",
+           "peg_conv_bwd")
 
 
 def launches(rec) -> dict:
@@ -1155,7 +1167,7 @@ def expected_step_counts(batch: int, chunk: int = 8, teacher_quant: str = "none"
             "attention_bias": 0, "attention_banded": 0, "attention_bias_bwd": 0,
             "attention_banded_bwd": 0,
             "w8a8": 4 * chunks * t if teacher_quant == "int8_pallas" else 0,
-            "gate": chunks * t if tcfg.ffn == "swiglu" else 0, "peg_conv": 0}
+            "gate": chunks * t if tcfg.ffn == "swiglu" else 0, "peg_conv": 0, "peg_conv_bwd": 0}
 
 
 def run_trainer(tag: str, cfg: TrainConfig) -> tuple[Trainer, dict]:
@@ -1272,7 +1284,7 @@ def phase_window_path(images) -> tuple[torch.nn.Module, dict]:
 def expected_window_step_counts(res: int, batch: int, chunk: int = 8) -> dict:
     """Per step of the windowed student under the ViT-L teacher: kernel 1 in
     the teacher only, kernels 5 + 6 below the banded threshold, 7 + 8 above
-    it, no kernel 3, the PEG conv once (its backward is ATen's)."""
+    it, no kernel 3, the PEG conv's forward and backward once each."""
     s, t = model_config(WINDOW_ARCH).encoder.depth, model_config(TEACHER).encoder.depth
     chunks = batch // chunk if batch > chunk and batch % chunk == 0 else 1
     g = res // 14
@@ -1280,7 +1292,7 @@ def expected_window_step_counts(res: int, batch: int, chunk: int = 8) -> dict:
     return {"attention": chunks * t, "tail": chunks, "attention_bwd": 0, "select": 2,
             "attention_bias": 0 if banded else s, "attention_banded": s if banded else 0,
             "attention_bias_bwd": 0 if banded else s, "attention_banded_bwd": s if banded else 0,
-            "w8a8": 0, "gate": 0, "peg_conv": 1}
+            "w8a8": 0, "gate": 0, "peg_conv": 1, "peg_conv_bwd": 1}
 
 
 def phase_window_train() -> dict:
@@ -1445,7 +1457,8 @@ def phase_window_train_vs_cpu() -> dict:
         want = {"attention": model_config("depthanything-small").encoder.depth,
                 "attention_bwd": 0, "attention_bias": 0 if banded else s,
                 "attention_bias_bwd": 0 if banded else s, "attention_banded": s if banded else 0,
-                "attention_banded_bwd": s if banded else 0, "peg_conv": 1}
+                "attention_banded_bwd": s if banded else 0, "peg_conv": 1,
+                "peg_conv_bwd": 1}
         readings[res] = step_vs_cpu(f"window fp32 step {res}", cfg,
                                     train_images(batch, seed=seed, res=res),
                                     WINDOW_FP32_STEP_TOL, want)
@@ -1628,6 +1641,10 @@ PEG_CASES = (("1036^2 bs8", (BATCH, 768, 74, 74), 0), ("518^2 bs8", (BATCH, 768,
 # another order, 1e-5 of the terms' size (|w| * |x| summed, + |b| + |x|), and
 # in bf16 one rounding of the output, 2^-8 of its size
 PEG_SUM_TOL = 1e-5
+# the backward's x: the 1036^2 grid at bs2, the windowed student's bs16 1036^2
+# and 518^2 grids
+PEG_BWD_CASES = (("1036^2 bs2", (2, 64, 74, 74)), ("1036^2 bs16", (16, 768, 74, 74)),
+                 ("518^2 bs16", (16, 768, 37, 37)))
 
 
 def peg_inputs(shape, dtype, gen, offset=0):
@@ -1649,11 +1666,29 @@ def peg_reading(got, x, weight, bias) -> float:
     return float(((got.float() - ref).abs() / allowed).max())
 
 
+def peg_grad_readings(got, g, x, weight) -> list[float]:
+    """d(x), d(weight), d(bias): each one's largest |got - ref| over its
+    allowance against ATen's backward of the plain version in fp32
+    (``PEG_SUM_TOL`` of the terms' size, the same backward of the inputs'
+    magnitudes, plus 2^-8 |ref| in bf16); at most 1 passes. A tap that no
+    pixel pair reaches (a grid under 37) is allowed nothing and must read 0."""
+    f = [t.float() for t in (g, x, weight)]
+    refs = peg_conv_backward(*f)
+    terms = peg_conv_backward(*[t.abs() for t in f])
+    out = []
+    for a, r, t in zip(got, refs, terms):
+        allowed = PEG_SUM_TOL * t + (2.0 ** -8 * r.abs() if a.dtype == torch.bfloat16 else 0)
+        # 0 / 0 reads 0, an error where nothing is allowed the largest float
+        out.append(float(((a.float() - r).abs() / allowed).nan_to_num(nan=0.0).max()))
+    return out
+
+
 def phase_peg_conv(gen) -> float:
     """The PEG conv kernel at every case in both dtypes, against the plain
-    version in fp32 and against its own second call; its autograd Function
-    against autograd of the plain version (ATen's backward) bit for bit.
-    Returns the largest abs error at the 1036^2 grid in bf16."""
+    version in fp32 and against its own second call; its autograd Function's
+    gradients (the backward kernels) against ATen's backward of the plain
+    version in fp32 and against their second call. Returns the largest abs
+    error of the forward at the 1036^2 grid in bf16."""
     err = 0.0
     for label, shape, off in PEG_CASES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1672,16 +1707,25 @@ def phase_peg_conv(gen) -> float:
             if label == PEG_CASES[0][0] and dtype == torch.bfloat16:
                 err = errors(out, peg_conv_reference(x.float(), w.float(), b.float()))[0]
             del x, w, b, out
-    for dtype in (torch.bfloat16, torch.float32):
-        x, w, b = peg_inputs((2, 64, 74, 74), dtype, gen)
-        g = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
-        got = [t.clone().requires_grad_() for t in (x, w, b)]
-        ref = [t.clone().requires_grad_() for t in (x, w, b)]
-        peg_conv(*got).backward(g)
-        peg_conv_reference(*ref).backward(g)
-        same = [bool(torch.equal(p.grad, q.grad)) for p, q in zip(got, ref)]
-        log(f"[peg conv] autograd {str(dtype)[6:]}: d(x), d(w), d(b) equal ATen's {same}")
-        check(all(same), f"peg conv autograd {dtype}: gradients differ from ATen's")
+    for label, shape in PEG_BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, b = peg_inputs(shape, dtype, gen)
+            g = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+            leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+            with recording() as rec:
+                peg_conv(*leaves).backward(g)
+                torch.cuda.synchronize()
+            counts = [rec.counts.get(f"kernels/{k}") for k in ("peg_conv", "peg_conv_bwd")]
+            got = [t.grad for t in leaves]
+            readings = peg_grad_readings(got, g, x, w)
+            twice = all(torch.equal(p, q) for p, q in zip(_peg_backward(g, x, w, (True,) * 3), got))
+            ok = max(readings) <= 1 and twice and counts == [1, 1]
+            log(f"[peg conv] backward {label} {list(shape)} {str(dtype)[6:]}: d(x), d(w), d(b) "
+                f"{[round(r, 3) for r in readings]} of the allowance (<= 1), second call "
+                f"bit-equal {twice}, launches {counts} {'ok' if ok else 'FAIL'}")
+            check(ok, f"peg conv backward {label} {dtype}: outside tolerance, not repeatable "
+                      f"or launches {counts}")
+            del x, w, b, g, leaves, got
     for dtype in (torch.float16, torch.float64):
         try:
             peg_conv(*peg_inputs((1, 4, 8, 8), dtype, gen))
@@ -1723,7 +1767,49 @@ def peg_conv_timing(gen) -> dict:
         log(f"[timing] peg conv {label}: {json.dumps(row)}")
         shapes.append(row)
         del x, w, b
+    for label, shape in PEG_BWD_CASES[1:]:
+        shapes.append(peg_backward_timing(label, shape, gen))
     return {**shapes[0], "shapes": shapes}
+
+
+def peg_backward_timing(label, shape, gen) -> dict:
+    """Row 12's backward at the windowed student's bs16 grids in bf16: d(x)
+    (the flip of the kernel, then the forward's kernel on the cotangent) and
+    d(weight) with d(bias) (the partials, then their reduction) apart and
+    together, by CUDA events and device time, beside their bounds (each the
+    forward's 2 B C 37^2 H W operations, as ``portbench/window_train_flops``
+    counts them) and ATen's ``convolution_backward`` (the library yardstick:
+    the backward before the kernels, less the identity's ``+ g``)."""
+    x, w, _ = peg_inputs(shape, torch.bfloat16, gen)
+    g = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    bsz, c, h, wd = shape
+    flops = 2.0 * bsz * c * 37 * 37 * h * wd
+    nbytes = (2 * bsz * c * h * wd + c * 37 * 37 + c) * 2  # two maps in, the weights in or out
+    passes = {"dx": (True, False, False), "dw": (False, True, True), "": (True, True, True)}
+    row = {"shape": label, "pass": "backward", "dims": list(shape), "flops": 2 * flops,
+           "bytes": 2 * nbytes, "bound_ms": bound(2 * flops, 2 * nbytes)[0]}
+    for name, mask in passes.items():
+        def fn(mask=mask):
+            return _peg_backward(g, x, w, mask)
+        pre = f"{name}_" if name else ""
+        row[f"{pre}ms"] = cuda_ms(fn, iters=20)
+        row[f"{pre}device_split"] = split = device_split(fn, 10)
+        row[f"{pre}device_ms"] = sum(split.values())
+        if name:
+            row[f"{pre}bound_ms"] = bound(flops, nbytes)[0]
+            row[f"{pre}share_of_bound"] = row[f"{pre}bound_ms"] / row[f"{pre}device_ms"]
+
+    def library():
+        return torch.ops.aten.convolution_backward(g, x, w, [c], [1, 1], [18, 18], [1, 1], False,
+                                                   [0, 0], c, [True, True, True])
+
+    row["library_ms"] = cuda_ms(library, iters=3)
+    row["library_split"] = device_split(library, 3)
+    row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+    row["tflop_s"] = 2 * flops / row["device_ms"] / 1e9
+    log(f"[timing] peg conv backward {label}: {json.dumps(row)}")
+    del x, w, g
+    return row
 
 
 # ---------------------------------------------------------------- phase 14

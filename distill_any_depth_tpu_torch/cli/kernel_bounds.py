@@ -1,4 +1,5 @@
-"""Least times on an H100 for the ten TPU kernels' work, at their paths' shapes.
+"""Least times on an H100 for the ten TPU kernels' work, at their paths' shapes,
+and for the PEG conv's (row 12: no TPU kernel), forward and backward.
 
 Run anywhere (it computes, it measures nothing): ``python -m
 distill_any_depth_tpu_torch.cli.kernel_bounds``. For each kernel of the JAX
@@ -52,6 +53,16 @@ def _w8a8(m: int, k: int, n: int) -> tuple[float, float]:
     fp32 bias, out [M, N] bf16 written once: the function's bytes, whatever
     the kernels move between their launches."""
     return 2.0 * m * k * n, m * k * 2 + k * n + n * 8 + m * n * 2
+
+
+def _peg(b: int, c: int, g: int, backward: bool) -> dict:
+    """The PEG conv over ``[b, c, g, g]``: 2 * 37^2 operations per channel
+    and pixel, the map and the weights read and the output written once in
+    bf16. Backward: d(x) (the cotangent and the weights in, d(x) out) and
+    d(weight) with d(bias) (x and the cotangent in, the weights' shape
+    out), each the forward's operations."""
+    ops, nbytes = 2.0 * b * c * 37 * 37 * g * g, (2 * b * c * g * g + c * 37 * 37 + c) * 2
+    return _bound(2 * ops, 2 * nbytes) if backward else _bound(ops, nbytes)
 
 
 def vit_gemms(dim: int, ffn: str = "mlp") -> dict:
@@ -116,6 +127,10 @@ def bounds() -> dict:
         **_w8a8_encoder("ViT-B 392^2 bs8", 8 * n392, 768, 12),
         **_w8a8_encoder("ViT-g 518^2 bs8", 8 * (n518 + 1), 1536, 40, "swiglu"),
         "10 DPT tail v1, C=128 392^2 bs8": _tail(8, 392, 128),
+        # the windowed teacher's forward and the windowed student's backward
+        "12 PEG conv fwd, window 1036^2 bs8": _peg(8, 768, 74, False),
+        "12 PEG conv bwd, d(x) + d(weight), window student 1036^2 bs16": _peg(16, 768, 74, True),
+        "12 PEG conv bwd, d(x) + d(weight), window student 518^2 bs16": _peg(16, 768, 37, True),
     }
 
 

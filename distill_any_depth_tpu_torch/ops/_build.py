@@ -26,7 +26,7 @@ import torch
 
 from distill_any_depth_tpu_torch.utils.profiling import count, span
 
-__all__ = ["SOURCES", "DTYPES", "build_all", "load", "Kernel"]
+__all__ = ["SOURCES", "DTYPES", "build_all", "load", "host_int", "Kernel"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -117,6 +117,22 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         lib = _loaded[name] = ctypes.CDLL(str(_target(name)))
     return lib
+
+
+_host_fns: dict = {}  # (library, symbol) -> its typed ctypes function
+
+
+def host_int(lib: str, symbol: str, *args: int) -> int:
+    """The int64 that the host function ``symbol`` of library ``lib``
+    returns for ``args`` (each a C int): a size a wrapper needs before a
+    launch. Launches nothing and counts nothing."""
+    fn = _host_fns.get((lib, symbol))
+    if fn is None:
+        fn = getattr(load(lib), symbol)
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = ctypes.c_int64
+        _host_fns[lib, symbol] = fn
+    return fn(*args)
 
 
 class Kernel:

@@ -28,8 +28,11 @@ per student block, with the loss of the step without remat bit for bit.
 array each call. The PEG conv kernel follows its plain version in fp32 (bf16
 within one rounding of the output plus the sums' error; fp32 within the
 sums' error) at the windowed teacher's grids, a non-square, a wide and an
-odd grid, reads a token-major view, repeats its bits, gives ATen's
-gradients bit for bit and runs once a windowed forward. A forward under
+odd grid, reads a token-major view, repeats its bits and runs once a
+windowed forward; its backward kernels (d(x), d(weight), d(bias)) follow
+ATen's backward of the plain version in fp32 (within one rounding of each
+in bf16 plus the sums' error), repeat their bits, launch once a backward
+and compute only the gradients asked for. A forward under
 ``torch.inference_mode()`` casts no
 parameter to bf16 after its first call, with the ``no_grad`` depth bit for
 bit.
@@ -973,24 +976,82 @@ def test_peg_conv_kernel_reads_a_token_major_view(cuda_device, grid):
     assert torch.equal(peg_conv(view, weight, bias), peg_conv(x, weight, bias))
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_peg_conv_gradients_are_atens(cuda_device, dtype):
-    """Through the autograd Function (the kernel forward, ATen's convolution
-    backward): d(x), d(weight), d(bias) equal autograd of the plain version
-    on the card bit for bit, at the 1036^2 grid."""
-    from distill_any_depth_tpu_torch.ops.peg_conv import peg_conv, peg_conv_reference
+# (B, C, H, W) of the backward: the 1036^2 grid at a small batch and at the
+# windowed student's bs16, its 518^2 grid at bs16, a grid of the 48-wide
+# products, one wider than 80 (the direct d(weight) in bf16) and an odd width
+PEG_BWD_SHAPES = [(2, 64, 74, 74), (16, 768, 74, 74), (16, 768, 37, 37), (2, 40, 12, 16),
+                  (3, 24, 20, 90), (2, 8, 13, 17)]
 
-    x, weight, bias = _peg_inputs((2, 64, 74, 74), dtype, cuda_device, seed=9)
-    g = torch.randn(x.shape, generator=torch.Generator(device=cuda_device).manual_seed(1),
-                    device=cuda_device).to(dtype)
-    got = [t.clone().requires_grad_() for t in (x, weight, bias)]
-    ref = [t.clone().requires_grad_() for t in (x, weight, bias)]
+
+def _peg_grads_held(got, g, x, weight):
+    """d(x), d(weight), d(bias) against ATen's backward of the plain version
+    on the same inputs in fp32: one rounding of each in bf16 (2^-8 of its
+    size) plus ``PEG_SUM_TOL`` of its terms' size (the same backward of the
+    inputs' magnitudes)."""
+    from distill_any_depth_tpu_torch.ops.peg_conv import peg_conv_backward
+
+    f = [t.float() for t in (g, x, weight)]
+    want = peg_conv_backward(*f)
+    terms = peg_conv_backward(*[t.abs() for t in f])
+    for name, a, b, t in zip(("dx", "dweight", "dbias"), got, want, terms):
+        assert a.dtype == x.dtype and a.shape == b.shape and torch.isfinite(a).all(), name
+        err = (a.float() - b).abs()
+        rounding = 2.0 ** -8 * b.abs() if a.dtype == torch.bfloat16 else 0.0
+        assert (err <= rounding + PEG_SUM_TOL * t).all(), (name, float((err / t).max()))
+
+
+def _peg_cotangent(shape, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", PEG_BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_peg_conv_gradients_are_atens(cuda_device, shape, dtype):
+    """Through the autograd Function (the forward kernel, then the backward
+    kernels): d(x), d(weight), d(bias) follow ATen's backward of the plain
+    version in fp32 (``_peg_grads_held``); one ``kernels/peg_conv`` for the
+    forward and one ``kernels/peg_conv_bwd`` for the backward; a second
+    backward call gives the same bits."""
+    from distill_any_depth_tpu_torch.ops.peg_conv import _backward, peg_conv
+
+    x, weight, bias = _peg_inputs(shape, dtype, cuda_device, seed=sum(shape))
+    g = _peg_cotangent(shape, dtype, cuda_device, seed=1)
+    leaves = [t.clone().requires_grad_() for t in (x, weight, bias)]
     with recording() as rec:
-        peg_conv(*got).backward(g)
-    assert _launched(rec, "peg_conv") == [1]
-    peg_conv_reference(*ref).backward(g)
-    for a, b in zip(got, ref):
-        assert torch.equal(a.grad, b.grad)
+        peg_conv(*leaves).backward(g)
+        torch.cuda.synchronize()
+    assert _launched(rec, "peg_conv", "peg_conv_bwd") == [1, 1]
+    got = [t.grad for t in leaves]
+    _peg_grads_held(got, g, x, weight)
+    again = _backward(g, x, weight, (True, True, True))
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_peg_conv_backward_computes_the_gradients_asked_for(cuda_device):
+    """Each mask of ``needs_input_grad`` gives the full call's gradients bit
+    for bit where asked and None elsewhere, in one launch count; an input
+    that alone requires a gradient gets it through autograd; an empty batch
+    gives zero d(weight) and d(bias)."""
+    from distill_any_depth_tpu_torch.ops.peg_conv import _backward, peg_conv
+
+    x, weight, bias = _peg_inputs((2, 64, 74, 74), torch.bfloat16, cuda_device, seed=3)
+    g = _peg_cotangent(x.shape, x.dtype, cuda_device, seed=4)
+    full = _backward(g, x, weight, (True, True, True))
+    for mask in [(True, False, False), (False, True, False), (False, False, True),
+                 (False, True, True)]:
+        with recording() as rec:
+            got = _backward(g, x, weight, mask)
+        assert _launched(rec, "peg_conv_bwd") == [1], mask
+        for m, a, b in zip(mask, got, full):
+            assert torch.equal(a, b) if m else a is None, mask
+    for k in range(3):
+        leaves = [t.clone().requires_grad_(j == k) for j, t in enumerate((x, weight, bias))]
+        peg_conv(*leaves).backward(g)
+        assert [t.grad is None for t in leaves] == [j != k for j in range(3)]
+        assert torch.equal(leaves[k].grad, full[k])
+    _, dw, db = _backward(g[:0], x[:0], weight, (False, True, True))
+    assert not dw.any() and not db.any()
 
 
 def test_peg_conv_kernel_refuses_other_dtypes(cuda_device):

@@ -263,16 +263,41 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_kernel_bounds_cover_every_tpu_kernel():
     """``cli/kernel_bounds`` (the bounds of PERF.md's kernel table) gives every
-    one of the ten kernels a positive bound, masked attention below dense."""
+    one of the ten kernels, and row 12 (the PEG conv, no TPU kernel), a
+    positive bound, masked attention below dense."""
     from distill_any_depth_tpu_torch.cli import kernel_bounds
 
     table = kernel_bounds.bounds()
-    assert {name.split()[0] for name in table} == {str(i) for i in range(1, 11)}
+    assert {name.split()[0] for name in table} == {str(i) for i in range(1, 11)} | {"12"}
     assert all(row["bound_ms"] > 0 and row["bound_by"] in ("bytes", "operations")
                for row in table.values())
     for name, row in table.items():
         if "dense_gop" in row:
             assert row["gop"] <= row["dense_gop"], name
+
+
+def test_kernel_bounds_peg_rows_are_the_benchmarks_counts():
+    """Row 12's forward at the windowed teacher's bs8 and its backward at the
+    student's bs16 count what ``portbench/window_flops`` and
+    ``window_train_flops`` count: the step's forward, d(x) and d(weight) are
+    the forward row at bs16 plus the backward row, and the backward is bound
+    by operations (0.3726 ms at 1036^2)."""
+    from distill_any_depth_tpu_torch.cli import kernel_bounds
+    from portbench import window_flops, window_train_flops
+
+    table = kernel_bounds.bounds()
+    fwd = table["12 PEG conv fwd, window 1036^2 bs8"]
+    ops, nbytes = window_flops.pos_conv(8, 768, 74, 74)
+    assert (fwd["gop"], fwd["mb"]) == pytest.approx((ops / 1e9, nbytes / 1e6))
+    for g in (74, 37):
+        bwd = table[f"12 PEG conv bwd, d(x) + d(weight), window student {14 * g}^2 bs16"]
+        step_ops, step_bytes = window_train_flops.pos_conv_step(16, 768, g, g)
+        ops, nbytes = window_flops.pos_conv(16, 768, g, g)
+        assert (bwd["gop"], bwd["mb"]) == pytest.approx(((step_ops - ops) / 1e9,
+                                                         (step_bytes - nbytes) / 1e6))
+        assert bwd["bound_by"] == "operations"
+    assert round(table["12 PEG conv bwd, d(x) + d(weight), window student 1036^2 bs16"]
+                 ["bound_ms"], 4) == 0.3726
 
 
 @pytest.mark.parametrize("shape,m", [("ViT-L 518^2 bs8", 10960), ("ViT-L 392^2 bs8", 6280),
